@@ -1,0 +1,181 @@
+"""The port's serve path (index, fused pipeline, Recommender) against the JAX
+package's, on the CPU, and the port's import isolation."""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from instacart_next_order_recommendation_tpu.models import (
+    TowerConfig as JaxTowerConfig,
+    init_params as jax_init_params,
+    save_tower as jax_save_tower,
+)
+from instacart_next_order_recommendation_tpu.serve.precompile import K_BUCKETS as JAX_K_BUCKETS
+from instacart_next_order_recommendation_tpu.serve.recommender import (
+    Recommender as JaxRecommender,
+)
+from instacart_next_order_recommendation_tpu.tokenizer import (
+    WordPieceTokenizer as JaxWordPieceTokenizer,
+)
+from instacart_next_order_recommendation_tpu_torch.index import ShardedCatalogIndex
+from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+from instacart_next_order_recommendation_tpu_torch.serve.pipeline import FusedServePipeline
+from instacart_next_order_recommendation_tpu_torch.serve.recommender import (
+    K_BUCKETS,
+    Recommender,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+TOWER = JaxTowerConfig(
+    vocab_size=0, hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128,
+    max_position=64, max_seq_length=32, compute_dtype="float32",
+)
+AISLES = ["fresh fruits", "milk", "bread", "cereal", "coffee", "pasta sauce"]
+QUERIES = [
+    "[+7d w4h14] Organic Milk 3, Whole Wheat Bread 8.",
+    "[+3d w1h9] Banana 11, Greek Yogurt 40, Honey.",
+    "[+1d w0h12] Coffee 77, Oat Milk, Granola 150.",
+]
+
+
+def _corpus(n=200):
+    adjs = ["Organic", "Fresh", "Whole", "Crunchy", "Roasted"]
+    nouns = ["Milk", "Bread", "Banana", "Yogurt", "Coffee", "Granola", "Pasta"]
+    return {
+        str(1000 + i): f"Product: {adjs[i % 5]} {nouns[i % 7]} {i}. "
+        f"Aisle: {AISLES[i % 6]}. Department: d{i % 4}."
+        for i in range(n)
+    }
+
+
+def _jax_tower_dir(path: Path, corpus: dict) -> Path:
+    tok = JaxWordPieceTokenizer.train(corpus.values(), vocab_size=600, min_frequency=1)
+    cfg = dataclasses.replace(TOWER, vocab_size=tok.vocab_size)
+    jax_save_tower(path, jax_init_params(cfg, jax.random.key(7)), cfg, tok)
+    return path
+
+
+@pytest.fixture(scope="module")
+def served(tmp_path_factory):
+    """One tower and corpus served by both packages, neither using a disk
+    cache, so neither reads the other's embeddings."""
+    base = tmp_path_factory.mktemp("serve")
+    corpus = _corpus()
+    corpus_path = base / "eval_corpus.json"
+    corpus_path.write_text(json.dumps(corpus))
+    model_dir = _jax_tower_dir(base / "model", corpus)
+    ours = Recommender(model_dir, corpus_path, use_index=False, device="cpu")
+    theirs = JaxRecommender(model_dir, corpus_path, use_index=False)
+    return ours, theirs
+
+
+def _ids(results):
+    return [pid for pid, _ in results]
+
+
+@pytest.mark.parametrize("query", QUERIES)
+def test_recommend_matches_jax(served, query):
+    ours, theirs = served
+    a = ours.recommend(query, top_k=10)
+    b = theirs.recommend(query, top_k=10)
+    assert _ids(a) == _ids(b)
+    np.testing.assert_allclose([s for _, s in a], [s for _, s in b], atol=1e-5)
+    excluded = {a[0][0], a[3][0]}
+    assert _ids(ours.recommend(query, top_k=10, exclude_product_ids=excluded)) == _ids(
+        theirs.recommend(query, top_k=10, exclude_product_ids=excluded)
+    )
+    assert not excluded & set(_ids(ours.recommend(query, 10, exclude_product_ids=excluded)))
+
+
+def test_filtered_recommend_matches_jax(served):
+    ours, theirs = served
+    for kw in (
+        {"filter_aisles": ["Milk"]},
+        {"filter_aisles": ["coffee", "bread"], "filter_departments": ["d0"]},
+    ):
+        a = ours.recommend(QUERIES[0], top_k=12, **kw)
+        b = theirs.recommend(QUERIES[0], top_k=12, **kw)
+        assert _ids(a) == _ids(b) and len(a) > 0
+        for pid, _ in a:
+            text = ours.pid_to_text[pid].lower()
+            assert any(f"aisle: {x.lower()}." in text for x in kw["filter_aisles"])
+    # Fewer eligible rows than k: results stop at the -1e30 sentinel.
+    few = ours.recommend(QUERIES[1], top_k=50, filter_aisles=["milk"], filter_departments=["d1"])
+    assert _ids(few) == _ids(
+        theirs.recommend(QUERIES[1], top_k=50, filter_aisles=["milk"], filter_departments=["d1"])
+    )
+    assert 0 < len(few) < 50
+    assert ours.aisles == theirs.aisles and ours.departments == theirs.departments
+
+
+def test_pipeline_packs_scores_and_indices(served):
+    ours, _ = served
+    ids, mask = ours.encoder.tokenizer.encode_batch(QUERIES, max_seq_length=32)
+    packed, k = ours._fused.topk_device(ids, mask, 16)
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (3, 32) and k == 16
+    scores, indices = FusedServePipeline.unpack(packed.numpy(), k)
+    emb = ours.encoder.encode(QUERIES)
+    ref_s, ref_i = ours.index.topk(emb, 16)
+    np.testing.assert_array_equal(indices, ref_i)
+    np.testing.assert_allclose(scores, ref_s, atol=1e-6)
+    assert K_BUCKETS == JAX_K_BUCKETS
+    assert ours._k_bucket(17) == 32 and ours._k_bucket(300) == 200
+
+
+def test_port_reads_the_jax_embedding_cache(tmp_path, monkeypatch):
+    corpus = _corpus(60)
+    corpus_path = tmp_path / "eval_corpus.json"
+    corpus_path.write_text(json.dumps(corpus))
+    model_dir = _jax_tower_dir(tmp_path / "model", corpus)
+    theirs = JaxRecommender(model_dir, corpus_path, use_index=True)
+    cache = np.asarray(theirs.product_embeddings)
+
+    def no_encode(*args, **kwargs):
+        raise AssertionError("the cache should have been read, not rebuilt")
+
+    monkeypatch.setattr(TextEncoder, "encode_resident", no_encode)
+    ours = Recommender(model_dir, corpus_path, use_index=True, device="cpu")
+    assert isinstance(ours.product_embeddings, np.ndarray)
+    np.testing.assert_array_equal(ours.product_embeddings, cache)
+    assert _ids(ours.recommend(QUERIES[2], 5)) == _ids(theirs.recommend(QUERIES[2], 5))
+
+
+def test_no_silent_cpu(served, monkeypatch):
+    ours, _ = served
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Recommender(ours.model_dir, ours.corpus_path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ShardedCatalogIndex(np.zeros((4, 64), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TextEncoder(ours.encoder.params, ours.encoder.config, ours.encoder.tokenizer)
+
+
+def test_port_imports_no_jax(served):
+    ours, _ = served
+    script = textwrap.dedent(
+        f"""
+        import sys
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+        rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
+                          use_index=False, device="cpu")
+        assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
+        bad = [m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "instacart_next_order_recommendation_tpu")]
+        assert not bad, bad
+        print("isolated")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", script], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated" in out.stdout
