@@ -1,4 +1,4 @@
-"""MiniLM-class transformer tower: BERT encoder + mean-pool + L2-norm (inference).
+"""MiniLM-class transformer tower: BERT encoder + mean-pool + L2-norm.
 
 Counterpart of the JAX package's ``models/encoder.py``. Parameters are a
 plain dict of tensors with the same names and the same stacked-layer layout
@@ -6,8 +6,14 @@ plain dict of tensors with the same names and the same stacked-layer layout
 across packages unchanged (``models/checkpoint.py``).
 
 The forward sums the embeddings and LayerNorms them in f32, casts to the
-compute dtype, runs ``fused_encoder_layer`` once per layer, then
-``masked_mean_pool_l2norm``.
+compute dtype, runs one fused layer per layer, then
+``masked_mean_pool_l2norm``. Without a dropout generator it runs the
+inference kernel (``fused_encoder_layer``); with one it trains: BERT hidden
+dropout on the f32 embeddings and inside every layer
+(``fused_encoder_layer_train``, whose backward is the fused backward
+kernel), with every mask drawn from that one generator in a fixed order.
+The bf16 layer weights are made from the f32 parameters by differentiable
+casts, so gradients reach the parameters.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 
 from instacart_next_order_recommendation_tpu_torch.ops import (
     fused_encoder_layer,
+    fused_encoder_layer_train,
     masked_mean_pool_l2norm,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import prepare_layer
@@ -117,8 +124,10 @@ def init_params(config: TowerConfig, generator: torch.Generator) -> Params:
 
 
 def prepare_layers(params: Params, config: TowerConfig) -> list[dict]:
-    """Per-layer kernel-layout weights in the compute dtype. Made once per
-    tower (``TextEncoder`` keeps them) instead of once per forward."""
+    """Per-layer kernel-layout weights in the compute dtype, made by
+    differentiable slices and casts of the stacked f32 parameters. Made once
+    per tower for serving (``TextEncoder`` keeps them), once per forward when
+    training."""
     dtype = DTYPES[config.compute_dtype]
     stacked = params["layers"]
     return [
@@ -134,9 +143,21 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: f
     return (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def embed(params: Params, input_ids: torch.Tensor, config: TowerConfig) -> torch.Tensor:
-    """Word + position + token-type embeddings, LayerNorm in f32, cast to
-    the compute dtype: ``[B, S]`` ids -> ``[B, S, hidden]``."""
+def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+    keep = 1.0 - rate
+    bits = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(bits, x / keep, 0.0).to(x.dtype)
+
+
+def embed(
+    params: Params,
+    input_ids: torch.Tensor,
+    config: TowerConfig,
+    generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """Word + position + token-type embeddings, LayerNorm in f32, dropout in
+    f32 when a generator is given, cast to the compute dtype: ``[B, S]`` ids
+    -> ``[B, S, hidden]``."""
     s = input_ids.shape[1]
     if s > config.max_position:
         # Indexing past the position table must fail loudly, never clamp.
@@ -144,8 +165,17 @@ def embed(params: Params, input_ids: torch.Tensor, config: TowerConfig) -> torch
             f"sequence length {s} exceeds the position table ({config.max_position})"
         )
     emb = params["embeddings"]
-    x = emb["word"][input_ids.long()] + emb["position"][:s][None, :, :] + emb["token_type"][0]
+    # F.embedding, not emb["word"][ids]: the same gather, but its backward
+    # sums repeated ids in segments where advanced indexing's backward
+    # serializes them (27 ms of a 125 ms batch-512 step on the H100).
+    x = (
+        torch.nn.functional.embedding(input_ids.long(), emb["word"])
+        + emb["position"][:s][None, :, :]
+        + emb["token_type"][0]
+    )
     x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
+    if generator is not None and config.hidden_dropout > 0.0:
+        x = _dropout(x, config.hidden_dropout, generator)
     return x.to(DTYPES[config.compute_dtype])
 
 
@@ -155,22 +185,33 @@ def encode(
     attention_mask: torch.Tensor,
     config: TowerConfig,
     layers: list[dict] | None = None,
+    generator: torch.Generator | None = None,
 ) -> torch.Tensor:
     """Tower forward: token ids -> unit-norm sentence embedding ``[B, hidden]``.
 
     ``layers`` are ``prepare_layers(params, config)``; made here if omitted.
+    ``generator=None`` runs deterministically (eval/serve); a generator on
+    the ids' device trains: dropout masks are drawn from it for the
+    embeddings, then m1 and m2 of each layer in turn.
     """
-    x = embed(params, input_ids, config)
+    x = embed(params, input_ids, config, generator)
     if layers is None:
         layers = prepare_layers(params, config)
-    scale = 1.0 / (config.head_dim**0.5)
+    kwargs = dict(
+        num_heads=config.num_heads,
+        scale=1.0 / (config.head_dim**0.5),
+        eps=config.layer_norm_eps,
+    )
     for layer in layers:
-        x = fused_encoder_layer(
-            x,
-            attention_mask,
-            layer,
-            num_heads=config.num_heads,
-            scale=scale,
-            eps=config.layer_norm_eps,
-        )
+        if generator is None:
+            x = fused_encoder_layer(x, attention_mask, layer, **kwargs)
+        else:
+            x = fused_encoder_layer_train(
+                x,
+                attention_mask,
+                layer,
+                generator=generator,
+                dropout_rate=config.hidden_dropout,
+                **kwargs,
+            )
     return masked_mean_pool_l2norm(x, attention_mask)

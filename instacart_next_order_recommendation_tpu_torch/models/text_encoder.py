@@ -66,7 +66,8 @@ class TextEncoder:
         self.config = config
         self.tokenizer = tokenizer
         self.max_seq_length = max_seq_length or config.max_seq_length
-        self.layers = prepare_layers(self.params, config)
+        with torch.no_grad():
+            self.layers = prepare_layers(self.params, config)
         self.wire_dtype = wire_dtype(tokenizer.vocab_size)
 
     @classmethod
@@ -82,6 +83,16 @@ class TextEncoder:
         if tokenizer is None:
             raise FileNotFoundError(f"No vocab.txt in {model_dir}")
         return cls(params, config, tokenizer, max_seq_length, device)
+
+    def with_params(self, params: Params) -> "TextEncoder":
+        """A view of this encoder on other params (on its device), with the
+        bf16 layer copies made anew from them; training eval uses it."""
+        new = TextEncoder.__new__(TextEncoder)
+        new.__dict__.update(self.__dict__)
+        new.params = params_to_device(params, self.device)
+        with torch.no_grad():
+            new.layers = prepare_layers(new.params, self.config)
+        return new
 
     def upload_ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids.astype(self.wire_dtype))).to(self.device)

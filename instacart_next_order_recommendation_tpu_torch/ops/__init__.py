@@ -9,10 +9,20 @@ integer attribute, ``<entry>.launches``.
 
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     fused_encoder_layer,
+    fused_encoder_layer_backward,
+    fused_encoder_layer_train,
 )
+from instacart_next_order_recommendation_tpu_torch.ops.mnrl import mnrl_loss
 from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
     masked_mean_pool_l2norm,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.topk import cosine_topk
 
-__all__ = ["cosine_topk", "fused_encoder_layer", "masked_mean_pool_l2norm"]
+__all__ = [
+    "cosine_topk",
+    "fused_encoder_layer",
+    "fused_encoder_layer_backward",
+    "fused_encoder_layer_train",
+    "masked_mean_pool_l2norm",
+    "mnrl_loss",
+]

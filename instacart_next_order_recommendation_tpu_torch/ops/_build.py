@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface under ``<repo>/build/kernels/``. The file name carries a
-hash of the source and flags, so a changed source rebuilds and an unchanged
-one is loaded as it is. ``build`` starts one nvcc per missing library, all
+hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so a
+changed source rebuilds and an unchanged one is loaded as it is. ``build`` starts one nvcc per missing library, all
 at once, and waits for all of them.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches; the
@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("fused_layer", "pool_norm", "topk")
+SOURCES = ("fused_layer", "fused_layer_bwd", "pool_norm", "topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,8 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -6,7 +6,9 @@ to 1e-9, then p=2 normalisation with the norm clamped to 1e-12.
 
 ``hidden`` is ``[batch, seq, dim]``; ``mask`` is ``[batch, seq]`` (1 = real).
 The output is ``[batch, dim]``, unit L2 norm, f32. The kernel is
-``csrc/pool_norm.cu``.
+``csrc/pool_norm.cu``. The op is differentiable in ``hidden``: the forward
+runs the kernel and the backward is the vjp of the plain version, as the
+JAX package's ``_pool_with_ref_grad`` does (it has no backward kernel).
 """
 
 from __future__ import annotations
@@ -30,11 +32,30 @@ def masked_mean_pool_l2norm_reference(hidden: torch.Tensor, mask: torch.Tensor) 
 _SIGNATURES = {"pool_l2norm": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
 
 
+class _PoolWithPlainGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden, mask):
+        ctx.save_for_backward(hidden, mask)
+        return _launch(hidden, mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            h = hidden.detach().requires_grad_(True)
+            (dh,) = torch.autograd.grad(masked_mean_pool_l2norm_reference(h, mask), h, g)
+        return dh, None
+
+
 def masked_mean_pool_l2norm(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """A CPU tensor takes the plain version; a CUDA tensor launches the
     kernel, or raises on what it does not take."""
     if hidden.device.type == "cpu":
         return masked_mean_pool_l2norm_reference(hidden, mask)
+    return _PoolWithPlainGrad.apply(hidden, mask)
+
+
+def _launch(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if hidden.device.type != "cuda":
         raise ValueError(f"masked_mean_pool_l2norm: no kernel for device {hidden.device}")
     if hidden.dim() != 3 or hidden.dtype != torch.bfloat16:

@@ -8,6 +8,10 @@ descending sort: ties go to the lowest catalog index.
 The kernel (``csrc/topk.cu``) takes each 256-row catalog block's top-k; the
 merge over the ``[B, n_blocks * k]`` candidates, laid out block-major, is a
 stable descending sort, so a lower block wins a tie as a lower index does.
+A k above the block size takes the dense route instead, chosen by k alone
+as the JAX package's dispatcher chooses (k > block_n goes to dense scores +
+sort there): the scores product is left to ``torch.matmul``, as JAX leaves
+it to XLA, and a stable descending sort selects.
 """
 
 from __future__ import annotations
@@ -51,6 +55,19 @@ _SIGNATURES = {
 }
 
 
+def _cosine_topk_dense(queries, catalog, k, n_valid, candidate_mask):
+    """The GPU route for k > BLOCK_N: f32 scores, masks, stable descending
+    sort, first k (ties to the lowest index)."""
+    scores = torch.matmul(queries, catalog.T)
+    col = torch.arange(catalog.shape[0], device=scores.device)
+    scores = torch.where(col[None, :] < n_valid, scores, _NEG_INF)
+    if candidate_mask is not None:
+        scores = torch.where(candidate_mask[None, :] != 0, scores, _NEG_INF)
+    vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
+    cosine_topk.dense_calls += 1
+    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+
+
 def cosine_topk(
     queries: torch.Tensor,
     catalog: torch.Tensor,
@@ -59,8 +76,9 @@ def cosine_topk(
     candidate_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact top-k. A CPU tensor takes the plain version; a CUDA tensor
-    launches the block kernel and merges, or raises on what it does not take
-    (f32 only, D % 16 == 0, 1 <= k <= 256)."""
+    launches the block kernel and merges (1 <= k <= 256), or takes the dense
+    route (k > 256), or raises on what it does not take (f32 only,
+    D % 16 == 0)."""
     if queries.device.type == "cpu":
         return cosine_topk_reference(queries, catalog, k, n_valid, candidate_mask)
     if queries.device.type != "cuda":
@@ -75,10 +93,16 @@ def cosine_topk(
         )
     b, d = queries.shape
     n = catalog.shape[0]
-    if d % 16 or not 1 <= k <= min(BLOCK_N, n) or b < 1 or catalog.device != queries.device:
+    dense = k > BLOCK_N
+    if (
+        d % 16
+        or not 1 <= k <= (n if dense else min(BLOCK_N, n))
+        or b < 1
+        or catalog.device != queries.device
+    ):
         raise ValueError(
-            f"cosine_topk kernel takes D % 16 == 0 and 1 <= k <= min({BLOCK_N}, N) on one "
-            f"device; got D={d}, k={k}, N={n}, B={b}"
+            f"cosine_topk takes D % 16 == 0 and 1 <= k <= N (the kernel k <= {BLOCK_N}) on "
+            f"one device; got D={d}, k={k}, N={n}, B={b}"
         )
     queries = queries.contiguous()
     catalog = catalog.contiguous()
@@ -88,6 +112,8 @@ def cosine_topk(
         if tuple(mask.shape) != (n,):
             raise ValueError(f"cosine_topk: candidate_mask must be [{n}], got {tuple(mask.shape)}")
     n_valid = n if n_valid is None else min(int(n_valid), n)
+    if dense:
+        return _cosine_topk_dense(queries, catalog, k, n_valid, mask)
     n_blocks = -(-n // BLOCK_N)
     cand_s = torch.empty((b, n_blocks * k), dtype=torch.float32, device=queries.device)
     cand_i = torch.empty((b, n_blocks * k), dtype=torch.int32, device=queries.device)
@@ -107,3 +133,4 @@ def cosine_topk(
 
 
 cosine_topk.launches = 0
+cosine_topk.dense_calls = 0

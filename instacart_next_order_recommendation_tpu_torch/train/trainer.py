@@ -1,0 +1,589 @@
+"""Two-tower contrastive trainer on one GPU.
+
+Counterpart of the JAX package's ``train/trainer.py`` on one device: loads
+the processed (anchor, positive) datasets and IR artifacts, trains the
+shared tower with MultipleNegativesRankingLoss, AdamW on a warmup-cosine
+schedule (10% warmup from 0), no-duplicates batching with drop_last,
+per-epoch eval loss and IR evaluation, epoch checkpoints with keep-N
+retention that never prunes the best, best-by-NDCG@10 selection, and a
+``final/`` export. Towers are written in the shared format, so either
+package reads the other's checkpoints; the optimizer state goes in the
+port's own file.
+
+Each step encodes both towers with dropout (the fused layer's training form:
+forward kernel with masks, fused backward kernel) and takes one AdamW step
+per ``gradient_accumulation_steps`` micro-batches on the mean of their
+gradients, as ``optax.MultiSteps`` does. The schedule is evaluated at the
+count of optimizer steps taken before the update, as optax does, so the
+first step runs at lr 0.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import itertools
+import json
+import logging
+import math
+import shutil
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from instacart_next_order_recommendation_tpu_torch.constants import (
+    DATA_PREP_PARAMS_FILENAME,
+    DEFAULT_CONFIG_TRAIN,
+    DEFAULT_OUTPUT_DIR,
+    DEFAULT_PROCESSED_DIR,
+    EVAL_CORPUS_FILENAME,
+    EVAL_DATASET_SUBDIR,
+    EVAL_QUERIES_FILENAME,
+    EVAL_RELEVANT_DOCS_FILENAME,
+    FINAL_SUBDIR,
+    TRAIN_DATASET_SUBDIR,
+)
+from instacart_next_order_recommendation_tpu_torch.data.batching import (
+    no_duplicates_batches,
+    steps_per_epoch,
+)
+from instacart_next_order_recommendation_tpu_torch.device import resolve_device
+from instacart_next_order_recommendation_tpu_torch.eval.evaluator import RetrievalEvaluator
+from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower, save_tower
+from instacart_next_order_recommendation_tpu_torch.models.encoder import (
+    MINILM_L6,
+    Params,
+    encode,
+    init_params,
+)
+from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+from instacart_next_order_recommendation_tpu_torch.ops import mnrl_loss
+from instacart_next_order_recommendation_tpu_torch.tokenizer import (
+    WordPieceTokenizer,
+    bucket_length,
+)
+from instacart_next_order_recommendation_tpu_torch.utils.config import (
+    load_yaml_config,
+    resolve_project_path,
+)
+from instacart_next_order_recommendation_tpu_torch.utils.logging import setup_colored_logging
+from instacart_next_order_recommendation_tpu_torch.utils.resolve import resolve_processed_dir
+
+logger = logging.getLogger(__name__)
+
+_PRESETS = {"minilm-l6": MINILM_L6}
+
+BEST_METRIC = "ndcg_at_10"
+OPT_STATE_FILENAME = "opt_state.pt"  # the port's own; the JAX trainer writes opt_state.msgpack
+TRAIN_STATE_FILENAME = "train_state.json"
+
+
+class TrainConfig:
+    """Typed training configuration: the JAX trainer's YAML keys."""
+
+    def __init__(self, raw: dict):
+        self.processed_dir = resolve_project_path(raw.get("processed_dir"), DEFAULT_PROCESSED_DIR)
+        self.output_dir = resolve_project_path(raw.get("output_dir"), DEFAULT_OUTPUT_DIR)
+        # Preset name or a tower directory to warm-start from.
+        self.model_name = str(raw.get("model_name", "minilm-l6"))
+        self.max_seq_length = int(raw.get("max_seq_length", 256))
+        self.epochs = int(raw.get("epochs", 5))
+        self.train_batch_size = int(raw.get("train_batch_size", 64))
+        self.eval_batch_size = int(raw.get("eval_batch_size", 64))
+        self.gradient_accumulation_steps = int(raw.get("gradient_accumulation_steps", 1))
+        self.learning_rate = float(raw.get("learning_rate", 5e-5))
+        self.loss_scale = float(raw.get("loss_scale", 30.0))
+        self.weight_decay = float(raw.get("weight_decay", 0.0))
+        self.run_information_retrieval_evaluator = bool(
+            raw.get("run_information_retrieval_evaluator", True)
+        )
+        self.vocab_size = int(raw.get("vocab_size", 30000))
+        self.seed = int(raw.get("seed", 42))
+        self.data_parallel = raw.get("data_parallel")  # None = the one GPU
+        self.model_parallel = int(raw.get("model_parallel", 1))
+        self.save_total_limit = int(raw.get("save_total_limit", 2))
+        self.logging_steps = int(raw.get("logging_steps", 100))
+        self.resume = bool(raw.get("resume", False))
+        # Batches are taken in groups of this many; a ragged trailing group
+        # is dropped, so an epoch has as many steps as in the JAX trainer.
+        self.steps_per_dispatch = int(raw.get("steps_per_dispatch", 1))
+        # Accepted and recorded in the tower config; it changes nothing here:
+        # the fused layer's backward keeps only the layer inputs and
+        # recomputes the rest, which is why the JAX trainer turns remat off
+        # whenever the fused backward takes the tower.
+        self.remat = raw.get("remat")
+
+    @classmethod
+    def load(cls, config_path: Path | None = None) -> "TrainConfig":
+        return cls(load_yaml_config(config_path, DEFAULT_CONFIG_TRAIN))
+
+
+def warmup_cosine_schedule(peak: float, total_steps: int):
+    """The JAX trainer's schedule (``optax.warmup_cosine_decay_schedule``
+    from 0 to ``peak`` over max(1, 10% of total) steps, cosine to 0 at
+    max(2, total)): a function of the optimizer-step count."""
+    warmup = max(1, int(0.1 * total_steps))
+    decay = max(2, total_steps) - warmup
+
+    def lr(count: int) -> float:
+        if count < warmup:
+            return -peak * (1.0 - max(count, 0) / warmup) + peak
+        c = min(count - warmup, decay)
+        return peak * 0.5 * (1.0 + math.cos(math.pi * c / decay))
+
+    return lr
+
+
+def param_leaves(params: Params, prefix: str = "") -> list[tuple[str, torch.Tensor]]:
+    """(path, tensor) for every parameter, in sorted key order."""
+    out = []
+    for key in sorted(params):
+        value = params[key]
+        if isinstance(value, dict):
+            out += param_leaves(value, f"{prefix}{key}/")
+        else:
+            out.append((f"{prefix}{key}", value))
+    return out
+
+
+def dropout_seed(seed: int, epoch: int, step: int) -> int:
+    """Dropout seed of one micro-step: a pure function of the run seed, the
+    epoch and the step within it, so a resumed run draws the same masks."""
+    return (seed * 1_000_003 + epoch) * 1_000_003 + step
+
+
+class TrainStep:
+    """One micro-step of the trainer: both towers with dropout drawn from a
+    generator seeded per step, MNRL, backward; every
+    ``accum``-th call also takes the AdamW step on the mean of the
+    accumulated gradients, at the schedule's lr for the count of optimizer
+    steps taken so far."""
+
+    def __init__(self, params, tower_cfg, optimizer, schedule, *, loss_scale, accum, device):
+        self.params = params
+        self.tower_cfg = tower_cfg
+        self.optimizer = optimizer
+        self.schedule = schedule
+        self.loss_scale = loss_scale
+        self.accum = max(1, accum)
+        self.generator = torch.Generator(device=device)
+        self.opt_steps = 0  # optimizer updates taken (the schedule's count)
+        self.micro = 0  # micro-batches into the current accumulation
+
+    def __call__(self, batch: list[torch.Tensor], seed: int) -> torch.Tensor:
+        a_ids, a_mask, p_ids, p_mask = batch
+        self.generator.manual_seed(seed)
+        qa = encode(self.params, a_ids, a_mask, self.tower_cfg, generator=self.generator)
+        qp = encode(self.params, p_ids, p_mask, self.tower_cfg, generator=self.generator)
+        loss = mnrl_loss(qa, qp, scale=self.loss_scale)
+        (loss / self.accum).backward()  # grads sum to the mean over the micro-batches
+        self.micro += 1
+        if self.micro == self.accum:
+            lr = self.schedule(self.opt_steps)
+            for group in self.optimizer.param_groups:
+                group["lr"] = lr
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.opt_steps += 1
+            self.micro = 0
+        return loss.detach()
+
+    def state(self) -> dict:
+        """What a checkpoint keeps to resume the optimizer exactly."""
+        return {
+            "optimizer": self.optimizer.state_dict(),
+            "opt_steps": self.opt_steps,
+            "micro": self.micro,
+            "acc_grads": [
+                None if t.grad is None else t.grad.detach().cpu()
+                for _, t in param_leaves(self.params)
+            ],
+        }
+
+    def load_state(self, state: dict) -> None:
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.opt_steps, self.micro = int(state["opt_steps"]), int(state["micro"])
+        for (_, t), g in zip(param_leaves(self.params), state["acc_grads"]):
+            t.grad = None if g is None else g.to(t.device)
+
+
+def build_optimizer(params: Params, weight_decay: float) -> torch.optim.AdamW:
+    """AdamW as the JAX trainer's ``optax.adamw``: b1 0.9, b2 0.999, eps 1e-8,
+    decoupled decay on every parameter; the lr is set per step."""
+    return torch.optim.AdamW(
+        [t for _, t in param_leaves(params)],
+        lr=0.0,
+        betas=(0.9, 0.999),
+        eps=1e-8,
+        weight_decay=weight_decay,
+    )
+
+
+class TwoTowerTrainer:
+    """Runs the training pipeline on one GPU (``device=None``) or, for
+    tests and small runs, the CPU (``device="cpu"``, the plain versions of
+    the kernels)."""
+
+    def __init__(self, config: TrainConfig, device: str | torch.device | None = None):
+        if (config.data_parallel not in (None, 1)) or config.model_parallel != 1:
+            raise NotImplementedError(
+                "data_parallel/model_parallel > 1: multi-GPU training is not ported yet "
+                "(ROADMAP.md, open items, queue 1, multi-GPU)"
+            )
+        self.cfg = config
+        self.device = resolve_device(device)
+        self.step_losses: list[float] = []
+
+    # ------------------------------------------------------------------ data
+
+    def _load_processed(self):
+        from datasets import load_from_disk
+
+        processed_dir, msg = resolve_processed_dir(self.cfg.processed_dir, DEFAULT_PROCESSED_DIR)
+        if msg:
+            logger.info("%s", msg)
+        self.processed_dir = processed_dir
+        train_ds = load_from_disk(str(processed_dir / TRAIN_DATASET_SUBDIR))
+        eval_pairs = None
+        if (processed_dir / EVAL_DATASET_SUBDIR).exists():
+            eval_ds = load_from_disk(str(processed_dir / EVAL_DATASET_SUBDIR))
+            eval_pairs = (list(eval_ds["anchor"]), list(eval_ds["positive"]))
+        with open(processed_dir / EVAL_QUERIES_FILENAME) as f:
+            eval_queries = json.load(f)
+        with open(processed_dir / EVAL_CORPUS_FILENAME) as f:
+            eval_corpus = json.load(f)
+        with open(processed_dir / EVAL_RELEVANT_DOCS_FILENAME) as f:
+            eval_relevant = {k: set(v) for k, v in json.load(f).items()}
+        # list(): one bulk decode of the lazy Arrow columns.
+        return (
+            list(train_ds["anchor"]),
+            list(train_ds["positive"]),
+            eval_pairs,
+            eval_queries,
+            eval_corpus,
+            eval_relevant,
+        )
+
+    # ------------------------------------------------------------------ model
+
+    def _build_model(self, corpus_texts_for_vocab):
+        name = self.cfg.model_name
+        preset = _PRESETS.get(name)
+
+        def bounded_seq_len(tower_max_position: int) -> int:
+            # max_seq_length cannot exceed the position-embedding table.
+            if self.cfg.max_seq_length > tower_max_position:
+                logger.warning(
+                    "max_seq_length %d exceeds the tower's max_position %d; clamping",
+                    self.cfg.max_seq_length,
+                    tower_max_position,
+                )
+                return tower_max_position
+            return self.cfg.max_seq_length
+
+        remat = bool(self.cfg.remat) if self.cfg.remat is not None else False
+        if preset is not None:
+            tokenizer = WordPieceTokenizer.train(
+                corpus_texts_for_vocab, vocab_size=self.cfg.vocab_size
+            )
+            config = dataclasses.replace(
+                preset,
+                vocab_size=tokenizer.vocab_size,
+                max_seq_length=bounded_seq_len(preset.max_position),
+                remat=remat,
+            )
+            params = init_params(config, torch.Generator().manual_seed(self.cfg.seed))
+            logger.info(
+                "[2/5] model preset %s from scratch (vocab %d)", name, tokenizer.vocab_size
+            )
+        else:
+            params, config, tokenizer = load_tower(name)
+            if tokenizer is None:
+                raise FileNotFoundError(f"warm-start dir {name} has no vocab.txt")
+            config = dataclasses.replace(
+                config, max_seq_length=bounded_seq_len(config.max_position), remat=remat
+            )
+            logger.info("[2/5] warm start from %s", name)
+        # Every later consumer (tokenization, TextEncoder, eval batches)
+        # sees the clamped length.
+        self.cfg.max_seq_length = config.max_seq_length
+        return params, config, tokenizer
+
+    def _to_trainable(self, params: Params) -> Params:
+        if isinstance(params, dict):
+            return {k: self._to_trainable(v) for k, v in params.items()}
+        return params.detach().to(self.device, torch.float32).clone().requires_grad_(True)
+
+    # ------------------------------------------------------------------ checkpoints
+
+    def _sorted_checkpoints(self) -> list:
+        return sorted(
+            self.cfg.output_dir.glob("checkpoint-epoch*"),
+            key=lambda p: int(p.name.rsplit("epoch", 1)[1]),
+        )
+
+    def _save_epoch_checkpoint(self, epoch, params, opt_payload, tower_cfg, tokenizer, history):
+        ckpt_dir = self.cfg.output_dir / f"checkpoint-epoch{epoch}"
+        save_tower(ckpt_dir, params, tower_cfg, tokenizer)
+        torch.save(opt_payload, ckpt_dir / OPT_STATE_FILENAME)
+        (ckpt_dir / TRAIN_STATE_FILENAME).write_text(
+            json.dumps({"epoch": epoch, "history": history})
+        )
+        # keep-N retention, but never prune the best-so-far checkpoint: the
+        # end-of-run export loads it.
+        ckpts = self._sorted_checkpoints()
+        keep = {p.name for p in ckpts[-self.cfg.save_total_limit :]}
+        scored = [h for h in history if BEST_METRIC in h]
+        if scored:
+            best = max(scored, key=lambda h: h[BEST_METRIC])["epoch"]
+            keep.add(f"checkpoint-epoch{best}")
+        for old in ckpts:
+            if old.name not in keep:
+                shutil.rmtree(old, ignore_errors=True)
+        return ckpt_dir
+
+    # ------------------------------------------------------------------ run
+
+    def train(self, data=None) -> dict:
+        """Run training; returns ``{"history", "best_epoch", "final_dir"}``.
+
+        ``data=None`` reads the processed directory, as the JAX trainer
+        does. Otherwise ``data`` is ``(anchors, positives, eval_pairs,
+        eval_queries, eval_corpus, eval_relevant)`` held in memory, with
+        ``eval_pairs`` an ``(anchors, positives)`` pair of lists or None.
+        """
+        cfg = self.cfg
+        cfg.output_dir.mkdir(parents=True, exist_ok=True)
+        if data is None:
+            data = self._load_processed()
+        else:
+            self.processed_dir = cfg.processed_dir
+        anchors, positives, self.eval_pairs, eval_queries, eval_corpus, eval_relevant = data
+        anchors, positives = list(anchors), list(positives)
+        logger.info(
+            "[1/5] train pairs: %d, queries: %d, corpus: %d",
+            len(anchors), len(eval_queries), len(eval_corpus),
+        )
+        self._log_params()
+        vocab_texts = list(eval_corpus.values()) + anchors[:50_000]
+        params, tower_cfg, tokenizer = self._build_model(vocab_texts)
+
+        # Tokenize once on the host; pad every pair to one global bucket.
+        logger.info("[3/5] tokenizing %d pairs...", len(anchors))
+        t0 = time.time()
+        a_chunks = self._tokenize(tokenizer, anchors)
+        p_chunks = self._tokenize(tokenizer, positives)
+        max_len = max(
+            (int(lens.max()) for _, lens in a_chunks + p_chunks if len(lens)), default=2
+        )
+        self.seq_len = bucket_length(max_len, cfg.max_seq_length)
+        a_ids, a_len = self._pack(tokenizer, a_chunks, len(anchors))
+        p_ids, p_len = self._pack(tokenizer, p_chunks, len(positives))
+        del a_chunks, p_chunks
+        logger.info("  tokenized in %.1fs; padded seq len %d", time.time() - t0, self.seq_len)
+
+        batch_size = cfg.train_batch_size
+        n_steps_epoch = steps_per_epoch(len(anchors), batch_size)
+        # The schedule horizon counts optimizer steps: one per `accum`
+        # micro-batches.
+        accum = max(1, cfg.gradient_accumulation_steps)
+        total_steps = max(2, cfg.epochs * n_steps_epoch // accum)
+        schedule = warmup_cosine_schedule(cfg.learning_rate, total_steps)
+
+        params = self._to_trainable(params)
+        evaluator = None
+        if cfg.run_information_retrieval_evaluator:
+            evaluator = RetrievalEvaluator(
+                eval_queries, eval_corpus, eval_relevant, batch_size=cfg.eval_batch_size
+            )
+        encoder = TextEncoder(params, tower_cfg, tokenizer, cfg.max_seq_length, device=self.device)
+
+        start_epoch = 1
+        history: list[dict] = []
+        resume_state = None
+        if cfg.resume:
+            ckpts = self._sorted_checkpoints()
+            if ckpts:
+                ckpt = ckpts[-1]
+                loaded, tower_cfg, tokenizer = load_tower(ckpt)
+                params = self._to_trainable(loaded)
+                resume_state = torch.load(ckpt / OPT_STATE_FILENAME, map_location=self.device)
+                train_state = json.loads((ckpt / TRAIN_STATE_FILENAME).read_text())
+                start_epoch = train_state["epoch"] + 1
+                history = train_state.get("history", [])
+                logger.info("Resuming from %s (epoch %d)", ckpt.name, start_epoch)
+        train_step = TrainStep(
+            params, tower_cfg, build_optimizer(params, cfg.weight_decay), schedule,
+            loss_scale=cfg.loss_scale, accum=accum, device=self.device,
+        )
+        if resume_state is not None:
+            train_step.load_state(resume_state)
+
+        logger.info(
+            "[4/5] training: %d epochs x %d steps, batch %d, seq %d, on %s",
+            cfg.epochs, n_steps_epoch, batch_size, self.seq_len, self.device,
+        )
+        global_step = (start_epoch - 1) * n_steps_epoch
+        col = np.arange(self.seq_len)[None, :]
+
+        def assemble(idx: np.ndarray) -> list[torch.Tensor]:
+            out = []
+            for ids_all, len_all in ((a_ids, a_len), (p_ids, p_len)):
+                out += [
+                    torch.from_numpy(ids_all[idx]).to(self.device),
+                    torch.from_numpy((col < len_all[idx][:, None]).astype(np.int32)).to(
+                        self.device
+                    ),
+                ]
+            return out
+
+        n_group = max(1, cfg.steps_per_dispatch)
+        for epoch in range(start_epoch, cfg.epochs + 1):
+            epoch_start = time.time()
+            losses = []
+            batch_iter = no_duplicates_batches(anchors, positives, batch_size, cfg.seed, epoch)
+            step = 0
+            while True:
+                group = list(itertools.islice(batch_iter, n_group))
+                if len(group) < n_group:
+                    break  # drop the ragged trailing group (drop_last semantics)
+                for idx in group:
+                    loss = train_step(assemble(idx), dropout_seed(cfg.seed, epoch, len(losses)))
+                    global_step += 1
+                    losses.append(loss)
+                if step % max(1, cfg.logging_steps // n_group) == 0:
+                    logger.info(
+                        "  epoch %d step %d loss %.4f lr %.2e",
+                        epoch, step * n_group, float(loss),
+                        schedule(min(global_step // accum, total_steps - 1)),
+                    )
+                step += 1
+            if step == 0:
+                logger.warning(
+                    "epoch %d yielded NO full batches: %d pairs cannot fill a "
+                    "no-duplicates batch of %d. Lower train_batch_size or add "
+                    "data; the model is NOT training.",
+                    epoch, len(anchors), batch_size,
+                )
+            epoch_losses = torch.stack(losses).tolist() if losses else []
+            self.step_losses.extend(epoch_losses)
+            entry = {
+                "epoch": epoch,
+                "train_loss": float(np.mean(epoch_losses)) if epoch_losses else None,
+                "epoch_seconds": time.time() - epoch_start,
+            }
+            eval_loss = self._eval_loss(params, tower_cfg, tokenizer, batch_size)
+            if eval_loss is not None:
+                entry["eval_loss"] = eval_loss
+                logger.info("  epoch %d eval_loss %.4f", epoch, eval_loss)
+            if evaluator is not None:
+                metrics = evaluator(encoder.with_params(params))
+                entry.update(metrics)
+                logger.info(
+                    "  epoch %d eval: ndcg@10 %.4f recall@10 %.4f mrr@10 %.4f acc@10 %.4f",
+                    epoch, metrics["ndcg_at_10"], metrics["recall_at_10"],
+                    metrics["mrr_at_10"], metrics["accuracy_at_10"],
+                )
+            history.append(entry)
+            self._save_epoch_checkpoint(
+                epoch, params, train_step.state(), tower_cfg, tokenizer, history
+            )
+            (cfg.output_dir / "eval_history.json").write_text(json.dumps(history, indent=2))
+
+        # Best checkpoint by NDCG@10.
+        best_epoch = cfg.epochs
+        scored = [h for h in history if BEST_METRIC in h]
+        if evaluator is not None and scored:
+            best_epoch = max(scored, key=lambda h: h[BEST_METRIC])["epoch"]
+        final_dir = cfg.output_dir / FINAL_SUBDIR
+        best_ckpt = cfg.output_dir / f"checkpoint-epoch{best_epoch}"
+        if best_ckpt.exists():
+            params, tower_cfg, tokenizer = load_tower(best_ckpt)
+            logger.info("Loaded best checkpoint (epoch %d by %s)", best_epoch, BEST_METRIC)
+        save_tower(final_dir, params, tower_cfg, tokenizer)
+        best_entry = next((h for h in history if h["epoch"] == best_epoch), None)
+        (cfg.output_dir / "best.json").write_text(
+            json.dumps(
+                {"best_epoch": best_epoch, "metric": BEST_METRIC, "entry": best_entry}, indent=2
+            )
+        )
+        logger.info("[5/5] Done. Model saved to %s", final_dir)
+        return {"history": history, "best_epoch": best_epoch, "final_dir": str(final_dir)}
+
+    def _tokenize(self, tokenizer, texts: list[str]) -> list[tuple[np.ndarray, np.ndarray]]:
+        """(ids, token counts) per chunk of texts, each chunk at its own
+        bucketed width until the global bucket is known."""
+        chunks = []
+        chunk = 8192
+        for lo in range(0, len(texts), chunk):
+            ids, mask = tokenizer.encode_batch(
+                texts[lo : lo + chunk], max_seq_length=self.cfg.max_seq_length
+            )
+            chunks.append((ids, mask.sum(axis=1)))
+        return chunks
+
+    def _pack(self, tokenizer, chunks, n: int) -> tuple[np.ndarray, np.ndarray]:
+        """One padded ``[n, seq_len]`` id matrix and the token counts, so a
+        batch is one fancy-index."""
+        ids_all = np.full((n, self.seq_len), tokenizer.pad_id, np.int32)
+        len_all = np.zeros(n, np.int64)
+        lo = 0
+        for ids, lens in chunks:
+            w = min(ids.shape[1], self.seq_len)
+            ids_all[lo : lo + len(ids), :w] = ids[:, :w]
+            len_all[lo : lo + len(ids)] = lens
+            lo += len(ids)
+        return ids_all, len_all
+
+    @torch.inference_mode()
+    def _eval_loss(
+        self, params, tower_cfg, tokenizer, batch_size: int, max_batches: int = 8
+    ) -> float | None:
+        """Deterministic MNRL loss on up to ``max_batches`` held-out batches."""
+        if self.eval_pairs is None:
+            return None
+        anchors, positives = self.eval_pairs
+        if len(anchors) < batch_size:
+            return None
+        if not hasattr(self, "_eval_loss_batches"):
+            batches = []
+            for bi, idx in enumerate(
+                no_duplicates_batches(anchors, positives, batch_size, seed=0)
+            ):
+                if bi >= max_batches:
+                    break
+                batch = []
+                for texts in (anchors, positives):
+                    ids, mask = tokenizer.encode_batch(
+                        [texts[i] for i in idx],
+                        max_seq_length=self.cfg.max_seq_length,
+                        pad_to=self.seq_len,
+                    )
+                    batch += [torch.from_numpy(ids), torch.from_numpy(mask)]
+                batches.append(batch)
+            self._eval_loss_batches = batches
+        losses = []
+        for a_ids, a_mask, p_ids, p_mask in self._eval_loss_batches:
+            qa = encode(params, a_ids.to(self.device), a_mask.to(self.device), tower_cfg)
+            qp = encode(params, p_ids.to(self.device), p_mask.to(self.device), tower_cfg)
+            losses.append(mnrl_loss(qa, qp, scale=self.cfg.loss_scale))
+        return float(torch.stack(losses).mean()) if losses else None
+
+    def _log_params(self):
+        params_path = Path(self.processed_dir) / DATA_PREP_PARAMS_FILENAME
+        if params_path.exists():
+            logger.info("data prep params: %s", params_path.read_text())
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="Train the two-tower model on one GPU")
+    parser.add_argument("--config", type=Path, default=None, help="Path to YAML config")
+    args = parser.parse_args()
+    setup_colored_logging(quiet_loggers=["datasets", "urllib3"])
+    TwoTowerTrainer(TrainConfig.load(args.config)).train()
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
 from instacart_next_order_recommendation_tpu.ops import fused_layer as jax_fused
+from instacart_next_order_recommendation_tpu.ops.mnrl import mnrl_loss as jax_mnrl_loss
 from instacart_next_order_recommendation_tpu.ops.pool_norm import (
+    _pool_bwd as jax_pool_bwd,
     masked_mean_pool_l2norm_pallas,
     masked_mean_pool_l2norm_reference as jax_pool_reference,
 )
@@ -20,10 +24,15 @@ from instacart_next_order_recommendation_tpu.ops.topk import (
 from instacart_next_order_recommendation_tpu_torch.ops import (
     cosine_topk,
     fused_encoder_layer,
+    fused_encoder_layer_backward,
+    fused_encoder_layer_train,
     masked_mean_pool_l2norm,
+    mnrl_loss,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+    WEIGHT_NAMES,
     fused_encoder_layer_reference,
+    prepare_layer,
 )
 
 HIDDEN, INTER, HEADS = 128, 256, 4
@@ -173,6 +182,109 @@ class TestFusedLayer:
         assert fused_encoder_layer.launches == before  # the CPU never counts a launch
 
 
+def _dropout_np(rng, shape, dtype, keep=0.9):
+    """{0, 1/keep} masks made with numpy, fed to both packages."""
+    masks = [
+        np.where(rng.random(shape) < keep, np.float32(1.0 / keep), np.float32(0.0))
+        for _ in range(2)
+    ]
+    return [jnp.asarray(m, dtype) for m in masks], [torch.from_numpy(m) for m in masks]
+
+
+class TestFusedLayerTrain:
+    """The training form (masks) and its backward against the JAX package:
+    ``jax.vjp`` of ``_oracle`` and the Pallas ``_bwd_kernel`` in interpret
+    mode (``_fused_backward``, wgrads form), on the same numpy inputs."""
+
+    def _case(self, seq, dropout, dtype="float32", batch=2, seed=10):
+        rng = np.random.default_rng(seed)
+        layer = _layer_np(rng)
+        x_np = (0.3 * rng.standard_normal((batch, seq, HIDDEN))).astype(np.float32)
+        mask_np = _mask_np(rng, batch, seq)  # no all-pad row (see the JAX kernel quirk)
+        g_np = rng.standard_normal((batch, seq, HIDDEN)).astype(np.float32)
+        cdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+        tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+        x, bias, weights = _jax_layer_args(x_np, mask_np, layer, cdt)
+        j_masks, t_masks = (), None
+        if dropout:
+            j_masks, t_masks = _dropout_np(rng, x_np.shape, cdt)
+            t_masks = tuple(m.to(tdt) for m in t_masks)
+        m1, m2 = j_masks if dropout else (None, None)
+        kw = dict(num_heads=HEADS, scale=SCALE, eps=EPS)
+        y_ref, vjp = jax.vjp(
+            lambda x_, *w: jax_fused._oracle(x_, bias, m1, m2, *w, **kw), x, *weights
+        )
+        g = jnp.asarray(g_np, cdt)
+        dx_ref, *dw_ref = vjp(g)
+        port_w = prepare_layer({k: torch.from_numpy(v) for k, v in layer.items()}, tdt)
+        xt = torch.from_numpy(x_np).to(tdt)
+        bias_t = torch.from_numpy((1.0 - mask_np.astype(np.float32)) * -1e9)
+        port = dict(
+            y=fused_encoder_layer_train(
+                xt, torch.from_numpy(mask_np), port_w, masks=t_masks,
+                dropout_rate=0.1 if dropout else 0.0, **kw,
+            ),
+            grads=fused_encoder_layer_backward(
+                xt, bias_t, torch.from_numpy(g_np).to(tdt), t_masks, port_w, **kw
+            ),
+        )
+        jax_ref = dict(y=y_ref, dx=dx_ref, dw=dw_ref, x=x, bias=bias, g=g,
+                       masks=j_masks, weights=weights)
+        return port, jax_ref
+
+    @staticmethod
+    def _assert_grads(port_grads, dx_ref, dw_ref, atol, rtol=0.0):
+        dx, dw = port_grads
+        np.testing.assert_allclose(_as_np(dx), _as_np(dx_ref), atol=atol, rtol=rtol)
+        for name, ref in zip(WEIGHT_NAMES, dw_ref):
+            np.testing.assert_allclose(
+                _as_np(dw[name]).reshape(-1), _as_np(ref).reshape(-1), atol=atol, rtol=rtol,
+                err_msg=f"grad mismatch for {name}",
+            )
+
+    @pytest.mark.parametrize("seq,dropout", [(48, True), (48, False), (128, True), (128, False)])
+    def test_forward_and_plain_backward_match_oracle_vjp(self, seq, dropout):
+        port, ref = self._case(seq, dropout)
+        np.testing.assert_allclose(_as_np(port["y"]), _as_np(ref["y"]), atol=1e-4)
+        # f32: the JAX oracle's A&S erf (< 2e-6) against torch.erf, and sums
+        # in another order.
+        self._assert_grads(port["grads"], ref["dx"], ref["dw"], atol=1e-4)
+
+    @pytest.mark.parametrize("seq,dropout", [(48, True), (128, False)])
+    def test_plain_backward_matches_jax_bwd_kernel(self, seq, dropout):
+        port, ref = self._case(seq, dropout)
+        dx_k, dw_k = jax_fused._fused_backward(
+            ref["x"], ref["bias"], tuple(ref["masks"]), ref["weights"], ref["g"],
+            num_heads=HEADS, scale=SCALE, eps=EPS, interpret=True, wgrads=True,
+        )
+        # The JAX package's own kernel-vs-oracle tolerance (tests/test_ops.py).
+        self._assert_grads(port["grads"], dx_k, dw_k, atol=3e-4)
+
+    def test_bf16_matches_oracle_vjp(self):
+        # bf16 activations round at the same cast points in both packages,
+        # but another summation order can flip a rounding (one bf16 ulp is
+        # 2^-8 relative); the grads compound a few such steps, so the bound
+        # is 5e-2 absolute at unit-scale inputs.
+        port, ref = self._case(48, True, dtype="bfloat16")
+        np.testing.assert_allclose(_as_np(port["y"]), _as_np(ref["y"]), atol=2e-2, rtol=1e-2)
+        self._assert_grads(port["grads"], ref["dx"], ref["dw"], atol=5e-2, rtol=2e-2)
+
+    def test_keep_one_is_the_maskless_form(self):
+        rng = np.random.default_rng(11)
+        layer = {k: torch.from_numpy(v) for k, v in _layer_np(rng).items()}
+        x = torch.from_numpy((0.3 * rng.standard_normal((2, 16, HIDDEN))).astype(np.float32))
+        mask = torch.from_numpy(_mask_np(rng, 2, 16))
+        kw = dict(num_heads=HEADS, scale=SCALE, eps=EPS)
+        y = fused_encoder_layer_train(x, mask, layer, dropout_rate=0.0, **kw)
+        assert torch.equal(y, fused_encoder_layer_reference(x, mask, layer, **kw))
+        with pytest.raises(ValueError, match="generator"):
+            fused_encoder_layer_train(x, mask, layer, dropout_rate=0.1, **kw)
+        gen = torch.Generator().manual_seed(0)
+        y_drop = fused_encoder_layer_train(x, mask, layer, generator=gen, dropout_rate=0.1, **kw)
+        assert not torch.equal(y_drop, y)
+        assert fused_encoder_layer_train.launches == 0  # the CPU never counts a launch
+
+
 class TestPoolNorm:
     @pytest.mark.parametrize("batch,seq,all_pad", [(3, 16, False), (4, 48, True)])
     def test_matches_jax(self, batch, seq, all_pad):
@@ -187,6 +299,39 @@ class TestPoolNorm:
         np.testing.assert_allclose(port, np.asarray(pallas), atol=1e-6)
         np.testing.assert_allclose(port, np.asarray(ref), atol=1e-6)
         assert port.dtype == np.float32 and np.isfinite(port).all()
+
+    def test_gradient_matches_jax(self):
+        rng = np.random.default_rng(12)
+        hidden = rng.standard_normal((3, 32, HIDDEN)).astype(np.float32)
+        mask = _mask_np(rng, 3, 32, all_pad_row=True)
+        g = rng.standard_normal((3, HIDDEN)).astype(np.float32)
+        h = torch.from_numpy(hidden).requires_grad_(True)
+        masked_mean_pool_l2norm(h, torch.from_numpy(mask)).backward(torch.from_numpy(g))
+        ref, _ = jax_pool_bwd((jnp.asarray(hidden), jnp.asarray(mask)), jnp.asarray(g))
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(h.grad.numpy()[:-1], ref[:-1], atol=1e-6)
+        # An all-pad row pools to the zero vector, where the L2 norm has no
+        # gradient: JAX's is NaN there, torch's vector_norm gives 0.
+        assert np.isnan(ref[-1]).all()
+        assert (h.grad.numpy()[-1] == 0).all()
+
+
+class TestMnrl:
+    @pytest.mark.parametrize("scale", [30.0, 50.0])
+    def test_matches_jax(self, scale):
+        rng = np.random.default_rng(13)
+        q, p = (rng.standard_normal((16, 64)).astype(np.float32) for _ in range(2))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        p /= np.linalg.norm(p, axis=1, keepdims=True)
+        qt, pt = torch.from_numpy(q).requires_grad_(True), torch.from_numpy(p).requires_grad_(True)
+        loss = mnrl_loss(qt, pt, scale=scale)
+        loss.backward()
+        ref, (gq, gp) = jax.value_and_grad(
+            lambda a, b: jax_mnrl_loss(a, b, scale=scale), argnums=(0, 1)
+        )(jnp.asarray(q), jnp.asarray(p))
+        np.testing.assert_allclose(loss.item(), float(ref), rtol=1e-6)
+        np.testing.assert_allclose(qt.grad.numpy(), np.asarray(gq), atol=1e-6)
+        np.testing.assert_allclose(pt.grad.numpy(), np.asarray(gp), atol=1e-6)
 
 
 def _topk_inputs(rng, b, n, d):

@@ -164,13 +164,19 @@ def test_port_imports_no_jax(served):
     script = textwrap.dedent(
         f"""
         import sys
+        from instacart_next_order_recommendation_tpu_torch.eval.evaluator import RetrievalEvaluator
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+        from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
         rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
                           use_index=False, device="cpu")
         assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
+        TrainConfig({{}})
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "instacart_next_order_recommendation_tpu")]
         assert not bad, bad
+        # The card's machine has neither: imported only where a file is read.
+        lazy = [m for m in sys.modules if m.split(".")[0] in ("yaml", "datasets")]
+        assert not lazy, lazy
         print("isolated")
         """
     )
