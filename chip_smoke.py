@@ -7,10 +7,13 @@ Run from the repository root, with no arguments:
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout.
-2. Each kernel against its plain PyTorch version on the card, at the serve
-   path's shapes, with the tolerance stated, timed with CUDA events; then
-   the training form of the fused layer (K1 with dropout masks) and the
-   fused backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}.
+2. Each kernel against its plain PyTorch version on the card, with the
+   tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
+   packed top-k, on the same grid values) at the serve path's shapes; the
+   training form of the fused layer (K1 with dropout masks) and the fused
+   backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}; the
+   attention forward and backward (K6, K7) at the shapes the unfused layer
+   gives them; K4 against K3 over a 1M-row catalog.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
    seeded generator): a WordPiece vocab trained on a 50,000-product catalog,
    ``Recommender`` encoding the catalog through the kernels, a few
@@ -19,6 +22,10 @@ Run from the repository root, with no arguments:
    256 queries through ``FusedServePipeline``, and single-query latency.
    The launch counts show the path ran through every kernel, and the
    batch's top-16 ids are held against the plain versions on the card.
+   Then the same serve path for the mpnet-base-class tower at full width
+   (every layer unfused: K6, no K1), MiniLM-L6 at two shapes its fused
+   kernels do not take (S=512 and S=200, through K6), and
+   ``Recommender(topk_extraction="packed")`` (K4) against the exact one.
 4. MNRL training of MiniLM-L6 at full width through
    ``TwoTowerTrainer.train(data=...)``: synthetic (user context, product)
    pairs in the data prep's p5_mp20 form (the last 5 prior orders, at most
@@ -33,7 +40,12 @@ Run from the repository root, with no arguments:
    the flagship batch of 512 is timed. Last, where a training step's time
    goes at B=64 and B=512: host-clock step time, and the device time per
    kernel from ``torch.profiler`` over a few steps.
-5. One JSON line describing each kernel, then, as the last line,
+5. The same training for the mpnet-base-class tower (``model_name:
+   mpnet-base``) for one epoch: 24 K6 and 24 K7 launches per step, the
+   3-step check with planted K7 faults, B=256 steps with the remat that
+   ``_resolve_remat`` chooses beside the same steps without it, and the
+   profiler's breakdown of a B=64 step.
+6. One JSON line describing each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when CUDA is absent or any check
@@ -42,6 +54,7 @@ fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -50,6 +63,7 @@ import tempfile
 import time
 import traceback
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -136,6 +150,26 @@ K5_REL_TOL = 2e-2
 STEP_CHECK_LR = 1e-3
 STEP_LOSS_REL_TOL = 2e-2
 STEP_GRAD_REL_TOL = 6e-2
+# K6 and K7, relative to each output's largest magnitude: K6's products run
+# on bf16 tensor cores and its sums in another order than the plain
+# version's f32 products, so a bf16 rounding of P or of the output may flip
+# (one bf16 ulp is at most 2^-7 of the largest magnitude); K7 is f32
+# throughout, then rounded to bf16 once.
+ATTN_REL_TOL = 1e-2
+# A packed top-k id that differs from the exact one at the same rank must be
+# a tie within the 20-bit key: exact scores within two quantization steps
+# (one step is at most 2^-11 of the score; the kernel's f32 sums may move a
+# score across one step boundary).
+PACKED_TIE_REL = 2.0**-10
+PACKED_N = 1_000_000  # the catalog size the JAX package names for packed extraction
+MPNET_EPOCHS = 1
+# This departs from the recipe: configs/train.yaml's 2e-4 (with 9 warmup
+# steps over this one epoch) collapsed the 12-layer post-LN tower from random
+# weights to one embedding for every text, the loss flat at ln 64, while
+# 3e-5 falls steadily. scripts/torch_mpnet_lr_probe.py reads both rates and
+# two between, beside a torch.nn tower that shares no code with the port's.
+MPNET_LR = 3e-5
+REMAT_BATCH = 256
 
 
 def log(msg: str) -> None:
@@ -249,6 +283,243 @@ def library_train_ms(library, x, pad, up, iters: int) -> tuple[float, float]:
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def attention_bound(b: int, h: int, s: int, d: int, backward: bool) -> tuple[float, str]:
+    """The JAX kernels' cost estimates: the forward 4*B*h*S^2*D operations on
+    bf16 operands and 4*B*h*S*D*2 bytes; the backward 10*B*h*S^2*D and
+    8*B*h*S*D*2 bytes, where the TPU kernel's QK^T recompute (2*B*h*S^2*D)
+    multiplies the bf16 q and k and the other 8*B*h*S^2*D run on f32
+    operands (no f32 multiply on the tensor cores but TF32's), each at its
+    type's peak."""
+    unit = b * h * s * s * d
+    if backward:
+        t_ops = (8 * unit / PEAK_F32 + 2 * unit / PEAK_BF16) * 1e3
+        t_bytes = 8 * b * h * s * d * 2 / PEAK_BYTES * 1e3
+        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound_ms(4 * b * h * s * d * 2, 4 * unit, PEAK_BF16)
+
+
+class PlainAttention(torch.autograd.Function):
+    """K6's and K7's plain versions as one differentiable op."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, scale):
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            multi_head_attention_reference,
+        )
+
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, mask)
+        return multi_head_attention_reference(q, k, v, mask, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            multi_head_attention_backward_reference,
+        )
+
+        q, k, v, mask = ctx.saved_tensors
+        grads = multi_head_attention_backward_reference(q, k, v, mask, do.contiguous(), ctx.scale)
+        return (*grads, None, None)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The tower with every kernel replaced by its plain version, forward
+    and backward: the fused layer in both forms, attention and the pool."""
+    from instacart_next_order_recommendation_tpu_torch.models import encoder as encoder_mod
+    from instacart_next_order_recommendation_tpu_torch.ops import fused_layer
+    from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
+        masked_mean_pool_l2norm_reference,
+    )
+
+    def attention(q, k, v, mask, scale):
+        return PlainAttention.apply(q, k, v, mask, scale)
+
+    def train_layer(x, mask, layer, *, generator=None, masks=None, dropout_rate, **kw):
+        if dropout_rate <= 0:
+            masks = None
+        elif masks is None:
+            masks = fused_layer.draw_dropout_masks(x.shape, dropout_rate, generator, x.device, x.dtype)
+        return fused_layer.fused_encoder_layer_train_reference(x, mask, layer, masks=masks, **kw)
+
+    with mock.patch.multiple(
+        encoder_mod,
+        multi_head_attention=attention,
+        fused_encoder_layer=fused_layer.fused_encoder_layer_reference,
+        fused_encoder_layer_train=train_layer,
+        masked_mean_pool_l2norm=masked_mean_pool_l2norm_reference,
+    ):
+        yield
+
+
+def measure_attention(q, k, v, mask, do, scale, iters: int, plain_iters: int = 2):
+    """K6 and K7 at these inputs against their plain versions, timed with
+    CUDA events beside one scaled_dot_product_attention call with the same
+    key bias and its autograd backward (the yardsticks; the port never calls
+    them). Returns the two kernels-line rows, without launches."""
+    from torch.nn.functional import scaled_dot_product_attention
+
+    from instacart_next_order_recommendation_tpu_torch.ops import (
+        multi_head_attention,
+        multi_head_attention_backward,
+        multi_head_attention_backward_reference,
+        multi_head_attention_reference,
+    )
+
+    b, h, s, d = q.shape
+    with torch.no_grad():
+        out = multi_head_attention(q, k, v, mask, scale)
+        ref = multi_head_attention_reference(q, k, v, mask, scale)
+        grads = multi_head_attention_backward(q, k, v, mask, do, scale)
+        refs = multi_head_attention_backward_reference(q, k, v, mask, do, scale)
+        bias = ((1.0 - mask.float()) * -1e9).to(q.dtype)[:, None, None, :]
+        bwd_rel = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, refs)}
+        finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads))
+        fwd = dict(
+            ms=cuda_ms(lambda: multi_head_attention(q, k, v, mask, scale), iters),
+            plain_ms=cuda_ms(
+                lambda: multi_head_attention_reference(q, k, v, mask, scale), plain_iters, 1
+            ),
+            library_ms=cuda_ms(
+                lambda: scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale), iters
+            ),
+            max_abs_err=(out.float() - ref.float()).abs().max().item(),
+            max_rel_err=rel_err(out, ref),
+            finite=finite,
+        )
+        bwd = dict(
+            ms=cuda_ms(lambda: multi_head_attention_backward(q, k, v, mask, do, scale), iters),
+            plain_ms=cuda_ms(
+                lambda: multi_head_attention_backward_reference(q, k, v, mask, do, scale),
+                plain_iters, 1,
+            ),
+            max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in zip(grads, refs)),
+            max_rel_err=max(bwd_rel.values()),
+            worst=max(bwd_rel, key=bwd_rel.get),
+            finite=finite,
+        )
+    with torch.enable_grad():
+        qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+        y = scaled_dot_product_attention(qr, kr, vr, attn_mask=bias, scale=scale)
+        bwd["library_ms"] = cuda_ms(
+            lambda: torch.autograd.grad(y, (qr, kr, vr), do, retain_graph=True), iters
+        )
+        del y
+    fwd["bound_ms"], fwd["bound_by"] = attention_bound(b, h, s, d, backward=False)
+    bwd["bound_ms"], bwd["bound_by"] = attention_bound(b, h, s, d, backward=True)
+    return fwd, bwd
+
+
+def attention_rows_ok(fwd: dict, bwd: dict) -> bool:
+    return (
+        fwd["finite"] and fwd["max_rel_err"] <= ATTN_REL_TOL and bwd["max_rel_err"] <= ATTN_REL_TOL
+    )
+
+
+def kernel_row(row: dict) -> dict:
+    """The kernels-line keys of a measured row."""
+    keys = ("ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by", "launches")
+    return {key: row[key] for key in keys}
+
+
+def layer_qkv(x: torch.Tensor, layer: dict, heads: int):
+    """q, k, v of one unfused layer's attention, as ``_encoder_layer`` makes
+    them (views of its [B, S, 3, heads, head_dim] projection)."""
+    b, s, h = x.shape
+    qkv = (torch.matmul(x, layer["qkv_w"]) + layer["qkv_b"]).view(b, s, 3, heads, h // heads)
+    return [t.permute(0, 2, 1, 3) for t in qkv.unbind(2)]
+
+
+def agreement(q_kern, q_plain, cat_kern, cat_plain, i_kern, k: int) -> dict:
+    """Top-k ids from the kernels against the plain versions' ranking: the
+    share identical, and the share identical or a near-tie. A swap of ids a
+    (kernels) and b (plain) at one rank is a near-tie when their plain scores
+    differ by less than the embedding differences can move both scores: for
+    unit vectors, |q.c - q'.c'| <= ||q - q'|| + ||c - c'||."""
+    from instacart_next_order_recommendation_tpu_torch.ops.topk import cosine_topk_reference
+
+    s_plain, i_plain = cosine_topk_reference(q_plain, cat_plain, k)
+    q_delta = (q_plain - q_kern).norm(dim=1)[:, None]
+    c_delta = (cat_plain - cat_kern).norm(dim=1)
+    tol = 2 * q_delta + c_delta[i_kern.long()] + c_delta[i_plain.long()]
+    plain_of_kern = (q_plain @ cat_plain.T).gather(1, i_kern.long())
+    near_tie = plain_of_kern >= s_plain - tol
+    return {
+        "identical": float((i_kern == i_plain).float().mean()),
+        "identical_or_near_tie": float(((i_kern == i_plain) | near_tie).float().mean()),
+        "spread": (s_plain[:, 0] - s_plain[:, -1]).median().item(),
+        "median_tol": tol.median().item(),
+        "i_plain": i_plain,
+    }
+
+
+def time_serving(rec, queries: list[str]) -> dict:
+    """Single-query latencies (``recommend``, top-10) over the queries past
+    the batch, then the batch of the first BATCH through
+    ``FusedServePipeline.topk`` at top-16: one warm-up and five timed calls."""
+    latencies = []
+    for q in queries[BATCH:]:
+        t0 = time.perf_counter()
+        rec.recommend(q, top_k=10)
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    ids, tmask = rec.encoder.tokenizer.encode_batch(queries[:BATCH], max_seq_length=256)
+    tokenize_ms = (time.perf_counter() - t0) * 1e3
+    rec._fused.topk(ids, tmask, K_BATCH)  # warm-up
+    batch_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        scores, idx = rec._fused.topk(ids, tmask, K_BATCH)
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    lat = np.asarray(latencies)
+    median = float(np.median(batch_ms))
+    return {
+        "ids": ids, "scores": scores, "idx": idx,
+        "stats": {
+            "batch": BATCH,
+            "batch_seq": int(ids.shape[1]),
+            "batch_k": K_BATCH,
+            "batch_tokenize_ms": tokenize_ms,
+            "batch_ms_median": median,
+            "batch_queries_per_s": BATCH / (median / 1e3),
+            "single_query_p50_ms": float(np.percentile(lat, 50)),
+            "single_query_p95_ms": float(np.percentile(lat, 95)),
+            "single_queries": len(lat),
+        },
+    }
+
+
+def plain_encoder(encoder, dev, config, layers):
+    """Token ids -> embeddings through ``encode`` on a TextEncoder's params,
+    with every kernel replaced by its plain version, on the card."""
+    from instacart_next_order_recommendation_tpu_torch.models.encoder import encode
+
+    def run(ids_np: np.ndarray) -> torch.Tensor:
+        ids_t = torch.from_numpy(ids_np).to(dev)
+        m = (ids_t != encoder.tokenizer.pad_id).to(torch.int32)
+        with plain_kernels():
+            return encode(encoder.params, ids_t, m, config, layers=layers)
+
+    return run
+
+
+def catalog_ids(rec) -> list[np.ndarray]:
+    """The catalog's token ids in batches of 512, as ``encode_resident`` pads them."""
+    return [
+        rec.encoder.tokenizer.encode_batch(rec.product_texts[lo : lo + 512], max_seq_length=256)[0]
+        for lo in range(0, len(rec.product_texts), 512)
+    ]
+
+
+def packed_ties_ok(queries, catalog, i_packed, i_exact) -> bool:
+    """Every rank where the packed ids differ from the exact ones holds a
+    tie within the 20-bit key (exact f32 scores within PACKED_TIE_REL)."""
+    scores = queries @ catalog.T
+    a = scores.gather(1, i_packed.long())
+    b = scores.gather(1, i_exact.long())
+    return bool(((a - b).abs() <= PACKED_TIE_REL * b.abs() + 1e-6).all())
 
 
 def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_iters):
@@ -429,6 +700,7 @@ class Smoke:
             masked_mean_pool_l2norm_reference,
         )
         from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            cosine_topk_packed_reference,
             cosine_topk_reference,
         )
 
@@ -508,6 +780,86 @@ class Smoke:
                     self.check(
                         same_ids and tie_ok and err3 <= K3_TOL, f"K3 B={b} k={k} mask={masked}"
                     )
+                    # K4 on the same grid values: ids and quantized scores
+                    # identical to its plain version.
+                    s_p, i_p = cosine_topk(q, c, k, n_valid=n, candidate_mask=mask, packed=True)
+                    s_pr, i_pr = cosine_topk_packed_reference(
+                        q, c, k, n_valid=n, candidate_mask=mask
+                    )
+                    same4 = bool(torch.equal(i_p, i_pr)) and bool(torch.equal(s_p, s_pr))
+                    log(
+                        f"K4 cosine_topk packed B={b} N={n} k={k} mask={masked}: ids and scores "
+                        f"identical={same4} launches={cosine_topk.packed_launches}"
+                    )
+                    self.check(same4, f"K4 B={b} k={k} mask={masked}")
+        del c
+        torch.cuda.empty_cache()
+
+    def compare_attention_kernels(self, dev) -> None:
+        """K6 and K7 against their plain versions at the shapes the unfused
+        layer gives them: the mpnet-base-class serve batch, one query, the
+        catalog batch and the training batch (12 heads, D=64), and the
+        MiniLM route's repaired shapes (D=32 at S=512 and S=200); then the
+        two other head dims the kernels take (16 and 128), which no preset
+        uses. Every batch above 1 carries an all-pad row."""
+        shapes = [
+            ("mpnet serve", 256, 192, 64), ("mpnet one query", 1, 64, 64),
+            ("mpnet catalog", 512, 32, 64), ("mpnet train", 64, 256, 64),
+            ("MiniLM S=512", 64, 512, 32), ("MiniLM S=200", 64, 200, 32),
+            ("head_dim 16", 64, 136, 16), ("head_dim 128", 64, 512, 128),
+        ]
+        g = torch.Generator().manual_seed(7)
+        for name, b, s, d in shapes:
+            q, k, v, do = (
+                torch.randn((b, 12, s, d), generator=g).to(dev, torch.bfloat16) for _ in range(4)
+            )
+            mask = random_mask(b, s, g, dev)
+            fwd, bwd = measure_attention(q, k, v, mask, do, d**-0.5, iters=10 if b * s <= 16384 else 3)
+            log(
+                f"K6/K7 {name} B={b} heads=12 S={s} D={d}: K6 rel_err={fwd['max_rel_err']:.3g} "
+                f"ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} sdpa_ms={fwd['library_ms']:.4f} "
+                f"bound_ms={fwd['bound_ms']:.4g} ({fwd['bound_by']}); K7 worst rel_err "
+                f"{bwd['worst']}={bwd['max_rel_err']:.3g} ms={bwd['ms']:.4f} "
+                f"plain_ms={bwd['plain_ms']:.4f} sdpa_bwd_ms={bwd['library_ms']:.4f} "
+                f"bound_ms={bwd['bound_ms']:.4g} ({bwd['bound_by']}) (tol {ATTN_REL_TOL})"
+            )
+            self.check(attention_rows_ok(fwd, bwd), f"K6/K7 {name}")
+            del q, k, v, do
+            torch.cuda.empty_cache()
+
+    def compare_packed_topk(self, dev) -> None:
+        """K4 against K3 and against its plain version at the catalog size
+        the JAX package names for the packed extraction: 1M x 384 unit rows,
+        B in {8, 256}, k=10. Random scores, so K4's ids may differ from K3's
+        only at ties within the 20-bit key."""
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            cosine_topk_packed_reference,
+        )
+
+        g = torch.Generator(device=dev).manual_seed(8)
+        c = torch.randn((PACKED_N, 384), generator=g, device=dev)
+        c /= c.norm(dim=1, keepdim=True)
+        self.packed_1m = {}
+        for b in (8, 256):
+            q = torch.randn((b, 384), generator=g, device=dev)
+            q /= q.norm(dim=1, keepdim=True)
+            _, i3 = cosine_topk(q, c, 10)
+            s4, i4 = cosine_topk(q, c, 10, packed=True)
+            s_pr, i_pr = cosine_topk_packed_reference(q, c, 10)
+            row = {
+                "ids_equal_to_exact": float((i4 == i3).float().mean()),
+                "ids_equal_to_plain": float((i4 == i_pr).float().mean()),
+                "max_abs_err_vs_plain": (s4 - s_pr).abs().max().item(),
+                "exact_ms": cuda_ms(lambda: cosine_topk(q, c, 10), 10),
+                "packed_ms": cuda_ms(lambda: cosine_topk(q, c, 10, packed=True), 10),
+                "packed_plain_ms": cuda_ms(lambda: cosine_topk_packed_reference(q, c, 10), 2, 1),
+            }
+            ties = packed_ties_ok(q, c, i4, i3) and packed_ties_ok(q, c, i4, i_pr)
+            self.packed_1m[b] = row
+            log(f"K4 vs K3 at N={PACKED_N} D=384 B={b} k=10: {json.dumps(row)}; "
+                f"every differing id a 20-bit tie: {ties}")
+            self.check(ties, f"K4 at 1M rows, B={b}: ids differ only at quantization ties")
         del c
         torch.cuda.empty_cache()
 
@@ -628,21 +980,7 @@ class Smoke:
         r3 = rec.recommend(queries[2], top_k=10, filter_aisles=["milk"])
         big_excluded = {pid for pid, _ in r1}
         r4 = rec.recommend(queries[3], top_k=250, exclude_product_ids=big_excluded)
-        latencies = []
-        for q in queries[BATCH:]:
-            t0 = time.perf_counter()
-            rec.recommend(q, top_k=10)
-            latencies.append((time.perf_counter() - t0) * 1e3)
-
-        t0 = time.perf_counter()
-        ids, tmask = rec.encoder.tokenizer.encode_batch(queries[:BATCH], max_seq_length=256)
-        tokenize_ms = (time.perf_counter() - t0) * 1e3
-        rec._fused.topk(ids, tmask, K_BATCH)  # warm-up
-        batch_ms = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            b_scores, b_idx = rec._fused.topk(ids, tmask, K_BATCH)
-            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        timed = time_serving(rec, queries)
         counts = {w.__name__: w.launches for w in wrappers}
         dense_calls = cosine_topk.dense_calls
         # ---- end of the main path
@@ -653,16 +991,34 @@ class Smoke:
             f"route calls: {dense_calls}"
         )
         self.check(dense_calls == 1, "top_k + |excluded| > 256 took the dense route once")
-        # The same request through the plain version: the query's embedding
-        # from the kernels, the dense scores and stable sort of
-        # cosine_topk_reference, then the same exclusion.
+        # The dense route is the plain version by design (the JAX package has
+        # no kernel for k > block either), so it is held against a ranking
+        # of its own: float64 scores of the same embeddings on the host, a
+        # stable sort, the same exclusion. An id may differ only where the
+        # two f64 scores lie within twice the f32 rounding of a D-term dot
+        # product of unit vectors (D * 2^-24 each).
         q4 = rec.encoder.encode_device([queries[3]])
-        _, i4 = cosine_topk_reference(q4, rec.index.catalog, 250 + len(big_excluded))
-        plain_r4 = [p for p in (rec.product_ids[int(j)] for j in i4[0]) if p not in big_excluded]
+        s64 = rec.index.catalog.double().cpu().numpy() @ q4.double().cpu().numpy()[0]
+        rows64 = [
+            int(j) for j in np.argsort(-s64, kind="stable")
+            if rec.product_ids[int(j)] not in big_excluded
+        ][:250]
+        row_of = {pid: i for i, pid in enumerate(rec.product_ids)}
+        rows4 = [row_of[p] for p, _ in r4]
+        f32_err = rec.index.catalog.shape[1] * 2.0**-24
+        swaps = [(a, b) for a, b in zip(rows4, rows64) if a != b]
+        score_err = max(abs(sc - s64[row_of[p]]) for p, sc in r4)
         self.check(
-            [p for p, _ in r4] == plain_r4[:250], "top-250 with 10 excluded matches the plain version"
+            len(r4) == 250 and not big_excluded & {p for p, _ in r4}
+            and all(abs(s64[a] - s64[b]) <= 2 * f32_err for a, b in swaps)
+            and score_err <= f32_err,
+            "top-250 with 10 excluded matches a float64 ranking on the host",
         )
-        log(f"recommend top_k=250 excluding {len(big_excluded)}: {len(r4)} ids, identical to plain")
+        log(
+            f"recommend top_k=250 excluding {len(big_excluded)}: {len(r4)} ids; against a "
+            f"float64 host ranking {len(swaps)} swapped near-ties, max score error "
+            f"{score_err:.3g} (tol {f32_err:.3g})"
+        )
         self.check(all(v > 0 for v in counts.values()), "every kernel launched on the main path")
         self.check(
             counts["fused_encoder_layer"] == config.num_layers * n_forwards,
@@ -678,7 +1034,8 @@ class Smoke:
             self.check(all(np.isfinite(sc)) and sc == sorted(sc, reverse=True), "scores ordered")
         self.check(bool(torch.isfinite(rec.index.catalog).all()), "catalog finite")
         self.check(bool(torch.allclose(emb, rec.index.catalog)), "catalog encode repeatable")
-        self.check(bool(np.isfinite(b_scores).all()), "batch scores finite")
+        ids, b_idx = timed["ids"], timed["idx"]
+        self.check(bool(np.isfinite(timed["scores"]).all()), "batch scores finite")
 
         # ---- the same batch through the plain versions on the card
         with torch.inference_mode():
@@ -687,61 +1044,38 @@ class Smoke:
                 num_heads=config.num_heads, scale=1.0 / config.head_dim**0.5,
                 eps=config.layer_norm_eps,
             )
-
             config_f32 = dataclasses.replace(config, compute_dtype="float32")
-            layers_f32 = prepare_layers(rec.encoder.params, config_f32)
-
-            def plain_encode(ids_np, cfg=config, layers=rec.encoder.layers):
-                ids_t = torch.from_numpy(ids_np).to(dev)
-                m = (ids_t != pad_id).to(torch.int32)
-                x = embed(rec.encoder.params, ids_t, cfg)
-                for layer in layers:
-                    x = fused_encoder_layer_reference(x, m, layer, **kw)
-                return masked_mean_pool_l2norm_reference(x, m)
-
+            plain_encode = plain_encoder(rec.encoder, dev, config, rec.encoder.layers)
+            plain_f32 = plain_encoder(
+                rec.encoder, dev, config_f32, prepare_layers(rec.encoder.params, config_f32)
+            )
             t0 = time.perf_counter()
-            cat_ids = [
-                rec.encoder.tokenizer.encode_batch(
-                    rec.product_texts[lo : lo + 512], max_seq_length=256
-                )[0]
-                for lo in range(0, N_PRODUCTS, 512)
-            ]
+            cat_ids = catalog_ids(rec)
             catalog_tokenize_s = time.perf_counter() - t0
             catalog_plain = torch.cat([plain_encode(c) for c in cat_ids])
             q_plain = plain_encode(ids)
-            s_plain, i_plain = cosine_topk_reference(q_plain, catalog_plain, K_BATCH)
             i_kern = torch.from_numpy(b_idx).to(dev)
-            agree = float((i_kern == i_plain).float().mean())
             cat_err = (catalog_plain - rec.index.catalog).abs().max().item()
             q_kern = rec.encoder.encode_device(queries[:BATCH])
             q_err = (q_plain - q_kern).abs().max().item()
-            # A swap of ids a (kernel) and b (plain) at one rank is a near-tie
-            # when their plain scores differ by less than the embedding
-            # differences can move both scores: for unit vectors,
-            # |q.c - q'.c'| <= ||q - q'|| + ||c - c'||.
-            q_delta = (q_plain - q_kern).norm(dim=1)[:, None]
-            c_delta = (catalog_plain - rec.index.catalog).norm(dim=1)
-            tol = 2 * q_delta + c_delta[i_kern.long()] + c_delta[i_plain.long()]
-            plain_of_kern = (q_plain @ catalog_plain.T).gather(1, i_kern.long())
-            near_tie = plain_of_kern >= s_plain - tol
-            explained = float(((i_kern == i_plain) | near_tie).float().mean())
-            spread = (s_plain[:, 0] - s_plain[:, -1]).median().item()
+            agreed = agreement(q_kern, q_plain, rec.index.catalog, catalog_plain, i_kern, K_BATCH)
+            agree, explained = agreed["identical"], agreed["identical_or_near_tie"]
+            i_plain = agreed["i_plain"]
             log(
                 f"plain versions on the card: catalog max_abs_err={cat_err:.4g}, batch "
                 f"query max_abs_err={q_err:.4g}, median top-1 - top-{K_BATCH} plain score "
-                f"spread={spread:.4g}, median swap tolerance={tol.median().item():.4g}; batch "
-                f"top-{K_BATCH} ids identical={agree:.4f}, identical or a near-tie="
-                f"{explained:.4f} (need >= 0.95), {time.perf_counter() - t0:.1f}s"
+                f"spread={agreed['spread']:.4g}, median swap tolerance="
+                f"{agreed['median_tol']:.4g}; batch top-{K_BATCH} ids identical={agree:.4f}, "
+                f"identical or a near-tie={explained:.4f} (need >= 0.95), "
+                f"{time.perf_counter() - t0:.1f}s"
             )
             self.check(cat_err <= 5e-3 and q_err <= 5e-3, "embeddings match the plain versions")
             self.check(explained >= 0.95, "batch top-16 agreement with the plain versions")
 
             # How much of the disagreement is bf16 itself: both bf16 paths
             # against the plain version in f32.
-            catalog_f32 = torch.cat([plain_encode(c, config_f32, layers_f32) for c in cat_ids])
-            _, i_f32 = cosine_topk_reference(
-                plain_encode(ids, config_f32, layers_f32), catalog_f32, K_BATCH
-            )
+            catalog_f32 = torch.cat([plain_f32(c) for c in cat_ids])
+            _, i_f32 = cosine_topk_reference(plain_f32(ids), catalog_f32, K_BATCH)
             kern_vs_f32 = float((i_kern == i_f32).float().mean())
             plain_vs_f32 = float((i_plain == i_f32).float().mean())
             log(
@@ -749,22 +1083,13 @@ class Smoke:
                 f"{kern_vs_f32:.4f}, plain versions (bf16) {plain_vs_f32:.4f}"
             )
 
-        lat = np.asarray(latencies)
         serve = {
             "products": N_PRODUCTS,
             "vocab": tok.vocab_size,
             "recommender_construct_s": construct_s,
             "catalog_encode_s": encode_s,
             "catalog_encode_products_per_s": N_PRODUCTS / encode_s,
-            "batch": BATCH,
-            "batch_seq": int(ids.shape[1]),
-            "batch_k": K_BATCH,
-            "batch_tokenize_ms": tokenize_ms,
-            "batch_ms_median": float(np.median(batch_ms)),
-            "batch_queries_per_s": BATCH / (float(np.median(batch_ms)) / 1e3),
-            "single_query_p50_ms": float(np.percentile(lat, 50)),
-            "single_query_p95_ms": float(np.percentile(lat, 95)),
-            "single_queries": len(lat),
+            **timed["stats"],
             "top16_ids_identical_to_plain": agree,
             "top16_identical_or_near_tie": explained,
             "top16_kernels_bf16_vs_plain_f32": kern_vs_f32,
@@ -830,17 +1155,274 @@ class Smoke:
             )
         for name, row in self.kernel_rows.items():
             row["launches"] = counts[name]
+        self.serve_state = dict(
+            model_dir=model_dir, corpus_path=corpus_path, queries=queries, tok=tok,
+            batch_ids=ids, batch_idx=b_idx, catalog=rec.index.catalog, catalog_texts=catalog,
+        )
         return serve
+
+    def serve_mpnet(self, dev, workdir: Path) -> dict:
+        """The mpnet-base-class tower at full width (random weights from a
+        seeded generator, the serve phase's vocab) served by Recommender over
+        the same 50k products: every layer takes the unfused route, so K6
+        runs 12 times per forward and K1 never."""
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import save_tower
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import (
+            MPNET_BASE_CLASS,
+            embed,
+            init_params,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            cosine_topk,
+            fused_encoder_layer,
+            masked_mean_pool_l2norm,
+            multi_head_attention,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
+            masked_mean_pool_l2norm_reference,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            cosine_topk_reference,
+        )
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+
+        st = self.serve_state
+        queries, tok = st["queries"], st["tok"]
+        config = MPNET_BASE_CLASS
+        if tok.vocab_size > config.vocab_size:
+            raise ValueError(f"vocab {tok.vocab_size} exceeds the preset's {config.vocab_size}")
+        t0 = time.perf_counter()
+        params = init_params(config, torch.Generator().manual_seed(0))
+        model_dir = workdir / "mpnet"
+        save_tower(model_dir, params, config, tok)
+        del params
+        log(
+            f"setup: mpnet-base-class {config.num_layers}x{config.hidden_size} "
+            f"h{config.num_heads} (head_dim {config.head_dim}) i{config.intermediate_size} "
+            f"vocab {config.vocab_size}, {time.perf_counter() - t0:.1f}s"
+        )
+
+        # ---- the main path, counted from zero
+        wrappers = (multi_head_attention, fused_encoder_layer, masked_mean_pool_l2norm, cosine_topk)
+        for w in wrappers:
+            w.launches = 0
+        t0 = time.perf_counter()
+        rec = Recommender(model_dir, st["corpus_path"], use_index=False)
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec.encoder.encode_resident(rec.product_texts, batch_size=512)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        r1 = rec.recommend(queries[0], top_k=10)
+        timed = time_serving(rec, queries)
+        counts = {w.__name__: w.launches for w in wrappers}
+        # ---- end of the main path
+
+        n_forwards = counts["masked_mean_pool_l2norm"]
+        log(f"mpnet main-path launches: {counts} ({n_forwards} tower forwards)")
+        self.check(
+            counts["multi_head_attention"] == config.num_layers * n_forwards
+            and counts["fused_encoder_layer"] == 0 and n_forwards > 0 and counts["cosine_topk"] > 0,
+            "mpnet serve: 12 K6 launches per forward, no K1",
+        )
+        ids, b_idx = timed["ids"], timed["idx"]
+        self.check(len(r1) == 10 and bool(np.isfinite(timed["scores"]).all()), "mpnet recommend")
+
+        # ---- the same batch through the plain versions on the card
+        with torch.no_grad():
+            plain_encode = plain_encoder(rec.encoder, dev, config, rec.encoder.layers)
+            catalog_plain = torch.cat([plain_encode(c) for c in catalog_ids(rec)])
+            q_plain = plain_encode(ids)
+        q_kern = rec.encoder.encode_device(queries[:BATCH])
+        cat_err = (catalog_plain - rec.index.catalog).abs().max().item()
+        q_err = (q_plain - q_kern).abs().max().item()
+        agreed = agreement(
+            q_kern, q_plain, rec.index.catalog, catalog_plain, torch.from_numpy(b_idx).to(dev),
+            K_BATCH,
+        )
+        log(
+            f"mpnet plain versions on the card: catalog max_abs_err={cat_err:.4g}, batch query "
+            f"max_abs_err={q_err:.4g}; batch top-{K_BATCH} ids identical="
+            f"{agreed['identical']:.4f}, identical or a near-tie="
+            f"{agreed['identical_or_near_tie']:.4f} (need >= 0.95)"
+        )
+        self.check(cat_err <= 5e-3 and q_err <= 5e-3, "mpnet embeddings match the plain versions")
+        self.check(agreed["identical_or_near_tie"] >= 0.95, "mpnet top-16 agreement with plain")
+        del catalog_plain
+
+        # ---- K6 (and K2, K3 at D=768) at the batch's shapes
+        with torch.no_grad():
+            ids_t = torch.from_numpy(ids).to(dev)
+            m = (ids_t != rec.encoder.tokenizer.pad_id).to(torch.int32)
+            x = embed(rec.encoder.params, ids_t, config)
+            q, k, v = layer_qkv(x, rec.encoder.layers[0], config.num_heads)
+            do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev, q.dtype)
+        fwd, bwd = measure_attention(q, k, v, m, do, config.head_dim**-0.5, iters=10)
+        self.check(attention_rows_ok(fwd, bwd), "K6/K7 at the mpnet batch shape")
+        self.kernel_rows["multi_head_attention"] = {
+            **kernel_row({**fwd, "launches": counts["multi_head_attention"]}),
+            "max_rel_err": fwd["max_rel_err"],
+        }
+        b, s, h = x.shape
+        with torch.no_grad():
+            p = masked_mean_pool_l2norm(x, m)
+            e2 = (p - masked_mean_pool_l2norm_reference(x, m)).abs().max().item()
+            k2 = dict(
+                ms=cuda_ms(lambda: masked_mean_pool_l2norm(x, m), 50),
+                plain_ms=cuda_ms(lambda: masked_mean_pool_l2norm_reference(x, m), 20),
+                max_abs_err=e2, bound_ms=k2_bound(b, s, h)[0],
+            )
+            cat = rec.index.catalog
+            s_k, i_k = cosine_topk(p, cat, K_BATCH, n_valid=N_PRODUCTS)
+            s_r, i_r = cosine_topk_reference(p, cat, K_BATCH, n_valid=N_PRODUCTS)
+            k3 = dict(
+                ms=cuda_ms(lambda: cosine_topk(p, cat, K_BATCH, n_valid=N_PRODUCTS), 20),
+                plain_ms=cuda_ms(lambda: cosine_topk_reference(p, cat, K_BATCH, n_valid=N_PRODUCTS), 10),
+                max_abs_err=(s_k - s_r).abs().max().item(),
+                ids_identical=float((i_k == i_r).float().mean()),
+                bound_ms=k3_bound(b, N_PRODUCTS, h, K_BATCH, False)[0],
+            )
+        log(
+            f"at the mpnet batch shape B={b} S={s} H={h}: K6 "
+            f"{json.dumps(self.kernel_rows['multi_head_attention'])}; K7 ms={bwd['ms']:.4f} "
+            f"bound_ms={bwd['bound_ms']:.4g}; K2 {json.dumps(k2)}; K3 N={N_PRODUCTS} D={h} "
+            f"{json.dumps(k3)}"
+        )
+        self.check(e2 <= K2_TOL and k3["max_abs_err"] <= 1e-5 and k3["ids_identical"] >= 0.99,
+                   "K2 and K3 at the mpnet shapes")
+        out = {
+            "model": "mpnet-base-class",
+            "recommender_construct_s": construct_s,
+            "catalog_encode_s": encode_s,
+            "catalog_encode_products_per_s": N_PRODUCTS / encode_s,
+            **timed["stats"],
+            "top16_ids_identical_to_plain": agreed["identical"],
+            "top16_identical_or_near_tie": agreed["identical_or_near_tie"],
+            "launches": counts,
+            "k2_at_batch": k2,
+            "k3_at_batch": k3,
+        }
+        log("mpnet serve " + json.dumps(out))
+        return out
+
+    def repaired_shapes(self, dev) -> dict:
+        """MiniLM-L6 at two shapes its fused kernels do not take: a batch
+        that buckets to S=512 under max_seq_length 512, and one that fills
+        max_seq_length 200. Both take the unfused layer (K6, no K1) and
+        must match the plain versions."""
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            fused_encoder_layer,
+            masked_mean_pool_l2norm,
+            multi_head_attention,
+        )
+
+        st = self.serve_state
+        names = [t.split("Product: ")[1].split(".")[0] for t in st["catalog_texts"][:400]]
+        out = {}
+        for max_len in (512, 200):
+            enc = TextEncoder.load(st["model_dir"], max_seq_length=max_len)
+            # Eight contexts of 10 to 160 product names: the longest runs past
+            # max_len tokens and is cut to it.
+            texts = [", ".join(names[i * 40 : i * 40 + n]) for i, n in
+                     enumerate((160, 10, 40, 80, 20, 120, 60, 30))]
+            ids, _ = enc.tokenizer.encode_batch(texts, max_seq_length=max_len)
+            wrappers = (multi_head_attention, fused_encoder_layer, masked_mean_pool_l2norm)
+            for w in wrappers:
+                w.launches = 0
+            emb = enc.encode_device(texts)
+            torch.cuda.synchronize()
+            counts = {w.__name__: w.launches for w in wrappers}
+            with torch.no_grad():
+                plain = plain_encoder(enc, dev, enc.config, enc.layers)(ids)
+            err = (emb - plain).abs().max().item()
+            out[max_len] = {"seq": int(ids.shape[1]), "max_abs_err": err, "launches": counts}
+            log(f"MiniLM-L6 at max_seq_length {max_len}: {json.dumps(out[max_len])}")
+            self.check(
+                ids.shape[1] == max_len and counts["multi_head_attention"] == 6
+                and counts["fused_encoder_layer"] == 0 and err <= 5e-3
+                and bool(torch.isfinite(emb).all()),
+                f"MiniLM-L6 at S={max_len} through K6, matching the plain versions",
+            )
+        return out
+
+    def serve_packed(self, dev) -> dict:
+        """Recommender(topk_extraction="packed") on the MiniLM 50k catalog: its
+        batch top-16 against the exact Recommender's, ids differing only at
+        20-bit ties; K4 launches and K3 does not."""
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            cosine_topk_packed_reference,
+        )
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+
+        st = self.serve_state
+        cosine_topk.launches = cosine_topk.packed_launches = 0
+        # ---- the main path, counted from zero
+        rec = Recommender(st["model_dir"], st["corpus_path"], use_index=False,
+                          topk_extraction="packed")
+        r1 = rec.recommend(st["queries"][0], top_k=10)
+        ids = st["batch_ids"]
+        rec._fused.topk(ids, None, K_BATCH)  # warm-up
+        batch_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _, p_idx = rec._fused.topk(ids, None, K_BATCH)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        counts = {"cosine_topk_packed": cosine_topk.packed_launches,
+                  "cosine_topk": cosine_topk.launches}
+        # ---- end of the main path
+        with torch.no_grad():
+            q = rec.encoder.encode_device(st["queries"][:BATCH])
+            i_exact = torch.from_numpy(st["batch_idx"]).to(dev)
+            i_packed = torch.from_numpy(p_idx).to(dev)
+            same_catalog = bool(torch.equal(rec.index.catalog, st["catalog"]))
+            ties = packed_ties_ok(q, rec.index.catalog, i_packed, i_exact)
+            share = float((i_packed == i_exact).float().mean())
+            # K4 at this batch's shapes, for the kernels line.
+            cat = rec.index.catalog
+            s4, i4 = cosine_topk(q, cat, K_BATCH, n_valid=N_PRODUCTS, packed=True)
+            s_r, i_r = cosine_topk_packed_reference(q, cat, K_BATCH, n_valid=N_PRODUCTS)
+            b, h = q.shape
+            bnd, by = k3_bound(b, N_PRODUCTS, h, K_BATCH, False)
+            self.kernel_rows["cosine_topk_packed"] = dict(
+                ms=cuda_ms(lambda: cosine_topk(q, cat, K_BATCH, n_valid=N_PRODUCTS, packed=True), 20),
+                plain_ms=cuda_ms(
+                    lambda: cosine_topk_packed_reference(q, cat, K_BATCH, n_valid=N_PRODUCTS), 10
+                ),
+                library_ms=None, max_abs_err=(s4 - s_r).abs().max().item(), bound_ms=bnd,
+                bound_by=by, launches=counts["cosine_topk_packed"],
+            )
+            k4_same = float((i4 == i_r).float().mean())
+        out = {
+            "batch_ms_median": float(np.median(batch_ms)),
+            "top16_ids_equal_to_exact_recommender": share,
+            "k4_ids_equal_to_plain_at_batch": k4_same,
+            "launches": counts,
+            "k4_row": self.kernel_rows["cosine_topk_packed"],
+            "packed_1m": self.packed_1m,
+        }
+        log("packed serve " + json.dumps(out))
+        self.check(
+            len(r1) == 10 and counts["cosine_topk_packed"] > 0 and counts["cosine_topk"] == 0,
+            "the packed Recommender serves through K4 alone",
+        )
+        self.check(same_catalog and ties, "packed top-16 differs from exact only at 20-bit ties")
+        self.check(k4_same >= 0.99, "K4 ids at the batch shape")
+        return out
 
 
 class TrainPhase:
-    """Phase 4: MNRL training through TwoTowerTrainer.train(data=...)."""
+    """Phase 4: MNRL training of MiniLM-L6 through TwoTowerTrainer.train(data=...)."""
 
-    def __init__(self, smoke: "Smoke", dev, workdir: Path):
+    model_name = "minilm-l6"
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, data=None):
         self.smoke = smoke
         self.dev = dev
-        self.workdir = workdir
-        self.data = build_training_data(np.random.default_rng(1))
+        self.workdir = workdir / self.model_name
+        self.data = data if data is not None else build_training_data(np.random.default_rng(1))
 
     def config(self, out: str, **kw):
         from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
@@ -848,7 +1430,7 @@ class TrainPhase:
         return TrainConfig({
             "processed_dir": str(self.workdir),
             "output_dir": str(self.workdir / out),
-            "model_name": "minilm-l6",
+            "model_name": self.model_name,
             "max_seq_length": 256,
             "vocab_size": 30000,
             "epochs": TRAIN_EPOCHS,
@@ -874,15 +1456,12 @@ class TrainPhase:
         ]
 
     def run(self) -> dict:
-        from instacart_next_order_recommendation_tpu_torch.eval.evaluator import (
-            RetrievalEvaluator,
-        )
-        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
         from instacart_next_order_recommendation_tpu_torch.ops import (
             cosine_topk,
             fused_encoder_layer,
             fused_encoder_layer_backward,
             fused_encoder_layer_train,
+            fused_layer,
             masked_mean_pool_l2norm,
         )
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
@@ -891,17 +1470,7 @@ class TrainPhase:
         smoke = self.smoke
         anchors, positives, eval_pairs, queries, corpus, relevant = self.data
         corpus_path = self.workdir / "train_corpus.json"
-        corpus_path.write_text(json.dumps(corpus))
-
-        # The untrained tower: zero epochs export the initial params as final/.
-        t0 = time.perf_counter()
-        untrained = TwoTowerTrainer(
-            self.config("untrained", epochs=0, run_information_retrieval_evaluator=False)
-        ).train(data=self.data)
-        evaluator = RetrievalEvaluator(queries, corpus, relevant, batch_size=64)
-        with torch.inference_mode():
-            ndcg_untrained = evaluator(TextEncoder.load(untrained["final_dir"]))["ndcg_at_10"]
-        log(f"untrained tower: NDCG@10 {ndcg_untrained:.4f} ({time.perf_counter() - t0:.1f}s)")
+        ndcg_untrained = self.untrained(corpus_path)
 
         # ---- the main path, counted from zero
         wrappers = (
@@ -966,7 +1535,19 @@ class TrainPhase:
         )
 
         self.kernel_rows(trainer, result["final_dir"], counts)
-        step_check = self.kernels_against_plain_steps(trainer.seq_len)
+        step_check = self.kernels_against_plain_steps(
+            trainer.seq_len,
+            {
+                "weight_grads_x0.9": (
+                    fused_layer, "fused_encoder_layer_backward",
+                    lambda dx, dw: (dx, {n: 0.9 * g for n, g in dw.items()}),
+                ),
+                "dx_negated": (
+                    fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
+                ),
+            },
+            fused_encoder_layer_backward, 12,
+        )
         flagship = self.flagship()
         breakdown = {b: self.step_breakdown(trainer.seq_len, b) for b in (64, 512)}
         return {
@@ -983,6 +1564,28 @@ class TrainPhase:
             "flagship_b512": flagship,
             "step_breakdown": breakdown,
         }
+
+    def untrained(self, corpus_path: Path) -> float:
+        """Zero epochs export the initial params as ``untrained/final/`` (the
+        same seed as the trained run); returns their NDCG@10."""
+        from instacart_next_order_recommendation_tpu_torch.eval.evaluator import (
+            RetrievalEvaluator,
+        )
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+
+        queries, corpus, relevant = self.data[3:]
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        corpus_path.write_text(json.dumps(corpus))
+        t0 = time.perf_counter()
+        untrained = TwoTowerTrainer(
+            self.config("untrained", epochs=0, run_information_retrieval_evaluator=False)
+        ).train(data=self.data)
+        evaluator = RetrievalEvaluator(queries, corpus, relevant, batch_size=64)
+        with torch.inference_mode():
+            ndcg = evaluator(TextEncoder.load(untrained["final_dir"]))["ndcg_at_10"]
+        log(f"untrained {self.model_name}: NDCG@10 {ndcg:.4f} ({time.perf_counter() - t0:.1f}s)")
+        return ndcg
 
     def batches(self, tokenizer, seq: int, batch: int, n: int) -> list[list[torch.Tensor]]:
         anchors, positives = self.data[:2]
@@ -1049,32 +1652,22 @@ class TrainPhase:
         }
         return params, cfg, tok
 
-    def kernels_against_plain_steps(self, seq: int) -> dict:
+    def kernels_against_plain_steps(self, seq: int, faults: dict, counter, per_step: int) -> dict:
         """3 AdamW steps at dropout 0 and a constant lr, from the same params
-        on the same batches: TrainStep (kernels) against the same steps
-        through the plain versions. Compared: the three losses (the second
-        and third follow the updates before them) and every parameter's
-        gradient at the first step, relative to its largest magnitude.
+        on the same batches: TrainStep through the kernels against TrainStep
+        with every kernel replaced by its plain version. Compared: the three
+        losses (the second and third follow the updates before them) and
+        every parameter's gradient at the first step, relative to its
+        largest magnitude.
 
-        Both readings are taken again with a fault planted in K5's output:
-        every weight gradient scaled by 0.9, and dx negated. Adam's update
-        hardly depends on a gradient's scale, so the losses cannot see the
-        first fault; the gradients must. The limits must lie between the
-        sound readings and the faults'."""
-        from unittest import mock
-
-        from instacart_next_order_recommendation_tpu_torch.models.encoder import (
-            embed,
-            prepare_layers,
-        )
-        from instacart_next_order_recommendation_tpu_torch.ops import (
-            fused_encoder_layer_backward,
-            fused_layer,
-            mnrl_loss,
-        )
-        from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
-            masked_mean_pool_l2norm_reference,
-        )
+        Both readings are taken again with each fault in ``faults`` planted
+        at run time: ``name -> (module, wrapper name, change)``, the backward
+        wrapper's outputs passed through ``change``. Adam's update hardly
+        depends on a gradient's scale, so the losses cannot see a scaled
+        gradient; the gradients must. The limits must lie between the sound
+        readings and the faults': every fault above the gradient limit, one
+        above the loss limit. ``counter`` must count ``per_step`` launches
+        of the backward kernel per step."""
         from instacart_next_order_recommendation_tpu_torch.train.trainer import (
             TrainStep,
             build_optimizer,
@@ -1084,17 +1677,8 @@ class TrainPhase:
         cfg, tok = self.fresh_params()[1:]
         cfg = dataclasses.replace(cfg, hidden_dropout=0.0)
         batches = self.batches(tok, seq, 64, 3)
-        kw = dict(num_heads=cfg.num_heads, scale=1.0 / cfg.head_dim**0.5, eps=cfg.layer_norm_eps)
 
-        def plain_encode(params, ids, mask):
-            x = embed(params, ids, cfg)
-            for layer in prepare_layers(params, cfg):
-                x = fused_layer.fused_encoder_layer_train_reference(
-                    x, mask, layer, masks=None, **kw
-                )
-            return masked_mean_pool_l2norm_reference(x, mask)
-
-        def run(plain: bool) -> tuple[list[float], dict]:
+        def run() -> tuple[list[float], dict]:
             """The three losses and the first step's gradients by leaf."""
             params = self.fresh_params()[0]
             leaves = dict(param_leaves(params))
@@ -1106,26 +1690,14 @@ class TrainPhase:
                     first.update({n: t.grad.detach().clone() for n, t in leaves.items()})
 
             opt.register_step_pre_hook(keep_first)
-            if not plain:
-                step = TrainStep(
-                    params, cfg, opt, lambda count: STEP_CHECK_LR,
-                    loss_scale=30.0, accum=1, device=self.dev,
-                )
-                return [step(b, seed=0).item() for b in batches], first
-            losses = []
-            for a_ids, a_mask, p_ids, p_mask in batches:
-                loss = mnrl_loss(
-                    plain_encode(params, a_ids, a_mask), plain_encode(params, p_ids, p_mask), 30.0
-                )
-                loss.backward()
-                for group in opt.param_groups:
-                    group["lr"] = STEP_CHECK_LR
-                opt.step()
-                opt.zero_grad(set_to_none=True)
-                losses.append(loss.item())
-            return losses, first
+            step = TrainStep(
+                params, cfg, opt, lambda count: STEP_CHECK_LR,
+                loss_scale=30.0, accum=1, device=self.dev,
+            )
+            return [step(b, seed=0).item() for b in batches], first
 
-        plain_losses, plain_grads = run(plain=True)
+        with plain_kernels():
+            plain_losses, plain_grads = run()
 
         def readings(losses, grads) -> dict:
             # The key bias is left out: its exact gradient is zero (it adds
@@ -1144,32 +1716,32 @@ class TrainPhase:
                 "k_b_max_abs": grads["layers/k_b"].abs().max().item(),
             }
 
-        before = fused_encoder_layer_backward.launches
-        sound = readings(*run(plain=False))
-        launched = fused_encoder_layer_backward.launches - before
+        before = counter.launches
+        sound = readings(*run())
+        launched = counter.launches - before
 
-        def planted(change):
+        def planted(module, name, change):
+            wrapper = getattr(module, name)
+
             def faulty(*args, **kwargs):
-                return change(*fused_encoder_layer_backward(*args, **kwargs))
+                return change(*wrapper(*args, **kwargs))
 
-            # The wrapper counts its launches through its module-level name.
+            # Each wrapper counts its launches through its module-level name.
             faulty.launches = 0
-            with mock.patch.object(fused_layer, "fused_encoder_layer_backward", faulty):
-                return readings(*run(plain=False))
+            with mock.patch.object(module, name, faulty):
+                return readings(*run())
 
-        faults = {
-            "weight_grads_x0.9": planted(lambda dx, dw: (dx, {n: 0.9 * g for n, g in dw.items()})),
-            "dx_negated": planted(lambda dx, dw: (-dx, dw)),
-        }
+        fault_readings = {name: planted(*spec) for name, spec in faults.items()}
         log(
-            f"3 steps at dropout 0, lr {STEP_CHECK_LR}, kernels vs plain: losses "
-            f"{sound['losses']} vs {plain_losses}; loss rel diff {sound['loss_rel']:.3g} "
+            f"{self.model_name}: 3 steps at dropout 0, lr {STEP_CHECK_LR}, kernels vs plain: "
+            f"losses {sound['losses']} vs {plain_losses}; loss rel diff {sound['loss_rel']:.3g} "
             f"(tol {STEP_LOSS_REL_TOL}); first-step grads worst leaf {sound['grad_worst_leaf']} "
             f"{sound['grad_rel']:.3g} (tol {STEP_GRAD_REL_TOL}), worst three "
-            f"{sound['grad_worst_3']}; K5 launches {launched}; k_b grad max |g|: kernels "
-            f"{sound['k_b_max_abs']:.3g}, plain {plain_grads['layers/k_b'].abs().max().item():.3g}"
+            f"{sound['grad_worst_3']}; {counter.__name__} launches {launched}; k_b grad max |g|: "
+            f"kernels {sound['k_b_max_abs']:.3g}, plain "
+            f"{plain_grads['layers/k_b'].abs().max().item():.3g}"
         )
-        for name, f in faults.items():
+        for name, f in fault_readings.items():
             log(
                 f"  planted fault {name}: loss rel diff {f['loss_rel']:.3g}, grads worst three "
                 f"{f['grad_worst_3']}"
@@ -1177,16 +1749,15 @@ class TrainPhase:
         self.smoke.check(
             sound["loss_rel"] <= STEP_LOSS_REL_TOL
             and sound["grad_rel"] <= STEP_GRAD_REL_TOL
-            and launched == 36,
-            "3 steps: kernels agree with plain",
+            and launched == 3 * per_step,
+            f"{self.model_name} 3 steps: kernels agree with plain",
         )
         self.smoke.check(
-            faults["weight_grads_x0.9"]["grad_rel"] > STEP_GRAD_REL_TOL
-            and faults["dx_negated"]["grad_rel"] > STEP_GRAD_REL_TOL
-            and faults["dx_negated"]["loss_rel"] > STEP_LOSS_REL_TOL,
-            "3 steps: the limits catch the planted K5 faults",
+            all(f["grad_rel"] > STEP_GRAD_REL_TOL for f in fault_readings.values())
+            and any(f["loss_rel"] > STEP_LOSS_REL_TOL for f in fault_readings.values()),
+            f"{self.model_name} 3 steps: the limits catch the planted faults",
         )
-        return {"plain_losses": plain_losses, "kernels": sound, "planted_faults": faults}
+        return {"plain_losses": plain_losses, "kernels": sound, "planted_faults": fault_readings}
 
     def step_breakdown(self, seq: int, batch: int, n_steps: int = 5) -> dict:
         """Where a training step's time goes: ``n_steps`` TrainStep calls
@@ -1274,6 +1845,201 @@ class TrainPhase:
         return out
 
 
+class MpnetTrainPhase(TrainPhase):
+    """Phase 5: MNRL training of the mpnet-base-class tower at full width
+    (hidden 768, 12 layers, 12 heads of 64, intermediate 3072) through
+    TwoTowerTrainer.train(data=...) on the same pairs: every layer takes the
+    unfused route, K6 forward and K7 backward."""
+
+    model_name = "mpnet-base"
+
+    def run(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            attention,
+            cosine_topk,
+            fused_encoder_layer,
+            fused_encoder_layer_backward,
+            fused_encoder_layer_train,
+            masked_mean_pool_l2norm,
+            multi_head_attention,
+            multi_head_attention_backward,
+        )
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+
+        smoke = self.smoke
+        ndcg_untrained = self.untrained(self.workdir / "train_corpus.json")
+
+        # ---- the main path, counted from zero
+        wrappers = (
+            multi_head_attention, multi_head_attention_backward, masked_mean_pool_l2norm,
+            cosine_topk, fused_encoder_layer, fused_encoder_layer_train,
+            fused_encoder_layer_backward,
+        )
+        for w in wrappers:
+            w.launches = 0
+        trainer = TwoTowerTrainer(
+            self.config("trained", epochs=MPNET_EPOCHS, learning_rate=MPNET_LR)
+        )
+        t0 = time.perf_counter()
+        result = trainer.train(data=self.data)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in wrappers}
+        # ---- end of the main path
+
+        losses = np.asarray(trainer.step_losses)
+        n_epoch = self.steps_per_epoch(64, MPNET_EPOCHS)
+        steps = len(losses)
+        hist = result["history"]
+        per_epoch = [
+            {
+                "epoch": entry["epoch"],
+                "steps": n,
+                "step_ms": entry["epoch_seconds"] / n * 1e3,
+                "pairs_per_s": 64 * n / entry["epoch_seconds"],
+                "train_loss": entry["train_loss"],
+                "eval_loss": entry.get("eval_loss"),
+                "ndcg_at_10": entry.get("ndcg_at_10"),
+            }
+            for entry, n in zip(hist, n_epoch)
+        ]
+        log(f"mpnet train: {steps} steps, seq {trainer.seq_len}, {train_s:.1f}s; epochs "
+            f"{json.dumps(per_epoch)}")
+        log("mpnet train per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        log(f"mpnet main-path launches: {counts}")
+        head, tail = losses[:10].mean(), losses[-10:].mean()
+        smoke.check(trainer.seq_len == 256, "mpnet: the p5_mp20 contexts bucket to S=256")
+        smoke.check(steps == sum(n_epoch), "mpnet: steps per epoch as the batches give")
+        smoke.check(bool(np.isfinite(losses).all()), "mpnet training losses finite")
+        smoke.check(tail < head, f"mpnet loss falls (first 10 mean {head:.4f}, last 10 {tail:.4f})")
+        forwards = counts["masked_mean_pool_l2norm"]
+        smoke.check(
+            counts["multi_head_attention_backward"] == 24 * steps
+            and counts["multi_head_attention"] == 12 * forwards
+            and forwards > 2 * steps  # the eval's forwards too
+            and counts["cosine_topk"] > 0
+            and counts["fused_encoder_layer"] == counts["fused_encoder_layer_train"] == 0
+            and counts["fused_encoder_layer_backward"] == 0,
+            "mpnet: 24 K6 and 24 K7 launches per step (12 K6 per eval forward), no K1 or K5",
+        )
+        best = max(hist, key=lambda h: h["ndcg_at_10"])
+        log(f"mpnet NDCG@10: trained {best['ndcg_at_10']:.4f}, untrained {ndcg_untrained:.4f}")
+
+        self.attention_rows(result["final_dir"], trainer.seq_len, counts)
+        step_check = self.kernels_against_plain_steps(
+            trainer.seq_len,
+            {
+                "dk_x0.9": (
+                    attention, "multi_head_attention_backward",
+                    lambda dq, dk, dv: (dq, 0.9 * dk, dv),
+                ),
+                "dq_negated": (
+                    attention, "multi_head_attention_backward", lambda dq, dk, dv: (-dq, dk, dv)
+                ),
+            },
+            multi_head_attention_backward, 24,
+        )
+        remat = self.remat_sample(trainer.seq_len)
+        breakdown = self.step_breakdown(trainer.seq_len, 64, n_steps=3)
+        return {
+            "batch": 64,
+            "seq": trainer.seq_len,
+            "steps": steps,
+            "train_seconds": train_s,
+            "epochs": per_epoch,
+            "ndcg_at_10_trained": best["ndcg_at_10"],
+            "ndcg_at_10_untrained": ndcg_untrained,
+            "launches": counts,
+            "three_steps_kernels_vs_plain": step_check,
+            "remat_b256": remat,
+            "step_breakdown": breakdown,
+        }
+
+    def attention_rows(self, final_dir, seq: int, counts: dict) -> None:
+        """K7 (and K6) at the training batch's shape, from the trained
+        tower's first layer, for the kernels line."""
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import embed
+        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import prepare_layer
+
+        params, cfg, tok = load_tower(final_dir)
+        params = {k: ({n: t.to(self.dev) for n, t in v.items()}) for k, v in params.items()}
+        a_ids, a_mask = self.batches(tok, seq, 64, 1)[0][:2]
+        layer = prepare_layer({n: t[0] for n, t in params["layers"].items()}, torch.bfloat16)
+        with torch.no_grad():
+            x = embed(params, a_ids, cfg)
+            q, k, v = layer_qkv(x, layer, cfg.num_heads)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(10)).to(self.dev, q.dtype)
+        fwd, bwd = measure_attention(q, k, v, a_mask, do, cfg.head_dim**-0.5, iters=20)
+        self.smoke.check(attention_rows_ok(fwd, bwd), "K6/K7 at the mpnet training batch shape")
+        self.smoke.kernel_rows["multi_head_attention_backward"] = {
+            **kernel_row({**bwd, "launches": counts["multi_head_attention_backward"]}),
+            "max_rel_err": bwd["max_rel_err"],
+        }
+        log(
+            f"K7 row at the training batch shape B=64 S={seq} heads={cfg.num_heads} "
+            f"D={cfg.head_dim}: {json.dumps(self.smoke.kernel_rows['multi_head_attention_backward'])}"
+            f"; K6 there: ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
+            f"sdpa_ms={fwd['library_ms']:.4f} bound_ms={fwd['bound_ms']:.4g}"
+        )
+
+    def remat_sample(self, seq: int, n_steps: int = 5) -> dict:
+        """B=256 steps with remat as _resolve_remat chooses it (on: the fused
+        kernels do not take the tower), timed, with the peak device memory;
+        then the same steps without remat, if they fit."""
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+        from instacart_next_order_recommendation_tpu_torch.train.trainer import (
+            TrainStep,
+            build_optimizer,
+            warmup_cosine_schedule,
+        )
+
+        params, cfg, tok = self.fresh_params()
+        del params
+        trainer = TwoTowerTrainer(self.config("remat", train_batch_size=REMAT_BATCH))
+        chosen = trainer._resolve_remat(
+            cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, seq
+        )
+        self.smoke.check(chosen, f"_resolve_remat turns remat on at B={REMAT_BATCH}")
+        batches = self.batches(tok, seq, REMAT_BATCH, n_steps + 1)
+        out = {}
+        for remat in (chosen, not chosen):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            params = self.fresh_params()[0]
+            step = TrainStep(
+                params, dataclasses.replace(cfg, remat=remat), build_optimizer(params, 0.0),
+                warmup_cosine_schedule(2e-4, 100), loss_scale=30.0, accum=1, device=self.dev,
+            )
+            key = "remat" if remat else "no_remat"
+            try:
+                step(batches[0], seed=0)  # warm-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses = [step(b, seed=i) for i, b in enumerate(batches[1:], 1)]
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3 / n_steps
+                out[key] = {
+                    "step_ms": ms,
+                    "pairs_per_s": REMAT_BATCH / ms * 1e3,
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "losses": torch.stack(losses).tolist(),
+                }
+            except torch.cuda.OutOfMemoryError:
+                out[key] = {
+                    "did_not_fit": True,
+                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                }
+            del step, params
+        torch.cuda.empty_cache()
+        log(f"mpnet B={REMAT_BATCH} S={seq}, {n_steps} steps: {json.dumps(out)}")
+        self.smoke.check(
+            "losses" in out["remat"] and bool(np.isfinite(out["remat"]["losses"]).all()),
+            f"mpnet B={REMAT_BATCH} steps with remat",
+        )
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -1305,6 +2071,8 @@ def main() -> int:
         with torch.inference_mode():
             smoke.compare_kernels(dev)
         smoke.compare_train_kernels(dev)
+        smoke.compare_attention_kernels(dev)
+        smoke.compare_packed_topk(dev)
         log(f"phase 2 (kernels vs plain) {time.perf_counter() - t0:.1f}s")
         build_root = REPO / "build"
         build_root.mkdir(exist_ok=True)
@@ -1314,9 +2082,20 @@ def main() -> int:
                 smoke.serve(dev, Path(tmp))
             log(f"phase 3 (serve path) {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
-            train = TrainPhase(smoke, dev, Path(tmp)).run()
+            smoke.serve_mpnet(dev, Path(tmp))
+            smoke.repaired_shapes(dev)
+            smoke.serve_packed(dev)
+            log(f"phase 3b (mpnet serve, repaired shapes, packed serve) "
+                f"{time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            minilm = TrainPhase(smoke, dev, Path(tmp))
+            train = minilm.run()
             log("train " + json.dumps(train))
             log(f"phase 4 (training) {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            train_mpnet = MpnetTrainPhase(smoke, dev, Path(tmp), data=minilm.data).run()
+            log("mpnet train " + json.dumps(train_mpnet))
+            log(f"phase 5 (mpnet training) {time.perf_counter() - t0:.1f}s")
     except Exception:  # noqa: BLE001 - report the failure and exit non-zero
         traceback.print_exc()
         smoke.failures.append("exception")
@@ -1331,6 +2110,9 @@ def main() -> int:
         "cosine_topk": ("topk.cu", "ops/topk.py:154"),
         "fused_encoder_layer_train": ("fused_layer.cu", "ops/fused_layer.py:135"),
         "fused_encoder_layer_backward": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
+        "cosine_topk_packed": ("topk.cu", "ops/topk.py:75"),
+        "multi_head_attention": ("attention.cu", "ops/attention.py:62"),
+        "multi_head_attention_backward": ("attention.cu", "ops/attention.py:164"),
     }
     for name, (src, tpu) in sources.items():
         rows.append({

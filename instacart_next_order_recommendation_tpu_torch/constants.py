@@ -36,3 +36,8 @@ PRODUCT_IDS_FILENAME = "product_ids.json"
 # Tower checkpoint directory
 PARAMS_FILENAME = "params.msgpack"
 MODEL_CONFIG_FILENAME = "model_config.json"
+
+# Top-k extraction: "exact" (default) or "packed" (the 20-bit packed
+# score + index kernel; scores quantized to about 3 decimal digits).
+# Read by Recommender when it is not given one.
+ENV_TOPK_EXTRACTION = "ITOR_TOPK_EXTRACTION"

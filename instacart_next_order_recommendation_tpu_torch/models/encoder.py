@@ -6,14 +6,18 @@ plain dict of tensors with the same names and the same stacked-layer layout
 across packages unchanged (``models/checkpoint.py``).
 
 The forward sums the embeddings and LayerNorms them in f32, casts to the
-compute dtype, runs one fused layer per layer, then
-``masked_mean_pool_l2norm``. Without a dropout generator it runs the
-inference kernel (``fused_encoder_layer``); with one it trains: BERT hidden
-dropout on the f32 embeddings and inside every layer
-(``fused_encoder_layer_train``, whose backward is the fused backward
-kernel), with every mask drawn from that one generator in a fixed order.
-The bf16 layer weights are made from the f32 parameters by differentiable
-casts, so gradients reach the parameters.
+compute dtype, runs the layers, then ``masked_mean_pool_l2norm``. Each
+layer takes one of two routes, chosen by shape before any launch as the
+JAX package chooses: the fused layer where its kernels take the shape
+(``fused_layer.supports``), else the unfused layer ``_encoder_layer``
+(bf16 projections through ``torch.matmul``, ``multi_head_attention``,
+LayerNorm and GELU in f32), which takes any head_dim and sequence length.
+Without a dropout generator the forward runs inference; with one it
+trains: BERT hidden dropout on the f32 embeddings and inside every layer,
+with every mask drawn from that one generator in a fixed order (m1 then m2
+of each layer, the same draws on either route). The bf16 layer weights are
+made from the f32 parameters by differentiable casts, so gradients reach
+the parameters.
 """
 
 from __future__ import annotations
@@ -23,13 +27,20 @@ import math
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from instacart_next_order_recommendation_tpu_torch.ops import (
     fused_encoder_layer,
     fused_encoder_layer_train,
     masked_mean_pool_l2norm,
+    multi_head_attention,
 )
-from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import prepare_layer
+from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+    _gelu_exact,
+    draw_dropout_masks,
+    prepare_layer,
+    supports,
+)
 
 Params = dict[str, Any]
 
@@ -52,6 +63,9 @@ class TowerConfig:
     hidden_dropout: float = 0.1
     max_seq_length: int = 256
     compute_dtype: str = "bfloat16"
+    # Recompute each unfused layer in the backward (torch.utils.checkpoint):
+    # activation memory O(layers) instead of O(layers x layer). No effect on
+    # the fused route, whose backward already keeps only the layer inputs.
     remat: bool = False
 
     @property
@@ -69,6 +83,16 @@ class TowerConfig:
 
 # Preset matching all-MiniLM-L6-v2.
 MINILM_L6 = TowerConfig()
+
+# The mpnet-base-class preset (the JAX package's MPNET_BASE_CLASS): head_dim
+# 64, so every layer takes the unfused route.
+MPNET_BASE_CLASS = TowerConfig(
+    vocab_size=30527,
+    hidden_size=768,
+    num_layers=12,
+    num_heads=12,
+    intermediate_size=3072,
+)
 
 
 def _trunc_normal(generator: torch.Generator, shape, stddev: float = 0.02) -> torch.Tensor:
@@ -179,6 +203,43 @@ def embed(
     return x.to(DTYPES[config.compute_dtype])
 
 
+def _encoder_layer(
+    x: torch.Tensor,
+    layer: dict,
+    mask: torch.Tensor,
+    config: TowerConfig,
+    masks: tuple[torch.Tensor, torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """One post-LN BERT block without the fused kernels, cast for cast as
+    the JAX package's ``_encoder_layer``. x: ``[B, S, hidden]`` in the
+    compute dtype; ``layer`` a ``prepare_layer`` dict; ``masks`` the
+    ``(m1, m2)`` dropout masks (nonzero = kept) or None."""
+    b, s, h = x.shape
+    hd = config.head_dim
+    nh = h // hd
+    keep = 1.0 - config.hidden_dropout
+
+    def dropout(t, m):
+        if m is None:
+            return t
+        return torch.where(m != 0, t / keep, 0.0)
+
+    def layer_norm(t, scale, bias):
+        return _layer_norm(t, scale, bias, config.layer_norm_eps).to(x.dtype)
+
+    # One [hidden, 3 * hidden] product: the same columns as JAX's three.
+    qkv = (torch.matmul(x, layer["qkv_w"]) + layer["qkv_b"]).view(b, s, 3, nh, hd)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
+    attn = multi_head_attention(q, k, v, mask, scale=1.0 / hd**0.5)
+    attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, h), layer["o_w"]) + layer["o_b"]
+    m1, m2 = masks if masks is not None else (None, None)
+    x = layer_norm(x + dropout(attn, m1), layer["ln1_s"], layer["ln1_b"])
+    ffn = torch.matmul(x, layer["w1"]) + layer["b1"]
+    ffn = _gelu_exact(ffn.to(torch.float32)).to(x.dtype)
+    ffn = torch.matmul(ffn, layer["w2"]) + layer["b2"]
+    return layer_norm(x + dropout(ffn, m2), layer["ln2_s"], layer["ln2_b"])
+
+
 def encode(
     params: Params,
     input_ids: torch.Tensor,
@@ -192,26 +253,46 @@ def encode(
     ``layers`` are ``prepare_layers(params, config)``; made here if omitted.
     ``generator=None`` runs deterministically (eval/serve); a generator on
     the ids' device trains: dropout masks are drawn from it for the
-    embeddings, then m1 and m2 of each layer in turn.
+    embeddings, then m1 and m2 of each layer in turn. The route is chosen
+    by shape (``fused_layer.supports``) before any launch. ``config.remat``
+    checkpoints each unfused layer; its masks are drawn outside the
+    checkpoint, so the recompute sees the same masks.
     """
     x = embed(params, input_ids, config, generator)
     if layers is None:
         layers = prepare_layers(params, config)
-    kwargs = dict(
-        num_heads=config.num_heads,
-        scale=1.0 / (config.head_dim**0.5),
-        eps=config.layer_norm_eps,
-    )
+    s = input_ids.shape[1]
+    if supports(config.hidden_size, config.num_heads, s, config.intermediate_size):
+        kwargs = dict(
+            num_heads=config.num_heads,
+            scale=1.0 / (config.head_dim**0.5),
+            eps=config.layer_norm_eps,
+        )
+        for layer in layers:
+            if generator is None:
+                x = fused_encoder_layer(x, attention_mask, layer, **kwargs)
+            else:
+                x = fused_encoder_layer_train(
+                    x,
+                    attention_mask,
+                    layer,
+                    generator=generator,
+                    dropout_rate=config.hidden_dropout,
+                    **kwargs,
+                )
+        return masked_mean_pool_l2norm(x, attention_mask)
+
+    remat = config.remat and torch.is_grad_enabled()
     for layer in layers:
-        if generator is None:
-            x = fused_encoder_layer(x, attention_mask, layer, **kwargs)
-        else:
-            x = fused_encoder_layer_train(
-                x,
-                attention_mask,
-                layer,
-                generator=generator,
-                dropout_rate=config.hidden_dropout,
-                **kwargs,
+        masks = None
+        if generator is not None and config.hidden_dropout > 0.0:
+            masks = draw_dropout_masks(
+                x.shape, config.hidden_dropout, generator, x.device, x.dtype
             )
+        if remat:
+            x = checkpoint(
+                _encoder_layer, x, layer, attention_mask, config, masks, use_reentrant=False
+            )
+        else:
+            x = _encoder_layer(x, layer, attention_mask, config, masks)
     return masked_mean_pool_l2norm(x, attention_mask)

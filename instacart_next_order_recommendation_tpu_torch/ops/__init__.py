@@ -7,6 +7,12 @@ and no fallback. Each entry point counts its kernel launches in a plain
 integer attribute, ``<entry>.launches``.
 """
 
+from instacart_next_order_recommendation_tpu_torch.ops.attention import (
+    multi_head_attention,
+    multi_head_attention_backward,
+    multi_head_attention_backward_reference,
+    multi_head_attention_reference,
+)
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     fused_encoder_layer,
     fused_encoder_layer_backward,
@@ -25,4 +31,8 @@ __all__ = [
     "fused_encoder_layer_train",
     "masked_mean_pool_l2norm",
     "mnrl_loss",
+    "multi_head_attention",
+    "multi_head_attention_backward",
+    "multi_head_attention_backward_reference",
+    "multi_head_attention_reference",
 ]

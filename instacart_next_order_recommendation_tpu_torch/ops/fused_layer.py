@@ -180,19 +180,34 @@ _BWD_SIGNATURES = {
 }
 
 
+def supports(hidden: int, num_heads: int, seq: int, inter: int) -> bool:
+    """Whether the fused-layer kernels (K1 and K5) take this shape: head_dim
+    32, hidden % 64 == 0 and at most 1024, intermediate % 64 == 0, and
+    16 <= S <= 256 with S % 16 == 0. Named after the JAX package's gate,
+    but this is the port kernels' own envelope. ``encode`` sends every other
+    shape to the unfused layer."""
+    return (
+        num_heads > 0
+        and hidden == num_heads * HEAD_DIM
+        and hidden % 64 == 0
+        and hidden <= 1024
+        and inter % 64 == 0
+        and seq % 16 == 0
+        and 16 <= seq <= MAX_SEQ
+    )
+
+
 def _check_kernel_inputs(x: torch.Tensor, bias: torch.Tensor, w: dict, num_heads: int) -> None:
     b, s, h = x.shape
     inter = w["w1"].shape[1]
     if x.dtype != torch.bfloat16:
         raise ValueError(f"fused_encoder_layer kernel takes bfloat16, got {x.dtype}")
-    if h != num_heads * HEAD_DIM or h % 64 or h > 1024 or inter % 64:
+    if not supports(h, num_heads, s, inter):
         raise ValueError(
             f"fused_encoder_layer kernel takes head_dim {HEAD_DIM}, hidden % 64 == 0 "
-            f"(<= 1024) and intermediate % 64 == 0; got hidden={h}, heads={num_heads}, "
-            f"intermediate={inter}"
+            f"(<= 1024), intermediate % 64 == 0 and 16 <= S <= {MAX_SEQ} with S % 16 == 0; "
+            f"got hidden={h}, heads={num_heads}, intermediate={inter}, S={s}"
         )
-    if s % 16 or not 16 <= s <= MAX_SEQ:
-        raise ValueError(f"fused_encoder_layer kernel takes 16 <= S <= {MAX_SEQ}, S % 16 == 0; got {s}")
     if not 1 <= b <= 65535:
         raise ValueError(f"fused_encoder_layer kernel takes 1 <= B <= 65535; got {b}")
     if bias.shape != (b, s) or bias.dtype != torch.float32 or not bias.is_contiguous():

@@ -1,17 +1,21 @@
-"""Exact cosine top-k retrieval: plain version and kernel wrapper.
+"""Cosine top-k retrieval: plain versions and kernel wrapper.
 
 Counterpart of the JAX package's ``ops/topk.py`` (Pallas
-``_topk_block_kernel`` plus a ``lax.top_k`` merge). Embeddings are unit-norm,
-so the dot product is the cosine. Results are identical to a full stable
-descending sort: ties go to the lowest catalog index.
+``_topk_block_kernel`` or, with ``packed=True``, ``_topk_block_kernel_packed``,
+plus a ``lax.top_k`` merge). Embeddings are unit-norm, so the dot product is
+the cosine. Exact results are identical to a full stable descending sort:
+ties go to the lowest catalog index. Packed results rank each score by the
+top 20 bits of its order-preserving bit pattern (the JAX kernel's packed
+key), ties again to the lowest index, and return the quantized scores.
 
-The kernel (``csrc/topk.cu``) takes each 256-row catalog block's top-k; the
-merge over the ``[B, n_blocks * k]`` candidates, laid out block-major, is a
-stable descending sort, so a lower block wins a tie as a lower index does.
-A k above the block size takes the dense route instead, chosen by k alone
-as the JAX package's dispatcher chooses (k > block_n goes to dense scores +
-sort there): the scores product is left to ``torch.matmul``, as JAX leaves
-it to XLA, and a stable descending sort selects.
+The kernels (``csrc/topk.cu``: K3 exact, K4 packed) take each 256-row
+catalog block's top-k; the merge over the ``[B, n_blocks * k]`` candidates,
+laid out block-major, is a stable descending sort, so a lower block wins a
+tie as a lower index does. A k above the block size takes the dense route
+instead, exact whether or not ``packed`` was asked for, chosen by k alone as
+the JAX package's dispatcher chooses (k > block_n goes to the exact dense
+scores + sort there): the scores product is left to ``torch.matmul``, as JAX
+leaves it to XLA, and a stable descending sort selects.
 """
 
 from __future__ import annotations
@@ -24,6 +28,21 @@ from instacart_next_order_recommendation_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 BLOCK_N = 256  # catalog rows per kernel block (csrc/topk.cu: BN); the kernel takes k <= BLOCK_N
+_SIGN = -(2**31)  # 0x80000000 as an int32
+_LOW = 0xFFF  # the packed key's 12 column bits
+
+
+def _masked_scores(queries, catalog, n_valid, candidate_mask) -> torch.Tensor:
+    """f32 ``[B, N]`` scores with rows at and past ``n_valid`` and rows whose
+    ``candidate_mask`` is 0 set to -1e30."""
+    scores = queries.to(torch.float32) @ catalog.to(torch.float32).T
+    if n_valid is not None:
+        col = torch.arange(catalog.shape[0], device=scores.device)
+        scores = torch.where(col[None, :] < n_valid, scores, _NEG_INF)
+    if candidate_mask is not None:
+        keep = candidate_mask.to(scores.device)[None, :] != 0
+        scores = torch.where(keep, scores, _NEG_INF)
+    return scores
 
 
 def cosine_topk_reference(
@@ -39,33 +58,45 @@ def cosine_topk_reference(
     ``n_valid`` masks rows at and past it; ``candidate_mask`` is an ``[N]``
     row filter (1 = eligible). Masked rows score -1e30.
     """
-    scores = queries.to(torch.float32) @ catalog.to(torch.float32).T
-    if n_valid is not None:
-        col = torch.arange(catalog.shape[0], device=scores.device)
-        scores = torch.where(col[None, :] < n_valid, scores, _NEG_INF)
-    if candidate_mask is not None:
-        keep = candidate_mask.to(scores.device)[None, :] != 0
-        scores = torch.where(keep, scores, _NEG_INF)
+    scores = _masked_scores(queries, catalog, n_valid, candidate_mask)
     vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
+
+
+def quantized_keys(scores: torch.Tensor) -> torch.Tensor:
+    """The packed kernel's comparison key of each f32 score, as an int32:
+    the order-preserving bit pattern (``bits < 0 ? ~bits ^ sign : bits``)
+    with its low 12 bits cleared."""
+    bits = scores.contiguous().view(torch.int32)
+    sortable = torch.where(bits < 0, (~bits) ^ _SIGN, bits)
+    return sortable & ~_LOW
+
+
+def quantized_scores(keys: torch.Tensor) -> torch.Tensor:
+    """The f32 score each quantized key stands for (the JAX kernel's
+    ``s_bits``)."""
+    return torch.where(keys >= 0, keys, ~(keys ^ _SIGN)).view(torch.float32)
+
+
+def cosine_topk_packed_reference(
+    queries: torch.Tensor,
+    catalog: torch.Tensor,
+    k: int,
+    n_valid: int | None = None,
+    candidate_mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the packed extraction: the masked dense scores,
+    ranked by ``quantized_keys`` in a stable descending sort (ties to the
+    lowest index, as the JAX kernel's in-block column bits and its
+    block-major merge give together), first k, scores quantized."""
+    keys = quantized_keys(_masked_scores(queries, catalog, n_valid, candidate_mask))
+    top, order = torch.sort(keys, dim=1, descending=True, stable=True)
+    return quantized_scores(top[:, :k]).contiguous(), order[:, :k].to(torch.int32)
 
 
 _SIGNATURES = {
-    "topk_blocks": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    "topk_blocks": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
 }
-
-
-def _cosine_topk_dense(queries, catalog, k, n_valid, candidate_mask):
-    """The GPU route for k > BLOCK_N: f32 scores, masks, stable descending
-    sort, first k (ties to the lowest index)."""
-    scores = torch.matmul(queries, catalog.T)
-    col = torch.arange(catalog.shape[0], device=scores.device)
-    scores = torch.where(col[None, :] < n_valid, scores, _NEG_INF)
-    if candidate_mask is not None:
-        scores = torch.where(candidate_mask[None, :] != 0, scores, _NEG_INF)
-    vals, order = torch.sort(scores, dim=1, descending=True, stable=True)
-    cosine_topk.dense_calls += 1
-    return vals[:, :k].contiguous(), order[:, :k].to(torch.int32)
 
 
 def cosine_topk(
@@ -74,13 +105,17 @@ def cosine_topk(
     k: int,
     n_valid: int | None = None,
     candidate_mask: torch.Tensor | None = None,
+    packed: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k. A CPU tensor takes the plain version; a CUDA tensor
-    launches the block kernel and merges (1 <= k <= 256), or takes the dense
-    route (k > 256), or raises on what it does not take (f32 only,
+    """Top-k, exact or (``packed=True``, k <= 256) on the packed keys. A CPU
+    tensor takes the plain version; a CUDA tensor launches the block kernel
+    (K3, or K4 when packed) and merges (1 <= k <= 256), or takes the exact
+    dense route (k > 256), or raises on what it does not take (f32 only,
     D % 16 == 0)."""
+    packed = packed and k <= BLOCK_N
     if queries.device.type == "cpu":
-        return cosine_topk_reference(queries, catalog, k, n_valid, candidate_mask)
+        plain = cosine_topk_packed_reference if packed else cosine_topk_reference
+        return plain(queries, catalog, k, n_valid, candidate_mask)
     if queries.device.type != "cuda":
         raise ValueError(f"cosine_topk: no kernel for device {queries.device}")
     if queries.dtype != torch.float32 or catalog.dtype != torch.float32:
@@ -113,7 +148,8 @@ def cosine_topk(
             raise ValueError(f"cosine_topk: candidate_mask must be [{n}], got {tuple(mask.shape)}")
     n_valid = n if n_valid is None else min(int(n_valid), n)
     if dense:
-        return _cosine_topk_dense(queries, catalog, k, n_valid, mask)
+        cosine_topk.dense_calls += 1
+        return cosine_topk_reference(queries, catalog, k, n_valid, mask)
     n_blocks = -(-n // BLOCK_N)
     cand_s = torch.empty((b, n_blocks * k), dtype=torch.float32, device=queries.device)
     cand_i = torch.empty((b, n_blocks * k), dtype=torch.int32, device=queries.device)
@@ -121,16 +157,20 @@ def cosine_topk(
     err = lib.topk_blocks(
         _build.ptr(queries), _build.ptr(catalog),
         None if mask is None else _build.ptr(mask),
-        _build.ptr(cand_s), _build.ptr(cand_i), b, n, d, n_valid, k,
+        _build.ptr(cand_s), _build.ptr(cand_i), b, n, d, n_valid, k, int(packed),
         _build.stream_of(queries),
     )
     _build.check(lib, err, "topk_blocks")
-    cosine_topk.launches += 1
+    if packed:
+        cosine_topk.packed_launches += 1
+    else:
+        cosine_topk.launches += 1
     if n_blocks == 1:
         return cand_s, cand_i
     vals, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
     return vals[:, :k].contiguous(), torch.gather(cand_i, 1, pos[:, :k])
 
 
-cosine_topk.launches = 0
+cosine_topk.launches = 0  # K3
+cosine_topk.packed_launches = 0  # K4
 cosine_topk.dense_calls = 0

@@ -36,9 +36,11 @@ class FusedServePipeline:
         pad_id: int = 0,
         layers: list[dict] | None = None,
         device: str | torch.device | None = None,
+        packed: bool = False,
     ):
         """``params`` and ``catalog`` must already be on ``device``;
-        ``layers`` are the tower's ``prepare_layers`` (made here if omitted)."""
+        ``layers`` are the tower's ``prepare_layers`` (made here if omitted);
+        ``packed`` selects the packed top-k extraction."""
         self.device = resolve_device(device)
         self.params = params
         self.config = config
@@ -46,6 +48,7 @@ class FusedServePipeline:
         self.n_valid = n_valid
         self.pad_id = pad_id
         self.layers = layers if layers is not None else prepare_layers(params, config)
+        self.packed = packed
         self.wire_dtype = wire_dtype(config.vocab_size)
 
     @torch.inference_mode()
@@ -60,7 +63,7 @@ class FusedServePipeline:
         emb = encode_from_ids(
             self.params, ids_d, config=self.config, pad_id=self.pad_id, layers=self.layers
         )
-        s, i = cosine_topk(emb, self.catalog, k, n_valid=self.n_valid)
+        s, i = cosine_topk(emb, self.catalog, k, n_valid=self.n_valid, packed=self.packed)
         return torch.cat([s.view(torch.int32), i], dim=1), k
 
     @staticmethod

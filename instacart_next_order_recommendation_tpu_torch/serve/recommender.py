@@ -14,12 +14,14 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import re
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from instacart_next_order_recommendation_tpu_torch.constants import ENV_TOPK_EXTRACTION
 from instacart_next_order_recommendation_tpu_torch.device import resolve_device
 from instacart_next_order_recommendation_tpu_torch.index.embedding_index import EmbeddingIndex
 from instacart_next_order_recommendation_tpu_torch.index.sharded import ShardedCatalogIndex
@@ -43,8 +45,17 @@ class Recommender:
         batch_size: int = 64,
         use_index: bool = True,
         device: str | torch.device | None = None,
+        topk_extraction: str | None = None,
     ):
-        """``device=None`` means the GPU and raises where there is none."""
+        """``device=None`` means the GPU and raises where there is none.
+
+        ``topk_extraction``: "exact" (default) or "packed", the packed
+        score + index kernel (scores quantized to about 3 decimal digits;
+        near-tied candidates may swap). ``None`` reads the
+        ``ITOR_TOPK_EXTRACTION`` environment variable. Either way a kernel
+        serves; the choice is between the two kernels."""
+        if topk_extraction is None:
+            topk_extraction = (os.getenv(ENV_TOPK_EXTRACTION) or "exact").strip().lower()
         self.device = resolve_device(device)
         self.model_dir = self._resolve_model_dir(model_dir)
         self.corpus_path = Path(corpus_path).resolve()
@@ -53,7 +64,9 @@ class Recommender:
         self._build_category_masks()
         self.encoder = TextEncoder.load(self.model_dir, device=self.device)
         self.product_embeddings = self._load_or_build_embeddings(batch_size, use_index)
-        self.index = ShardedCatalogIndex(self.product_embeddings, device=self.device)
+        self.index = ShardedCatalogIndex(
+            self.product_embeddings, device=self.device, extraction=topk_extraction
+        )
         self._fused = FusedServePipeline(
             self.encoder.params,
             self.encoder.config,
@@ -62,6 +75,7 @@ class Recommender:
             pad_id=self.encoder.tokenizer.pad_id,
             layers=self.encoder.layers,
             device=self.device,
+            packed=self.index.packed,
         )
 
     @staticmethod

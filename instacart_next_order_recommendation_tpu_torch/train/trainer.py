@@ -11,7 +11,9 @@ package reads the other's checkpoints; the optimizer state goes in the
 port's own file.
 
 Each step encodes both towers with dropout (the fused layer's training form:
-forward kernel with masks, fused backward kernel) and takes one AdamW step
+forward kernel with masks, fused backward kernel; or, for a shape the fused
+kernels do not take, the unfused layer with the attention kernels, each
+layer rematerialized when ``remat`` resolves on) and takes one AdamW step
 per ``gradient_accumulation_steps`` micro-batches on the mean of their
 gradients, as ``optax.MultiSteps`` does. The schedule is evaluated at the
 count of optimizer steps taken before the update, as optax does, so the
@@ -54,12 +56,14 @@ from instacart_next_order_recommendation_tpu_torch.eval.evaluator import Retriev
 from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower, save_tower
 from instacart_next_order_recommendation_tpu_torch.models.encoder import (
     MINILM_L6,
+    MPNET_BASE_CLASS,
     Params,
+    TowerConfig,
     encode,
     init_params,
 )
 from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
-from instacart_next_order_recommendation_tpu_torch.ops import mnrl_loss
+from instacart_next_order_recommendation_tpu_torch.ops import fused_layer, mnrl_loss
 from instacart_next_order_recommendation_tpu_torch.tokenizer import (
     WordPieceTokenizer,
     bucket_length,
@@ -73,7 +77,7 @@ from instacart_next_order_recommendation_tpu_torch.utils.resolve import resolve_
 
 logger = logging.getLogger(__name__)
 
-_PRESETS = {"minilm-l6": MINILM_L6}
+_PRESETS = {"minilm-l6": MINILM_L6, "mpnet-base": MPNET_BASE_CLASS}
 
 BEST_METRIC = "ndcg_at_10"
 OPT_STATE_FILENAME = "opt_state.pt"  # the port's own; the JAX trainer writes opt_state.msgpack
@@ -109,10 +113,11 @@ class TrainConfig:
         # Batches are taken in groups of this many; a ragged trailing group
         # is dropped, so an epoch has as many steps as in the JAX trainer.
         self.steps_per_dispatch = int(raw.get("steps_per_dispatch", 1))
-        # Accepted and recorded in the tower config; it changes nothing here:
-        # the fused layer's backward keeps only the layer inputs and
-        # recomputes the rest, which is why the JAX trainer turns remat off
-        # whenever the fused backward takes the tower.
+        # Layer rematerialization; None = auto (``_resolve_remat``): on at
+        # batch >= 256 for a tower the fused kernels do not take, whose
+        # unfused layers would otherwise keep every activation for the
+        # backward. The fused backward keeps only the layer inputs, so
+        # there remat changes nothing.
         self.remat = raw.get("remat")
 
     @classmethod
@@ -268,6 +273,19 @@ class TwoTowerTrainer:
 
     # ------------------------------------------------------------------ model
 
+    def _resolve_remat(self, hidden: int, num_heads: int, inter: int, seq: int) -> bool:
+        """Remat policy, as the JAX trainer's: an explicit ``remat`` wins;
+        below batch 256 it is off; at 256 and above it is on exactly when
+        the fused kernels do not take the tower at ``seq``, the longest
+        sequence a batch may run at. (JAX tests its gate at ``seq`` rounded
+        down to a multiple of 16, though a batch that fills ``seq`` then
+        takes the unfused layer; the port tests ``seq`` itself.)"""
+        if self.cfg.remat is not None:
+            return bool(self.cfg.remat)
+        if self.cfg.train_batch_size < 256:
+            return False
+        return not fused_layer.supports(hidden, num_heads, seq, inter)
+
     def _build_model(self, corpus_texts_for_vocab):
         name = self.cfg.model_name
         preset = _PRESETS.get(name)
@@ -283,16 +301,21 @@ class TwoTowerTrainer:
                 return tower_max_position
             return self.cfg.max_seq_length
 
-        remat = bool(self.cfg.remat) if self.cfg.remat is not None else False
+        def remat(tower: TowerConfig, seq: int) -> bool:
+            return self._resolve_remat(
+                tower.hidden_size, tower.num_heads, tower.intermediate_size, seq
+            )
+
         if preset is not None:
             tokenizer = WordPieceTokenizer.train(
                 corpus_texts_for_vocab, vocab_size=self.cfg.vocab_size
             )
+            seq = bounded_seq_len(preset.max_position)
             config = dataclasses.replace(
                 preset,
                 vocab_size=tokenizer.vocab_size,
-                max_seq_length=bounded_seq_len(preset.max_position),
-                remat=remat,
+                max_seq_length=seq,
+                remat=remat(preset, seq),
             )
             params = init_params(config, torch.Generator().manual_seed(self.cfg.seed))
             logger.info(
@@ -302,13 +325,13 @@ class TwoTowerTrainer:
             params, config, tokenizer = load_tower(name)
             if tokenizer is None:
                 raise FileNotFoundError(f"warm-start dir {name} has no vocab.txt")
-            config = dataclasses.replace(
-                config, max_seq_length=bounded_seq_len(config.max_position), remat=remat
-            )
+            seq = bounded_seq_len(config.max_position)
+            config = dataclasses.replace(config, max_seq_length=seq, remat=remat(config, seq))
             logger.info("[2/5] warm start from %s", name)
         # Every later consumer (tokenization, TextEncoder, eval batches)
         # sees the clamped length.
         self.cfg.max_seq_length = config.max_seq_length
+        logger.info("  remat %s", "on" if config.remat else "off")
         return params, config, tokenizer
 
     def _to_trainable(self, params: Params) -> Params:

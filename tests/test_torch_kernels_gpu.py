@@ -16,6 +16,10 @@ from instacart_next_order_recommendation_tpu_torch.ops import (
     fused_encoder_layer_backward,
     fused_encoder_layer_train,
     masked_mean_pool_l2norm,
+    multi_head_attention,
+    multi_head_attention_backward,
+    multi_head_attention_backward_reference,
+    multi_head_attention_reference,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     WEIGHT_NAMES,
@@ -28,7 +32,10 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
 from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
     masked_mean_pool_l2norm_reference,
 )
-from instacart_next_order_recommendation_tpu_torch.ops.topk import cosine_topk_reference
+from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+    cosine_topk_packed_reference,
+    cosine_topk_reference,
+)
 
 H, INTER, HEADS = 384, 1536, 12
 KW = dict(num_heads=HEADS, scale=1 / 32**0.5, eps=1e-12)
@@ -122,11 +129,26 @@ def test_topk_matches_plain_with_ties(dev, batch, k, masked):
     assert torch.equal(s, s_ref)
 
 
+def _f64_ranking(q, c, k, n_valid=None, mask=None):
+    """A ranking independent of the port: float64 scores on the host, rows
+    at and past ``n_valid`` or outside ``mask`` at -inf, a stable
+    descending sort (ties to the lowest index)."""
+    s = q.double().cpu().numpy() @ c.double().cpu().numpy().T
+    if n_valid is not None:
+        s[:, n_valid:] = -np.inf
+    if mask is not None:
+        s[:, mask.cpu().numpy() == 0] = -np.inf
+    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+    return np.take_along_axis(s, order, axis=1), order
+
+
 @pytest.mark.cuda
 def test_topk_dense_route_above_block(dev):
     # k > 256 takes the dense route (scores + stable sort), chosen by k
-    # alone; grid values make every score exact, so ids and scores must be
-    # identical to the plain version, ties to the lowest index.
+    # alone. That route is the plain version by design, so it is held
+    # against a float64 ranking on the host: grid values make every score
+    # exact in f32 and f64, so ids and scores must be identical, ties to
+    # the lowest index.
     g = torch.Generator().manual_seed(6)
     c = torch.randint(-8, 9, (3000, H), generator=g).float() / 16
     c[1500:1520] = c[7]
@@ -139,8 +161,9 @@ def test_topk_dense_route_above_block(dev):
         launches, dense = cosine_topk.launches, cosine_topk.dense_calls
         s, i = cosine_topk(q, c, 300, n_valid=2990, candidate_mask=cand)
         assert cosine_topk.dense_calls == dense + 1 and cosine_topk.launches == launches
-        s_ref, i_ref = cosine_topk_reference(q, c, 300, n_valid=2990, candidate_mask=cand)
-        assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+        s_ref, i_ref = _f64_ranking(q, c, 300, n_valid=2990, mask=cand)
+        assert np.array_equal(i.cpu().numpy(), i_ref)
+        assert np.array_equal(s.double().cpu().numpy(), s_ref)
         if cand is None:  # row 0's best score is a 21-way tie
             assert i[0, :21].tolist() == [7] + list(range(1500, 1520))
     launches = cosine_topk.launches
@@ -249,3 +272,113 @@ def test_backward_rejects_what_it_does_not_take(dev):
         fused_encoder_layer_backward(
             x, torch.zeros((2, 32), device=dev), x, (x[:1], x[:1]), layer, **KW
         )
+
+
+# Attention: relative to each output's largest magnitude. The forward's
+# products run on bf16 tensor cores and its sums in another order than the
+# plain version's f32 products, so a bf16 rounding of P or of the output
+# may flip: one bf16 ulp is at most 2^-7 of the largest magnitude. The
+# backward is f32 throughout, then rounded to bf16 once.
+ATTN_REL_TOL = 1e-2
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [16, 32, 64, 128])
+@pytest.mark.parametrize("seq", [16, 40, 192, 256, 512])
+@pytest.mark.parametrize("batch", [1, 64, 256])
+def test_attention_forward_and_backward_match_plain(dev, batch, seq, dim):
+    heads = 2
+    g = torch.Generator().manual_seed(batch + seq + dim)
+    q, k, v, do = (
+        torch.randn((batch, heads, seq, dim), generator=g).to(dev, torch.bfloat16) for _ in range(4)
+    )
+    mask = _mask(batch, seq, dev)  # an all-pad row when batch > 1
+    scale = dim**-0.5
+    before = multi_head_attention.launches
+    out = multi_head_attention(q, k, v, mask, scale)
+    assert multi_head_attention.launches == before + 1
+    ref = multi_head_attention_reference(q, k, v, mask, scale)
+    before = multi_head_attention_backward.launches
+    grads = multi_head_attention_backward(q, k, v, mask, do, scale)
+    assert multi_head_attention_backward.launches == before + 1
+    refs = multi_head_attention_backward_reference(q, k, v, mask, do, scale)
+    torch.cuda.synchronize()
+    for name, a, b in [("out", out, ref), *zip(("dq", "dk", "dv"), grads, refs)]:
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel(a, b) <= ATTN_REL_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_attention_takes_strided_views_and_runs_the_autograd_backward(dev):
+    # q, k, v as the unfused layer makes them: views of one [B, S, 3, heads, D].
+    g = torch.Generator().manual_seed(12)
+    b, s, heads, d = 3, 72, 12, 64
+    qkv = torch.randn((b, s, 3, heads, d), generator=g).to(dev, torch.bfloat16)
+    q, k, v = (t.permute(0, 2, 1, 3).requires_grad_(True) for t in qkv.unbind(2))
+    mask = _mask(b, s, dev)
+    before = multi_head_attention_backward.launches
+    out = multi_head_attention(q, k, v, mask, d**-0.5)
+    up = torch.randn(out.shape, generator=g).to(dev, torch.bfloat16)
+    out.backward(up)
+    assert multi_head_attention_backward.launches == before + 1
+    dense = [t.detach().contiguous() for t in (q, k, v)]
+    assert _rel(out, multi_head_attention_reference(*dense, mask, d**-0.5)) <= ATTN_REL_TOL
+    refs = multi_head_attention_backward_reference(*dense, mask, up, d**-0.5)
+    for t, r in zip((q, k, v), refs):
+        assert _rel(t.grad, r) <= ATTN_REL_TOL
+
+
+@pytest.mark.cuda
+def test_attention_rejects_what_it_does_not_take(dev):
+    x = torch.zeros((2, 4, 32, 64), device=dev, dtype=torch.bfloat16)
+    mask = torch.ones((2, 32), device=dev, dtype=torch.int32)
+    with pytest.raises(ValueError):  # f32 has no kernel
+        multi_head_attention(x.float(), x.float(), x.float(), mask, 0.125)
+    y = torch.zeros((2, 4, 32, 48), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head_dim 48
+        multi_head_attention(y, y, y, mask, 0.125)
+    with pytest.raises(ValueError):  # a mask of another shape
+        multi_head_attention(x, x, x, mask[:, :16], 0.125)
+    with pytest.raises(ValueError):  # the head dim not contiguous
+        t = x.transpose(2, 3)
+        multi_head_attention(t, t, t, torch.ones((2, 64), device=dev), 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,k,masked", [(1, 16, False), (20, 256, True), (70, 100, False)])
+def test_packed_topk_identical_to_plain_on_grid_values(dev, batch, k, masked):
+    g = torch.Generator().manual_seed(13)
+    c = torch.randint(-8, 9, (3000, H), generator=g).float() / 16
+    c[1500:1520] = c[7]  # exact ties across blocks
+    c[8] = c[7]          # and within one
+    q = torch.randint(-8, 9, (batch, H), generator=g).float() / 16
+    q[0] = c[7]
+    mask = (torch.rand(3000, generator=g) < 0.5).int() if masked else None
+    c, q = c.to(dev), q.to(dev)
+    mask = None if mask is None else mask.to(dev)
+    before = cosine_topk.packed_launches, cosine_topk.launches
+    s, i = cosine_topk(q, c, k, n_valid=2990, candidate_mask=mask, packed=True)
+    assert (cosine_topk.packed_launches, cosine_topk.launches) == (before[0] + 1, before[1])
+    s_ref, i_ref = cosine_topk_packed_reference(q, c, k, n_valid=2990, candidate_mask=mask)
+    assert torch.equal(i, i_ref)
+    assert torch.equal(s, s_ref)
+
+
+@pytest.mark.cuda
+def test_packed_topk_above_block_takes_the_exact_dense_route(dev):
+    # Exact, not quantized: grid values, so the f32 scores equal a float64
+    # host ranking's.
+    g = torch.Generator().manual_seed(14)
+    c = (torch.randint(-8, 9, (3000, H), generator=g).float() / 16).to(dev)
+    q = (torch.randint(-8, 9, (5, H), generator=g).float() / 16).to(dev)
+    launches, dense = cosine_topk.packed_launches, cosine_topk.dense_calls
+    s, i = cosine_topk(q, c, 300, packed=True)
+    assert cosine_topk.dense_calls == dense + 1 and cosine_topk.packed_launches == launches
+    s_ref, i_ref = _f64_ranking(q, c, 300)
+    assert np.array_equal(i.cpu().numpy(), i_ref)
+    assert np.array_equal(s.double().cpu().numpy(), s_ref)

@@ -164,13 +164,19 @@ def test_port_imports_no_jax(served):
     script = textwrap.dedent(
         f"""
         import sys
+        import torch
         from instacart_next_order_recommendation_tpu_torch.eval.evaluator import RetrievalEvaluator
+        from instacart_next_order_recommendation_tpu_torch.models import MPNET_BASE_CLASS
+        from instacart_next_order_recommendation_tpu_torch.ops.attention import multi_head_attention
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
         from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
         rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
-                          use_index=False, device="cpu")
+                          use_index=False, device="cpu", topk_extraction="packed")
         assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
-        TrainConfig({{}})
+        q = torch.zeros((1, 2, 8, 64))
+        multi_head_attention(q, q, q, torch.ones((1, 8)), 0.125)
+        assert TrainConfig({{"model_name": "mpnet-base"}}).model_name == "mpnet-base"
+        assert MPNET_BASE_CLASS.head_dim == 64
         bad = [m for m in sys.modules
                if m.split(".")[0] in ("jax", "jaxlib", "flax", "instacart_next_order_recommendation_tpu")]
         assert not bad, bad
