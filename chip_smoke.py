@@ -6,7 +6,8 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
-   and builds the port's CUDA kernels from ``ops/csrc`` in this checkout.
+   and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
+   fails if ptxas spills in an attention kernel at head_dim 32 or 64.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
@@ -44,7 +45,7 @@ Run from the repository root, with no arguments:
    mpnet-base``) for one epoch: 24 K6 and 24 K7 launches per step, the
    3-step check with planted K7 faults, B=256 steps with the remat that
    ``_resolve_remat`` chooses beside the same steps without it, and the
-   profiler's breakdown of a B=64 step.
+   profiler's breakdown of a B=64 step, with K6's and K7's share of it.
 6. One JSON line describing each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -57,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -150,11 +152,12 @@ K5_REL_TOL = 2e-2
 STEP_CHECK_LR = 1e-3
 STEP_LOSS_REL_TOL = 2e-2
 STEP_GRAD_REL_TOL = 6e-2
-# K6 and K7, relative to each output's largest magnitude: K6's products run
-# on bf16 tensor cores and its sums in another order than the plain
-# version's f32 products, so a bf16 rounding of P or of the output may flip
-# (one bf16 ulp is at most 2^-7 of the largest magnitude); K7 is f32
-# throughout, then rounded to bf16 once.
+# K6 and K7, relative to each output's largest magnitude: both sum their
+# tensor-core products in another order than the plain version, so a bf16
+# rounding of K6's P or of any output may flip (one bf16 ulp is at most 2^-7
+# of the largest magnitude); K7's P and dS enter its products as two bf16
+# terms each (about 2^-17 relative), and each gradient is rounded to bf16
+# once.
 ATTN_REL_TOL = 1e-2
 # A packed top-k id that differs from the exact one at the same rank must be
 # a tie within the 20-bit key: exact scores within two quantization steps
@@ -230,6 +233,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_median(fn, iters: int, repeats: int = 5) -> float:
+    """The median of ``repeats`` readings of ``cuda_ms``: one reading can
+    move by a third from call to call (SDPA's backward read 0.890 and 0.581
+    ms at one shape on one H100)."""
+    return float(np.median([cuda_ms(fn, iters) for _ in range(repeats)]))
+
+
 def bound_ms(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -286,18 +296,15 @@ def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def attention_bound(b: int, h: int, s: int, d: int, backward: bool) -> tuple[float, str]:
-    """The JAX kernels' cost estimates: the forward 4*B*h*S^2*D operations on
-    bf16 operands and 4*B*h*S*D*2 bytes; the backward 10*B*h*S^2*D and
-    8*B*h*S*D*2 bytes, where the TPU kernel's QK^T recompute (2*B*h*S^2*D)
-    multiplies the bf16 q and k and the other 8*B*h*S^2*D run on f32
-    operands (no f32 multiply on the tensor cores but TF32's), each at its
-    type's peak."""
+    """The forward reads q, k, v and writes o, 4*B*h*S*D*2 bytes, for the JAX
+    cost estimate's 4*B*h*S^2*D operations; the backward reads q, k, v, dO
+    and writes dq, dk, dv, 7*B*h*S*D*2 bytes, for 10*B*h*S^2*D. Both read the
+    f32 key bias, B*S*4 bytes. Operations at the bf16 tensor-core peak: the
+    kernels multiply bf16 operands (the backward's f32 P and dS as bf16
+    pairs, which the bound does not charge)."""
     unit = b * h * s * s * d
-    if backward:
-        t_ops = (8 * unit / PEAK_F32 + 2 * unit / PEAK_BF16) * 1e3
-        t_bytes = 8 * b * h * s * d * 2 / PEAK_BYTES * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-    return bound_ms(4 * b * h * s * d * 2, 4 * unit, PEAK_BF16)
+    tensors, ops = (7, 10 * unit) if backward else (4, 4 * unit)
+    return bound_ms(tensors * b * h * s * d * 2 + b * s * 4, ops, PEAK_BF16)
 
 
 class PlainAttention(torch.autograd.Function):
@@ -378,11 +385,11 @@ def measure_attention(q, k, v, mask, do, scale, iters: int, plain_iters: int = 2
         bwd_rel = {n: rel_err(a, r) for n, a, r in zip(("dq", "dk", "dv"), grads, refs)}
         finite = all(bool(torch.isfinite(t.float()).all()) for t in (out, *grads))
         fwd = dict(
-            ms=cuda_ms(lambda: multi_head_attention(q, k, v, mask, scale), iters),
+            ms=cuda_ms_median(lambda: multi_head_attention(q, k, v, mask, scale), iters),
             plain_ms=cuda_ms(
                 lambda: multi_head_attention_reference(q, k, v, mask, scale), plain_iters, 1
             ),
-            library_ms=cuda_ms(
+            library_ms=cuda_ms_median(
                 lambda: scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=scale), iters
             ),
             max_abs_err=(out.float() - ref.float()).abs().max().item(),
@@ -390,7 +397,9 @@ def measure_attention(q, k, v, mask, do, scale, iters: int, plain_iters: int = 2
             finite=finite,
         )
         bwd = dict(
-            ms=cuda_ms(lambda: multi_head_attention_backward(q, k, v, mask, do, scale), iters),
+            ms=cuda_ms_median(
+                lambda: multi_head_attention_backward(q, k, v, mask, do, scale), iters
+            ),
             plain_ms=cuda_ms(
                 lambda: multi_head_attention_backward_reference(q, k, v, mask, do, scale),
                 plain_iters, 1,
@@ -403,7 +412,7 @@ def measure_attention(q, k, v, mask, do, scale, iters: int, plain_iters: int = 2
     with torch.enable_grad():
         qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
         y = scaled_dot_product_attention(qr, kr, vr, attn_mask=bias, scale=scale)
-        bwd["library_ms"] = cuda_ms(
+        bwd["library_ms"] = cuda_ms_median(
             lambda: torch.autograd.grad(y, (qr, kr, vr), do, retain_graph=True), iters
         )
         del y
@@ -1802,6 +1811,10 @@ class TrainPhase:
                 entry[1] += 1
         device_ms = sum(v[0] for v in per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+        # K6 and K7 (csrc/attention.cu's attn_* kernels), which the unfused
+        # layer launches; the fused route's attention lives inside K1 and K5.
+        attn = {name: v for name, v in per_kernel.items() if "attn_" in name}
+        attn_ms = sum(v[0] for v in attn.values())
         out = {
             "batch": batch,
             "seq": seq,
@@ -1813,6 +1826,10 @@ class TrainPhase:
             "top_kernels_ms_per_step": {
                 name[:90]: [round(ms, 4), n // n_steps] for name, (ms, n) in top
             },
+            "attention_kernels_ms_per_step": {
+                name[:90]: [round(ms, 4), n // n_steps] for name, (ms, n) in attn.items()
+            },
+            "attention_kernels_device_share": attn_ms / device_ms if device_ms > 0 else 0.0,
         }
         log(f"train step breakdown B={batch} S={seq}: " + json.dumps(out))
         return out
@@ -2059,12 +2076,19 @@ def main() -> int:
 
     smoke = Smoke()
     t0 = time.perf_counter()
-    logs = _build.build(ptxas_info=True)
-    log(f"build: {sorted(logs) or 'all already built'} in {time.perf_counter() - t0:.1f}s")
+    logs = _build.build()  # nvcc's output, this build's or the one kept beside a library
+    log(f"build in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
         for line in text.splitlines():
             if "Used" in line or "spill" in line and "0 bytes spill" not in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    usage = _build.ptxas_usage(logs["attention"])
+    log(f"ptxas (registers, spill stores) of the attention kernels: {json.dumps(usage)}")
+    on_path = [spill for key, (_, spill) in usage.items() if re.search(r"<(32|64)[,>]", key)]
+    smoke.check(
+        bool(on_path) and not any(on_path),
+        "no ptxas spills in the attention kernels at head_dim 32 and 64",
+    )
 
     try:
         t0 = time.perf_counter()

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface under ``<repo>/build/kernels/``. The file name carries a
 hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so a
 changed source rebuilds and an unchanged one is loaded as it is. ``build`` starts one nvcc per missing library, all
-at once, and waits for all of them.
+at once, and waits for all of them. Each library keeps nvcc's output beside
+it (``.log``): ptxas's registers, shared memory and spills per kernel.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches; the
 Python wrappers pass it to ``check``, which raises on anything but 0.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,33 +54,66 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
-def build(names: tuple[str, ...] = SOURCES, ptxas_info: bool = False) -> dict[str, str]:
+def start_nvcc(src: Path, out: Path, defines: tuple[str, ...] = ()) -> subprocess.Popen:
+    """One nvcc of ``src`` into ``out`` with ptxas's per-kernel report
+    (``-Xptxas -v``) in its output; ``defines`` are extra ``-D`` flags."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", *(f"-D{d}" for d in defines)]
+    cmd += ["-o", str(out), str(src)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one nvcc
-    process each, all started together. Returns nvcc's output per name
-    (with ``ptxas_info``, each kernel's registers and shared memory)."""
+    process each, all started together. Returns nvcc's output per name:
+    this build's, or the one kept beside a library built before."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = {}
+    started, logs = {}, {}
     for name in names:
         out = library_path(name)
-        if out.exists():
+        if out.exists() and out.with_suffix(".log").exists():
+            logs[name] = out.with_suffix(".log").read_text()
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS]
-        if ptxas_info:
-            cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        started[name] = (proc, tmp, out)
-    logs, failed = {}, []
+        started[name] = (start_nvcc(CSRC_DIR / f"{name}.cu", tmp), tmp, out)
+    failed = []
     for name, (proc, tmp, out) in started.items():
         logs[name], _ = proc.communicate()
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode})\n{logs[name]}")
         else:
+            out.with_suffix(".log").write_text(logs[name])
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs
+
+
+def _template_kernel(mangled: str) -> str | None:
+    """``name<int args>`` of a mangled ``*_kernel<int...>``: the name is the
+    one its decimal length prefix spans, so a namespace hash ending in
+    digits is not taken for part of it."""
+    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
+        start = m.start() + len(m.group(1))
+        name = mangled[start : start + int(m.group(1))]
+        args = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(name) :])
+        if name.endswith("_kernel") and args:
+            values = re.findall(r"Li(\d+)E", args.group(1))
+            return f"{name}<{','.join(values)}>"
+    return None
+
+
+def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
+    """(registers, spill-store bytes) per template kernel in nvcc's output,
+    keyed ``name<template args>``."""
+    out, name, spills = {}, None, 0
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            name = _template_kernel(line.split("Function properties for", 1)[1].strip())
+        elif m := re.search(r"(\d+) bytes spill stores", line):
+            spills = int(m.group(1))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            out[name], name = (int(m.group(1)), spills), None
+    return out
 
 
 def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -8,49 +8,75 @@
 //             O = bf16(P) V with f32 accumulation, stored in bf16;
 //   backward  P recomputed as above in f32; dV = P^T dO; dP = dO V^T;
 //             Dr = rowsum(P * dP); dS = P * (dP - Dr); dQ = scale dS K;
-//             dK = scale dS^T Q; f32 math throughout, bf16 outputs.
-// key_bias is (1 - mask) * -1e9 per key; an all-pad row therefore attends
-// uniformly over its S keys, as in the JAX package.
+//             dK = scale dS^T Q; f32 operands, bf16 outputs.
+// Each logit is fadd(fmul(score, scale), key_bias) in f32, key_bias being
+// (1 - mask) * -1e9 per key; keys past S take PAD_BIAS, below every real key,
+// so an all-pad row attends uniformly over its S keys, as in the JAX package.
+// Rows past S are not written. P takes 1 / l once per row: e * (1 / l) is
+// within one f32 ulp of e / l.
 //
 // What bounds it on the H100: the forward moves 4*B*h*S*D*2 bytes (3.35
-// TB/s) for 4*B*h*S^2*D operations on bf16 operands (989 TFLOP/s on the
-// tensor cores), so below S of about 590 the bytes bound it; the backward
-// does 10*B*h*S^2*D in f32 (67 TFLOP/s of FMA, no TF32) against
-// 8*B*h*S*D*2 bytes, so above S = 32 the operations bound it.
+// TB/s) for 4*B*h*S^2*D operations on bf16 operands (989 TFLOP/s), the
+// backward 7*B*h*S*D*2 bytes (q, k, v, dO in; dq, dk, dv out) for
+// 10*B*h*S^2*D; at the port's S <= 512 both
+// are bound by bytes, and in practice by latency: how well tile copies
+// overlap the products, and how few trips the scores make through shared
+// memory.
 //
 // What the design does about it:
-// - Forward: one block per (64-query tile, head, batch row), 4 warps of 16
-//   query rows, WMMA bf16 products with f32 accumulation. K and V stream
-//   through shared memory in 64-key tiles, so any S fits (S <= 512 is what
-//   the port sends; 49 KB of shared memory at D = 64). Two passes over the
-//   key tiles: the first finds each row's max and sum, the second writes P
-//   normalised in f32, rounds it to bf16 and accumulates P V in registers.
-//   That keeps the JAX cast points exactly (the flash-style division after
-//   P V would round differently) at the price of computing Q K^T twice.
-// - Backward: f32 on the CUDA cores, register tiles of 4 x 4 per thread, no
-//   atomics. One block per (query tile, head, row) computes the row max and
-//   sum, then Dr, then dQ, each a pass over the key tiles, and leaves max,
-//   sum and Dr in a small f32 workspace; one block per (key tile, head, row)
-//   then loops over the query tiles for dK and dV. Every sum runs in a fixed
-//   order, so a run gives the same gradients every time.
-// - Strides: q, k, v, the output and the gradients are strided views (the
-//   head dimension contiguous), so the layer's [B, S, 3, heads, D] QKV
-//   projection and the [B, S, heads, D] output need no copies.
+// - Tensor cores through mma.sync m16n8k16 (bf16 in, f32 accumulation),
+//   operands fed by ldmatrix from shared tiles whose rows are padded by 16
+//   bytes, so every ldmatrix phase hits 32 distinct banks. The accumulator
+//   layout of one product is the A-operand layout of the next, so a score
+//   tile becomes P (or dS) in registers with no trip through shared memory.
+//   Not wgmma: at these shapes the math is not the limit (the forward's
+//   operations bound is a third of its bytes bound); wgmma with TMA is for
+//   a later change, if the measured times show the math as the limit.
+// - Tiles of 64 rows arrive by cp.async.cg 16-byte copies (zero-filled past
+//   S) into a ring of two stages: tile t + 1 is in flight while tile t is
+//   multiplied. The copies take the strided views as they are (every row is
+//   16-byte aligned, which the wrapper checks).
+// - Blocks of 4 warps; a warp owns 16 rows of its block's 64 (queries, or
+//   keys in the dK/dV kernel).
+// - Forward: one block per (64-query tile, head, batch row). Where the score
+//   row fits in registers (rule below) it is computed once: every key tile's
+//   scores stay in the accumulators, the exact row max and sum follow, then
+//   P = exp(x - m) / l in f32 is rounded to bf16 in registers and multiplied
+//   by V tile by tile: K and V are each read once per block and Q K^T is
+//   computed once. That keeps JAX's cast point (P normalised before the bf16
+//   cast; the flash-style division after P V would round differently).
+//   Rule: one pass holds 32 f32 per thread for each 64-key tile; it runs for
+//   S <= 256 (four tiles) at D <= 64. Above that (S > 256, or D = 128 with
+//   its 64 output registers) ptxas would spill, and the two-pass form runs:
+//   pass one keeps each row's max and sum online, pass two recomputes the
+//   scores and accumulates P V, as the one-pass form does.
+// - Backward, two kernels, no atomics, every sum in a fixed order (the same
+//   gradients from every run). The dQ kernel, per 64-query tile, passes over
+//   the key tiles twice: first the online max m, sum l and u = sum exp(x - m)
+//   dP under the same rescaling, so Dr = u / l; then dS and dQ += dS K. It
+//   leaves m, l and Dr in the [3, B, heads, S] f32 workspace. The dK/dV
+//   kernel, per 64-key tile, loops over the query tiles and computes the
+//   transposed scores K Q^T and V dO^T directly, so P^T and dS^T are
+//   accumulators in registers too; Q and dO feed dK += dS^T Q and
+//   dV += P^T dO through ldmatrix.trans. That is 12 products of B*h*S^2*D
+//   on the tensor cores, counting the split ones twice.
+// - Split operands: Q K^T and dO V^T multiply bf16 values, the plain
+//   version's operands, so the products are exact. P and dS are f32; each
+//   enters its product as hi = bf16(x) and lo = bf16(x - hi), two mma into
+//   one f32 accumulator, which keeps about 2^-17 of its relative precision.
+//   Their partners (dO, K, Q) are bf16 values already.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int TQ = 64;              // query rows per block
-constexpr int TK = 64;              // keys per tile
-constexpr int FWD_THREADS = 128;    // 4 warps x 16 query rows
-constexpr int BWD_THREADS = 256;    // 16 x 16 threads, 4 x 4 elements each
+constexpr int TQ = 64;          // query rows per block (and per tile)
+constexpr int TK = 64;          // keys per tile
+constexpr int THREADS = 128;    // 4 warps x 16 rows
 constexpr float INIT_MAX = -3.0e38f;
 constexpr float PAD_BIAS = -3.0e38f;  // keys past S: below every real key (>= -1e9)
 constexpr unsigned FULL = 0xffffffffu;
@@ -62,475 +88,722 @@ struct View {  // element strides of a [B, heads, S, D] view; D is contiguous
   }
 };
 
-// Rows [r0, r0 + 64) of one (batch row, head) of a bf16 view into shared
-// memory as bf16 [64][D]; rows at or past S are zero.
+// Shared tiles are [64][D + 8] bf16: 16 bytes of padding per row.
 template <int D>
-__device__ __forceinline__ void load_tile_bf16(bf16* dst, const bf16* src, View v, int bi,
-                                               int hi, int r0, int S, int tid, int nthreads) {
-  for (int i = tid; i < 64 * (D / 8); i += nthreads) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + v.at(bi, hi, r0 + r) + c);
-    *reinterpret_cast<uint4*>(dst + r * D + c) = val;
-  }
+__host__ __device__ constexpr int row_stride() {
+  return D + 8;
 }
 
-// The same tile widened to f32 [64][D + 1] (the padding keeps column reads
-// of neighbouring rows in different banks).
 template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const bf16* src, View v, int bi,
-                                              int hi, int r0, int S, int tid) {
-  for (int i = tid; i < 64 * (D / 8); i += BWD_THREADS) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) val = *reinterpret_cast<const uint4*>(src + v.at(bi, hi, r0 + r) + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&val);
+__host__ __device__ constexpr int tile_elems() {
+  return 64 * row_stride<D>();
+}
+
+// ------------------------------------------------------------ PTX wrappers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's copy groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ldmatrix takes 32-bit shared addresses: a lane's base plus a constant
+// offset, which ptxas folds into the instruction.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a b for one m16n8k16 tile: a 16 x 16 row-major, b 16 x 8 column-major.
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two f32 as one bf16 pair (x0 in the low half: the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float x0, float x1) {
+  return bits(__floats2bfloat162_rn(x0, x1));
+}
+
+// x = hi + lo, hi = bf16(x), lo = bf16(x - hi) (x - hi is exact in f32).
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = bits(__floats2bfloat162_rn(x0 - hf.x, x1 - hf.y));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
+  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// ------------------------------------------------------------ tile helpers
+// An accumulator tile c[8][4] covers a warp's 16 rows by 64 columns: c[j]
+// is columns [8 j, 8 j + 8); lane (g = lane / 4, t = lane % 4) holds rows g
+// (c[j][0], c[j][1]) and g + 8 (c[j][2], c[j][3]), columns 8 j + 2 t and
+// 8 j + 2 t + 1.
+
+// Rows [r0, r0 + 64) of one (batch row, head) of a view into a shared tile,
+// by cp.async; rows at or past S are zero.
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, View v, int bi, int hi,
+                                          int r0, int S, int tid) {
+  constexpr int CH = D / 8;  // 16-byte chunks per row
 #pragma unroll
-    for (int j = 0; j < 8; ++j) dst[r * (D + 1) + c + j] = __bfloat162float(e[j]);
+  for (int i = 0; i < 64 * CH / THREADS; ++i) {
+    const int idx = tid + i * THREADS;
+    const int r = idx / CH;
+    const int c = (idx % CH) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * row_stride<D>() + c, src + v.at(bi, hi, ok ? r0 + r : 0) + c, ok);
   }
 }
 
-__device__ __forceinline__ void load_bias(float* dst, const float* key_bias, int bi, int k0,
-                                          int S, int tid, int nthreads) {
-  for (int j = tid; j < TK; j += nthreads)
-    dst[j] = k0 + j < S ? key_bias[(size_t)bi * S + k0 + j] : PAD_BIAS;
+// Each lane's ldmatrix address within a shared tile, in bytes. lane_a: an
+// A operand (16 rows by 16 columns), or a B operand read transposed (its
+// rows are the k dimension). lane_bt: a B operand of A B^T (its rows are
+// the product's columns).
+template <int D>
+__device__ __forceinline__ uint32_t lane_a(int lane) {
+  return ((lane & 15) * row_stride<D>() + (lane >> 4) * 8) * 2;
+}
+
+template <int D>
+__device__ __forceinline__ uint32_t lane_bt(int lane) {
+  return (((lane & 7) + ((lane >> 4) << 3)) * row_stride<D>() + ((lane >> 3) & 1) * 8) * 2;
+}
+
+// c = A B^T over D: a is the lane's lane_a address in the warp's 16 rows of
+// a shared tile, b its lane_bt address in the 64 rows of another (Q K^T,
+// dO V^T, K Q^T, V dO^T).
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&c)[8][4], uint32_t a_addr, uint32_t b_addr) {
+  constexpr int ROW = row_stride<D>() * 2;  // bytes
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_addr + kk * 32);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      uint32_t b[4];
+      ldsm_x4(b, b_addr + jj * 16 * ROW + kk * 32);
+      mma(c[2 * jj], a, b[0], b[1]);
+      mma(c[2 * jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// The A operand over columns [16 kc, 16 kc + 16) of an accumulator tile.
+__device__ __forceinline__ void a_operand(const float (&c)[8][4], int kc, float mul0, float mul1,
+                                          uint32_t (&a)[4]) {
+  a[0] = pack_bf16(c[2 * kc][0] * mul0, c[2 * kc][1] * mul0);
+  a[1] = pack_bf16(c[2 * kc][2] * mul1, c[2 * kc][3] * mul1);
+  a[2] = pack_bf16(c[2 * kc + 1][0] * mul0, c[2 * kc + 1][1] * mul0);
+  a[3] = pack_bf16(c[2 * kc + 1][2] * mul1, c[2 * kc + 1][3] * mul1);
+}
+
+// The same, split: a[0] the bf16 value, a[1] the bf16 remainder.
+__device__ __forceinline__ void a_operand_split(const float (&c)[8][4], int kc,
+                                                uint32_t (&a)[2][4]) {
+  split_bf16(c[2 * kc][0], c[2 * kc][1], a[0][0], a[1][0]);
+  split_bf16(c[2 * kc][2], c[2 * kc][3], a[0][1], a[1][1]);
+  split_bf16(c[2 * kc + 1][0], c[2 * kc + 1][1], a[0][2], a[1][2]);
+  split_bf16(c[2 * kc + 1][2], c[2 * kc + 1][3], a[0][3], a[1][3]);
+}
+
+// acc += sum over PARTS of a[p] B[16 kc : 16 kc + 16][0 : D], B a shared tile
+// read transposed from the lane's lane_a address b (P V, dS K, P^T dO,
+// dS^T Q).
+template <int D, int PARTS>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[PARTS][4],
+                                       uint32_t b_addr, int kc) {
+  constexpr int ROW = row_stride<D>() * 2;  // bytes
+#pragma unroll
+  for (int dd = 0; dd < D / 16; ++dd) {
+    uint32_t b[4];
+    ldsm_x4_trans(b, b_addr + kc * 16 * ROW + dd * 32);
+#pragma unroll
+    for (int p = 0; p < PARTS; ++p) {
+      mma(acc[2 * dd], a[p], b[0], b[1]);
+      mma(acc[2 * dd + 1], a[p], b[2], b[3]);
+    }
+  }
+}
+
+// x = fadd(fmul(score, scale), bias) in place; bias[c] belongs to column c.
+__device__ __forceinline__ void logits(float (&c)[8][4], const float* bias, float scale, int lane) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(bias + j * 8 + 2 * (lane & 3));
+    c[j][0] = __fadd_rn(__fmul_rn(c[j][0], scale), b.x);
+    c[j][1] = __fadd_rn(__fmul_rn(c[j][1], scale), b.y);
+    c[j][2] = __fadd_rn(__fmul_rn(c[j][2], scale), b.x);
+    c[j][3] = __fadd_rn(__fmul_rn(c[j][3], scale), b.y);
+  }
+}
+
+// The largest entry of rows g and g + 8 of a tile, across the quad.
+__device__ __forceinline__ void tile_max(const float (&c)[8][4], float& m0, float& m1) {
+  m0 = INIT_MAX;
+  m1 = INIT_MAX;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(c[j][0], c[j][1]));
+    m1 = fmaxf(m1, fmaxf(c[j][2], c[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+}
+
+// A warp's 16 x D accumulator rows, times mul, in bf16 to rows [r0, r0 + 16)
+// of dst (those at or past S skipped), staged through the warp's own 16 rows
+// of a shared tile so that every store is 16 bytes.
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul, bf16* stage,
+                                           bf16* dst, View v, int bi, int hi, int r0, int S,
+                                           int lane) {
+  constexpr int LD = row_stride<D>();
+  const int g = lane >> 2;
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(stage + g * LD + n * 8 + c) =
+        __floats2bfloat162_rn(acc[n][0] * mul, acc[n][1] * mul);
+    *reinterpret_cast<__nv_bfloat162*>(stage + (g + 8) * LD + n * 8 + c) =
+        __floats2bfloat162_rn(acc[n][2] * mul, acc[n][3] * mul);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < D / 16; ++it) {  // 16 rows of D / 8 chunks, 32 lanes
+    const int i = lane + it * 32;
+    const int r = i / (D / 8);
+    const int col = (i % (D / 8)) * 8;
+    if (r0 + r < S)
+      *reinterpret_cast<uint4*>(dst + v.at(bi, hi, r0 + r) + col) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + col);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
+}
+
+// Key biases of one batch row for n_tiles * 64 keys, PAD_BIAS past S.
+__device__ __forceinline__ void load_bias(float* dst, const float* key_bias, int bi, int n_tiles,
+                                          int S, int tid) {
+  for (int j = tid; j < n_tiles * TK; j += THREADS)
+    dst[j] = j < S ? key_bias[(size_t)bi * S + j] : PAD_BIAS;
 }
 
 // ------------------------------------------------------------------ forward
 
-template <int D>
-__host__ __device__ constexpr int fwd_scratch_width() {
-  return D > TK ? D : TK;
-}
-
-template <int D>
-__host__ __device__ constexpr size_t fwd_smem_bytes() {
-  return (size_t)(TQ + 2 * TK) * D * 2                  // Q, K, V tiles (bf16)
-         + (size_t)4 * 16 * fwd_scratch_width<D>() * 4  // per-warp f32 scores / output
-         + (size_t)4 * 16 * TK * 2                      // per-warp bf16 P
-         + (size_t)TK * 4;                              // key bias tile
-}
-
-template <int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-attn_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                bf16* __restrict__ o, View vq, View vk, View vv, View vo, int S, float scale) {
-  constexpr int SW = fwd_scratch_width<D>();
-  extern __shared__ __align__(128) unsigned char smem[];
+// One pass, NT key tiles (S <= 64 NT): the whole score row in registers.
+template <int D, int NT>
+__global__ void __launch_bounds__(THREADS)
+attn_fwd_one_pass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                         bf16* __restrict__ o, View vq, View vk, View vv, View vo, int S,
+                         float scale) {
+  constexpr int LD = row_stride<D>();
+  constexpr int TILE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + TQ * D;
-  bf16* Vs = Ks + TK * D;
-  float* Sc = reinterpret_cast<float*>(Vs + TK * D);
-  bf16* Ps = reinterpret_cast<bf16*>(Sc + 4 * 16 * SW);
-  float* Kb = reinterpret_cast<float*>(Ps + 4 * 16 * TK);
-
+  bf16* ring = Qs + TILE;                                 // two stages of one tile
+  float* Kb = reinterpret_cast<float*>(ring + 2 * TILE);  // NT * 64 key biases
   const int q0 = blockIdx.x * TQ;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  float* sc = Sc + warp * 16 * SW;
-  bf16* p = Ps + warp * 16 * TK;
-  // Each lane pair owns one of the warp's 16 rows, a lane 32 of its columns.
-  const int row = lane >> 1;
-  const int c0 = (lane & 1) * 32;
-  const int n_tiles = (S + TK - 1) / TK;
+  bf16* Qw = Qs + warp * 16 * LD;
+  const uint32_t qa = smem_addr(Qw) + lane_a<D>(lane);
+  const uint32_t kb = smem_addr(ring) + lane_bt<D>(lane);
+  const uint32_t vb = smem_addr(ring) + lane_a<D>(lane);
 
-  load_tile_bf16<D>(Qs, q, vq, bi, hi, q0, S, tid, FWD_THREADS);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    wmma::load_matrix_sync(qa[kk], Qs + warp * 16 * D + kk * 16, D);
-
-  // Scores of this warp's 16 rows against the staged key tile, into sc.
-  auto scores = [&]() {
-#pragma unroll
-    for (int n0 = 0; n0 < TK; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // K stored [TK][D] row-major is K^T in column-major order.
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, Ks + n0 * D + kk * 16, D);
-        wmma::mma_sync(acc, qa[kk], kb, acc);
-      }
-      wmma::store_matrix_sync(sc + n0, acc, SW, wmma::mem_row_major);
-    }
-    __syncwarp();
+  // Steps 0 .. NT - 1 bring the K tiles, NT .. 2 NT - 1 the V tiles.
+  auto issue = [&](int step) {
+    bf16* dst = ring + (step & 1) * TILE;
+    if (step < NT)
+      load_tile<D>(dst, k, vk, bi, hi, step * TK, S, tid);
+    else if (step < 2 * NT)
+      load_tile<D>(dst, v, vv, bi, hi, (step - NT) * TK, S, tid);
+    cp_commit();
   };
+  load_tile<D>(Qs, q, vq, bi, hi, q0, S, tid);
+  issue(0);
+  load_bias(Kb, key_bias, bi, NT, S, tid);
 
-  // Pass 1: each row's max m and sum l of exp(logit - m), online over tiles.
-  float m = INIT_MAX, l = 0.0f;
+  float x[NT][8][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    mma_abt<D>(x[t], qa, kb + (t & 1) * TILE * 2);
+    logits(x[t], Kb + t * TK, scale, lane);
+    __syncthreads();
+  }
+  float m0 = INIT_MAX, m1 = INIT_MAX;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float t0, t1;
+    tile_max(x[t], t0, t1);
+    m0 = fmaxf(m0, t0);
+    m1 = fmaxf(m1, t1);
+  }
+  float l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[t][j][0] = expf(x[t][j][0] - m0);
+      x[t][j][1] = expf(x[t][j][1] - m0);
+      x[t][j][2] = expf(x[t][j][2] - m1);
+      x[t][j][3] = expf(x[t][j][3] - m1);
+      l0 += x[t][j][0] + x[t][j][1];
+      l1 += x[t][j][2] + x[t][j][3];
+    }
+  const float i0 = 1.0f / quad_sum(l0);
+  const float i1 = 1.0f / quad_sum(l1);
+  // P in f32, rounded to bf16 A operands now: half the registers of x.
+  uint32_t pa[NT][4][1][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) a_operand(x[t], kc, i0, i1, pa[t][kc][0]);
+
+  float acc[D / 8][4];
+  zero<D>(acc);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    issue(NT + t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    const uint32_t stage = ((NT + t) & 1) * TILE * 2;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) mma_ab<D, 1>(acc, pa[t][kc], vb + stage, kc);
+    __syncthreads();
+  }
+  store_rows<D>(acc, 1.0f, Qw, o, vo, bi, hi, q0 + warp * 16, S, lane);
+}
+
+// Two passes over the key tiles, any S: online max and sum, then P V.
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+attn_fwd_two_pass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                         bf16* __restrict__ o, View vq, View vk, View vv, View vo, int S,
+                         float scale) {
+  constexpr int LD = row_stride<D>();
+  constexpr int TILE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + TILE;                                 // two stages of (K, V)
+  float* Kb = reinterpret_cast<float*>(ring + 4 * TILE);  // n_tiles * 64 key biases
+  const int q0 = blockIdx.x * TQ;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_tiles = (S + TK - 1) / TK;
+  bf16* Qw = Qs + warp * 16 * LD;
+  const uint32_t qa = smem_addr(Qw) + lane_a<D>(lane);
+  const uint32_t kb = smem_addr(ring) + lane_bt<D>(lane);
+  const uint32_t vb = smem_addr(ring + TILE) + lane_a<D>(lane);
+
+  // Steps 0 .. n - 1 bring K tile `step` (pass one), n .. 2 n - 1 the K and
+  // V tiles `step - n` (pass two).
+  auto issue = [&](int step) {
+    bf16* dst = ring + (step & 1) * 2 * TILE;
+    if (step < n_tiles) {
+      load_tile<D>(dst, k, vk, bi, hi, step * TK, S, tid);
+    } else if (step < 2 * n_tiles) {
+      load_tile<D>(dst, k, vk, bi, hi, (step - n_tiles) * TK, S, tid);
+      load_tile<D>(dst + TILE, v, vv, bi, hi, (step - n_tiles) * TK, S, tid);
+    }
+    cp_commit();
+  };
+  load_tile<D>(Qs, q, vq, bi, hi, q0, S, tid);
+  issue(0);
+  load_bias(Kb, key_bias, bi, n_tiles, S, tid);
+
+  float x[8][4];
+  float m0 = INIT_MAX, m1 = INIT_MAX, l0 = 0.0f, l1 = 0.0f;
   for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
     __syncthreads();
-    load_tile_bf16<D>(Ks, k, vk, bi, hi, t * TK, S, tid, FWD_THREADS);
-    load_bias(Kb, key_bias, bi, t * TK, S, tid, FWD_THREADS);
-    __syncthreads();
-    scores();
-    float tmax = INIT_MAX;
-    for (int jj = 0; jj < 32; ++jj) {
-      const int c = c0 + ((jj + lane) & 31);  // rotated: no bank conflicts
-      const float x = __fadd_rn(__fmul_rn(sc[row * SW + c], scale), Kb[c]);
-      sc[row * SW + c] = x;
-      tmax = fmaxf(tmax, x);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, 1));
-    const float mn = fmaxf(m, tmax);
-    float ts = 0.0f;
-    for (int jj = 0; jj < 32; ++jj) ts += expf(sc[row * SW + c0 + ((jj + lane) & 31)] - mn);
-    ts += __shfl_xor_sync(FULL, ts, 1);
-    l = l * expf(m - mn) + ts;
-    m = mn;
-    __syncwarp();
-  }
-
-  // Pass 2: P = exp(logit - m) / l in f32, rounded to bf16, then P V.
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
+    mma_abt<D>(x, qa, kb + (t & 1) * 2 * TILE * 2);
+    logits(x, Kb + t * TK, scale, lane);
+    float t0, t1;
+    tile_max(x, t0, t1);
+    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+    float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll
-  for (int d = 0; d < D / 16; ++d) wmma::fill_fragment(oacc[d], 0.0f);
+    for (int j = 0; j < 8; ++j) {
+      e0 += expf(x[j][0] - n0) + expf(x[j][1] - n0);
+      e1 += expf(x[j][2] - n1) + expf(x[j][3] - n1);
+    }
+    l0 = fmaf(l0, expf(m0 - n0), quad_sum(e0));
+    l1 = fmaf(l1, expf(m1 - n1), quad_sum(e1));
+    m0 = n0;
+    m1 = n1;
+    __syncthreads();
+  }
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+
+  float acc[D / 8][4];
+  zero<D>(acc);
   for (int t = 0; t < n_tiles; ++t) {
+    issue(n_tiles + t + 1);
+    cp_wait<1>();
     __syncthreads();
-    load_tile_bf16<D>(Ks, k, vk, bi, hi, t * TK, S, tid, FWD_THREADS);
-    load_tile_bf16<D>(Vs, v, vv, bi, hi, t * TK, S, tid, FWD_THREADS);
-    load_bias(Kb, key_bias, bi, t * TK, S, tid, FWD_THREADS);
+    const uint32_t stage = ((n_tiles + t) & 1) * 2 * TILE * 2;
+    mma_abt<D>(x, qa, kb + stage);
+    logits(x, Kb + t * TK, scale, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[j][0] = expf(x[j][0] - m0);
+      x[j][1] = expf(x[j][1] - m0);
+      x[j][2] = expf(x[j][2] - m1);
+      x[j][3] = expf(x[j][3] - m1);
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[1][4];
+      a_operand(x, kc, i0, i1, a[0]);
+      mma_ab<D, 1>(acc, a, vb + stage, kc);
+    }
     __syncthreads();
-    scores();
-    for (int jj = 0; jj < 32; ++jj) {
-      const int c = c0 + ((jj + lane) & 31);
-      const float x = __fadd_rn(__fmul_rn(sc[row * SW + c], scale), Kb[c]);
-      p[row * TK + c] = __float2bfloat16(expf(x - m) / l);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < TK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::load_matrix_sync(pa, p + kk * 16, TK);
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, Vs + kk * 16 * D + d * 16, D);
-        wmma::mma_sync(oacc[d], pa, vb, oacc[d]);
-      }
-    }
   }
-
-  __syncwarp();
-#pragma unroll
-  for (int d = 0; d < D / 16; ++d)
-    wmma::store_matrix_sync(sc + d * 16, oacc[d], SW, wmma::mem_row_major);
-  __syncwarp();
-  for (int i = lane; i < 16 * (D / 8); i += 32) {
-    const int r = i / (D / 8);
-    const int c = (i % (D / 8)) * 8;
-    const int qi = q0 + warp * 16 + r;
-    if (qi >= S) continue;
-    __align__(16) bf16 packed[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) packed[j] = __float2bfloat16(sc[r * SW + c + j]);
-    *reinterpret_cast<uint4*>(o + vo.at(bi, hi, qi) + c) = *reinterpret_cast<uint4*>(packed);
-  }
+  store_rows<D>(acc, 1.0f, Qw, o, vo, bi, hi, q0 + warp * 16, S, lane);
 }
 
 // ----------------------------------------------------------------- backward
-// Thread (tx, ty) of 16 x 16 owns rows ty + 16 i and columns tx + 16 j of a
-// 64 x 64 tile (i, j < 4); the 16 threads of one row are a half-warp.
 
+// Blocks per SM asked of ptxas for the two backward kernels, 0 leaving it
+// its own choice. At head_dim 32 that choice trims the dK/dV kernel to 128
+// registers (a fourth block per SM) and spills; asking for three lets it
+// keep 164 with no spill. A floor of two blocks on both kernels made K7 16%
+// slower on an H100 (more registers, fewer blocks). Other choices build by
+// -D: scripts/torch_attention_bounds_ab.py compares them.
+#ifndef ATTN_BWD_MIN_BLOCKS
+#define ATTN_BWD_MIN_BLOCKS 0
+#endif
+#ifndef ATTN_DKDV_MIN_BLOCKS_D32
+#define ATTN_DKDV_MIN_BLOCKS_D32 3
+#endif
+
+// dQ of one 64-query tile, and each row's m, l and Dr into stats
+// ([3][B][heads][S] f32).
 template <int D>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int tx, int ty,
-                                         float out[4][4]) {
-  // out[i][j] = sum_d A[ty + 16 i][d] * B[tx + 16 j][d], both [64][D + 1].
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.0f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], b[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(a[i], b[j], out[i][j]);
-  }
-}
-
-__device__ __forceinline__ float half_warp_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float half_warp_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-template <int D>
-__host__ __device__ constexpr size_t bwd_smem_bytes() {
-  return (size_t)4 * 64 * (D + 1) * 4  // four f32 [64][D + 1] tiles
-         + (size_t)2 * 64 * 65 * 4     // two f32 [64][64 + 1] tiles
-         + (size_t)4 * 64 * 4;         // key bias and per-row max, sum, Dr
-}
-
-// dQ, and each row's max, sum and Dr into stats ([3][B][heads][S] f32).
-template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(THREADS, ATTN_BWD_MIN_BLOCKS)
 attn_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const float* __restrict__ key_bias,
                    const bf16* __restrict__ dout, bf16* __restrict__ dq,
                    float* __restrict__ stats, View vq, View vk, View vv, View vdo, View vdq,
                    int S, float scale) {
+  constexpr int LD = row_stride<D>();
+  constexpr int TILE = tile_elems<D>();
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int DP = D + 1;
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* dOs = Qs + 64 * DP;
-  float* Ks = dOs + 64 * DP;
-  float* Vs = Ks + 64 * DP;
-  float* dSs = Vs + 64 * DP;      // [64][65]
-  float* Kb = dSs + 2 * 64 * 65;  // one [64][65] tile is unused here
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + TILE;
+  bf16* ring = dOs + TILE;                                // two stages of (K, V)
+  float* Kb = reinterpret_cast<float*>(ring + 4 * TILE);  // n_tiles * 64 key biases
   const int q0 = blockIdx.x * TQ;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int n_tiles = (S + TK - 1) / TK;
+  bf16* Qw = Qs + warp * 16 * LD;
+  const uint32_t qa = smem_addr(Qw) + lane_a<D>(lane);
+  const uint32_t doa = smem_addr(dOs + warp * 16 * LD) + lane_a<D>(lane);
+  const uint32_t kbt = smem_addr(ring) + lane_bt<D>(lane);  // K as B^T
+  const uint32_t vbt = smem_addr(ring + TILE) + lane_bt<D>(lane);
+  const uint32_t kb = smem_addr(ring) + lane_a<D>(lane);    // K as B
 
-  load_tile_f32<D>(Qs, q, vq, bi, hi, q0, S, tid);
-  load_tile_f32<D>(dOs, dout, vdo, bi, hi, q0, S, tid);
-
-  float m[4], l[4], dr[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = INIT_MAX;
-    l[i] = 0.0f;
-    dr[i] = 0.0f;
-  }
-  float s[4][4], dp[4][4];
-
-  // Pass A: row max and sum, online over the key tiles.
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_tile_f32<D>(Ks, k, vk, bi, hi, t * TK, S, tid);
-    load_bias(Kb, key_bias, bi, t * TK, S, tid, BWD_THREADS);
-    __syncthreads();
-    tile_dot<D>(Qs, Ks, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float tmax = INIT_MAX;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = __fadd_rn(__fmul_rn(s[i][j], scale), Kb[tx + 16 * j]);
-        tmax = fmaxf(tmax, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], half_warp_max(tmax));
-      float ts = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts += expf(s[i][j] - mn);
-      l[i] = l[i] * expf(m[i] - mn) + half_warp_sum(ts);
-      m[i] = mn;
+  // Steps 0 .. 2 n - 1 bring K and V tile `step % n`: pass A, then pass B.
+  auto issue = [&](int step) {
+    if (step < 2 * n_tiles) {
+      bf16* dst = ring + (step & 1) * 2 * TILE;
+      load_tile<D>(dst, k, vk, bi, hi, (step % n_tiles) * TK, S, tid);
+      load_tile<D>(dst + TILE, v, vv, bi, hi, (step % n_tiles) * TK, S, tid);
     }
-  }
+    cp_commit();
+  };
+  load_tile<D>(Qs, q, vq, bi, hi, q0, S, tid);
+  load_tile<D>(dOs, dout, vdo, bi, hi, q0, S, tid);
+  issue(0);
+  load_bias(Kb, key_bias, bi, n_tiles, S, tid);
 
-  // Pass B: Dr = rowsum(P * dP).
+  float s[8][4], dp[8][4];
+  // Pass A: m, l and u = sum exp(x - m) dP, online over the key tiles.
+  float m0 = INIT_MAX, m1 = INIT_MAX, l0 = 0.0f, l1 = 0.0f, u0 = 0.0f, u1 = 0.0f;
   for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
     __syncthreads();
-    load_tile_f32<D>(Ks, k, vk, bi, hi, t * TK, S, tid);
-    load_tile_f32<D>(Vs, v, vv, bi, hi, t * TK, S, tid);
-    load_bias(Kb, key_bias, bi, t * TK, S, tid, BWD_THREADS);
-    __syncthreads();
-    tile_dot<D>(Qs, Ks, tx, ty, s);
-    tile_dot<D>(dOs, Vs, tx, ty, dp);
+    const uint32_t stage = (t & 1) * 2 * TILE * 2;
+    mma_abt<D>(s, qa, kbt + stage);
+    mma_abt<D>(dp, doa, vbt + stage);
+    logits(s, Kb + t * TK, scale, lane);
+    float t0, t1;
+    tile_max(s, t0, t1);
+    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+    float e0 = 0.0f, e1 = 0.0f, w0 = 0.0f, w1 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = __fadd_rn(__fmul_rn(s[i][j], scale), Kb[tx + 16 * j]);
-        dr[i] = fmaf(expf(x - m[i]) / l[i], dp[i][j], dr[i]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dr[i] = half_warp_sum(dr[i]);
-
-  // Pass C: dS = P * (dP - Dr) through shared memory, dQ += dS K.
-  float acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) acc[i][j] = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_tile_f32<D>(Ks, k, vk, bi, hi, t * TK, S, tid);
-    load_tile_f32<D>(Vs, v, vv, bi, hi, t * TK, S, tid);
-    load_bias(Kb, key_bias, bi, t * TK, S, tid, BWD_THREADS);
-    __syncthreads();
-    tile_dot<D>(Qs, Ks, tx, ty, s);
-    tile_dot<D>(dOs, Vs, tx, ty, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = __fadd_rn(__fmul_rn(s[i][j], scale), Kb[tx + 16 * j]);
-        const float pij = expf(x - m[i]) / l[i];
-        dSs[(ty + 16 * i) * 65 + tx + 16 * j] = pij * (dp[i][j] - dr[i]);
-      }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < TK; ++c) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(ty + 16 * i) * 65 + c];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float kv = Ks[c * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(ds[i], kv, acc[i][j]);
-      }
+    for (int j = 0; j < 8; ++j) {
+      const float a = expf(s[j][0] - n0), b = expf(s[j][1] - n0);
+      const float c = expf(s[j][2] - n1), d = expf(s[j][3] - n1);
+      e0 += a + b;
+      e1 += c + d;
+      w0 = fmaf(a, dp[j][0], fmaf(b, dp[j][1], w0));
+      w1 = fmaf(c, dp[j][2], fmaf(d, dp[j][3], w1));
     }
+    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
+    l0 = fmaf(l0, a0, quad_sum(e0));
+    l1 = fmaf(l1, a1, quad_sum(e1));
+    u0 = fmaf(u0, a0, quad_sum(w0));
+    u1 = fmaf(u1, a1, quad_sum(w1));
+    m0 = n0;
+    m1 = n1;
+    __syncthreads();
   }
+  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
+  const float dr0 = u0 / l0, dr1 = u1 / l1;
 
+  // Pass B: dS = P (dP - Dr), dQ += dS K with dS split.
+  float acc[D / 8][4];
+  zero<D>(acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(n_tiles + t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    const uint32_t stage = ((n_tiles + t) & 1) * 2 * TILE * 2;
+    mma_abt<D>(s, qa, kbt + stage);
+    mma_abt<D>(dp, doa, vbt + stage);
+    logits(s, Kb + t * TK, scale, lane);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
+    for (int j = 0; j < 8; ++j) {
+      s[j][0] = expf(s[j][0] - m0) * i0 * (dp[j][0] - dr0);
+      s[j][1] = expf(s[j][1] - m0) * i0 * (dp[j][1] - dr0);
+      s[j][2] = expf(s[j][2] - m1) * i1 * (dp[j][2] - dr1);
+      s[j][3] = expf(s[j][3] - m1) * i1 * (dp[j][3] - dr1);
+    }
 #pragma unroll
-    for (int j = 0; j < D / 16; ++j)
-      dq[vdq.at(bi, hi, qi) + tx + 16 * j] = __float2bfloat16(acc[i][j] * scale);
-    if (tx == 0) {
-      const size_t plane = (size_t)gridDim.z * gridDim.y * S;
-      const size_t at = ((size_t)bi * gridDim.y + hi) * S + qi;
-      stats[at] = m[i];
-      stats[plane + at] = l[i];
-      stats[2 * plane + at] = dr[i];
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[2][4];
+      a_operand_split(s, kc, a);
+      mma_ab<D, 2>(acc, a, kb + stage, kc);
+    }
+    __syncthreads();
+  }
+  store_rows<D>(acc, scale, Qw, dq, vdq, bi, hi, q0 + warp * 16, S, lane);
+  if ((lane & 3) == 0) {
+    const size_t plane = (size_t)gridDim.z * gridDim.y * S;
+    const size_t row0 = ((size_t)bi * gridDim.y + hi) * S;
+    const int r = q0 + warp * 16 + (lane >> 2);
+    if (r < S) {
+      stats[row0 + r] = m0;
+      stats[plane + row0 + r] = l0;
+      stats[2 * plane + row0 + r] = dr0;
+    }
+    if (r + 8 < S) {
+      stats[row0 + r + 8] = m1;
+      stats[plane + row0 + r + 8] = l1;
+      stats[2 * plane + row0 + r + 8] = dr1;
     }
   }
 }
 
-// dK and dV of one key tile, looping over the query tiles.
+// dK and dV of one 64-key tile, looping over the query tiles. A warp owns 16
+// keys: its accumulator tiles are K Q^T and V dO^T (keys by queries).
 template <int D>
-__global__ void __launch_bounds__(BWD_THREADS)
+__global__ void __launch_bounds__(THREADS,
+                                  D == 32 ? ATTN_DKDV_MIN_BLOCKS_D32 : ATTN_BWD_MIN_BLOCKS)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ key_bias,
                      const bf16* __restrict__ dout, const float* __restrict__ stats,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, View vq, View vk, View vv,
                      View vdo, View vdk, View vdv, int S, float scale) {
+  constexpr int LD = row_stride<D>();
+  constexpr int TILE = tile_elems<D>();
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int DP = D + 1;
-  float* Ks = reinterpret_cast<float*>(smem);
-  float* Vs = Ks + 64 * DP;
-  float* Qs = Vs + 64 * DP;
-  float* dOs = Qs + 64 * DP;
-  float* Ps = dOs + 64 * DP;  // [64 queries][65]
-  float* dSs = Ps + 64 * 65;  // [64 queries][65]
-  float* Kb = dSs + 64 * 65;
-  float* Ms = Kb + 64;
-  float* Ls = Ms + 64;
-  float* Drs = Ls + 64;
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + TILE;
+  bf16* ring = Vs + TILE;                                 // two stages of (Q, dO)
+  float* Ms = reinterpret_cast<float*>(ring + 4 * TILE);  // per query: m, 1 / l, Dr
   const int k0 = blockIdx.x * TK;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const size_t plane = (size_t)gridDim.z * gridDim.y * S;
-  const size_t row0 = ((size_t)bi * gridDim.y + hi) * S;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_tiles = (S + TQ - 1) / TQ;
+  float* Is = Ms + n_tiles * TQ;
+  float* Drs = Is + n_tiles * TQ;
+  bf16* Kw = Ks + warp * 16 * LD;
+  bf16* Vw = Vs + warp * 16 * LD;
+  const uint32_t ka = smem_addr(Kw) + lane_a<D>(lane);
+  const uint32_t va = smem_addr(Vw) + lane_a<D>(lane);
+  const uint32_t qbt = smem_addr(ring) + lane_bt<D>(lane);  // Q, dO as B^T
+  const uint32_t dobt = smem_addr(ring + TILE) + lane_bt<D>(lane);
+  const uint32_t qb = smem_addr(ring) + lane_a<D>(lane);    // Q, dO as B
+  const uint32_t dob = smem_addr(ring + TILE) + lane_a<D>(lane);
 
-  load_tile_f32<D>(Ks, k, vk, bi, hi, k0, S, tid);
-  load_tile_f32<D>(Vs, v, vv, bi, hi, k0, S, tid);
-  load_bias(Kb, key_bias, bi, k0, S, tid, BWD_THREADS);
-
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dk_acc[i][j] = 0.0f;
-      dv_acc[i][j] = 0.0f;
+  auto issue = [&](int step) {  // Q and dO tile `step`
+    if (step < n_tiles) {
+      bf16* dst = ring + (step & 1) * 2 * TILE;
+      load_tile<D>(dst, q, vq, bi, hi, step * TQ, S, tid);
+      load_tile<D>(dst + TILE, dout, vdo, bi, hi, step * TQ, S, tid);
     }
-  float s[4][4], dp[4][4];
-
-  for (int q0 = 0; q0 < S; q0 += TQ) {
-    __syncthreads();
-    load_tile_f32<D>(Qs, q, vq, bi, hi, q0, S, tid);
-    load_tile_f32<D>(dOs, dout, vdo, bi, hi, q0, S, tid);
-    for (int r = tid; r < TQ; r += BWD_THREADS) {
-      const bool ok = q0 + r < S;  // rows past S: P = exp(-inf) = 0
-      Ms[r] = ok ? stats[row0 + q0 + r] : -PAD_BIAS;
-      Ls[r] = ok ? stats[plane + row0 + q0 + r] : 1.0f;
-      Drs[r] = ok ? stats[2 * plane + row0 + q0 + r] : 0.0f;
-    }
-    __syncthreads();
-    tile_dot<D>(Qs, Ks, tx, ty, s);    // [query][key]
-    tile_dot<D>(dOs, Vs, tx, ty, dp);  // [query][key]
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float x = __fadd_rn(__fmul_rn(s[i][j], scale), Kb[c]);
-        const float pij = expf(x - Ms[r]) / Ls[r];
-        Ps[r * 65 + c] = pij;
-        dSs[r * 65 + c] = pij * (dp[i][j] - Drs[r]);
-      }
-    }
-    __syncthreads();
-    // Thread rows are now keys ty + 16 i, columns d = tx + 16 j.
-#pragma unroll 4
-    for (int r = 0; r < TQ; ++r) {
-      float pr[4], dsr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pr[i] = Ps[r * 65 + ty + 16 * i];
-        dsr[i] = dSs[r * 65 + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) {
-        const float dov = dOs[r * DP + tx + 16 * j];
-        const float qv = Qs[r * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(pr[i], dov, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(dsr[i], qv, dk_acc[i][j]);
-        }
-      }
+    cp_commit();
+  };
+  load_tile<D>(Ks, k, vk, bi, hi, k0, S, tid);
+  load_tile<D>(Vs, v, vv, bi, hi, k0, S, tid);
+  issue(0);
+  {
+    const size_t plane = (size_t)gridDim.z * gridDim.y * S;
+    const size_t row0 = ((size_t)bi * gridDim.y + hi) * S;
+    for (int j = tid; j < n_tiles * TQ; j += THREADS) {
+      const bool ok = j < S;  // rows past S: P = exp(x - 3e38) = 0
+      Ms[j] = ok ? stats[row0 + j] : -PAD_BIAS;
+      Is[j] = ok ? 1.0f / stats[plane + row0 + j] : 1.0f;
+      Drs[j] = ok ? stats[2 * plane + row0 + j] : 0.0f;
     }
   }
+  const int kr = k0 + warp * 16 + (lane >> 2);  // this lane's keys: kr, kr + 8
+  const float b0 = kr < S ? key_bias[(size_t)bi * S + kr] : PAD_BIAS;
+  const float b1 = kr + 8 < S ? key_bias[(size_t)bi * S + kr + 8] : PAD_BIAS;
 
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
+  float p[8][4], ds[8][4];
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    const uint32_t stage = (t & 1) * 2 * TILE * 2;
+    mma_abt<D>(p, ka, qbt + stage);    // scores, keys by queries
+    mma_abt<D>(ds, va, dobt + stage);  // dP^T
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ki = k0 + ty + 16 * i;
-    if (ki >= S) continue;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      dk[vdk.at(bi, hi, ki) + tx + 16 * j] = __float2bfloat16(dk_acc[i][j] * scale);
-      dv[vdv.at(bi, hi, ki) + tx + 16 * j] = __float2bfloat16(dv_acc[i][j]);
+    for (int j = 0; j < 8; ++j) {
+      const int c = t * TQ + j * 8 + 2 * (lane & 3);
+      const float2 m = *reinterpret_cast<const float2*>(Ms + c);
+      const float2 il = *reinterpret_cast<const float2*>(Is + c);
+      const float2 dr = *reinterpret_cast<const float2*>(Drs + c);
+      p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x) * il.x;
+      p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y) * il.y;
+      p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x) * il.x;
+      p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y) * il.y;
+      ds[j][0] = p[j][0] * (ds[j][0] - dr.x);
+      ds[j][1] = p[j][1] * (ds[j][1] - dr.y);
+      ds[j][2] = p[j][2] * (ds[j][2] - dr.x);
+      ds[j][3] = p[j][3] * (ds[j][3] - dr.y);
     }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[2][4];
+      a_operand_split(p, kc, a);
+      mma_ab<D, 2>(dv_acc, a, dob + stage, kc);
+      a_operand_split(ds, kc, a);
+      mma_ab<D, 2>(dk_acc, a, qb + stage, kc);
+    }
+    __syncthreads();
   }
+  store_rows<D>(dk_acc, scale, Kw, dk, vdk, bi, hi, k0 + warp * 16, S, lane);
+  store_rows<D>(dv_acc, 1.0f, Vw, dv, vdv, bi, hi, k0 + warp * 16, S, lane);
 }
 
+// -------------------------------------------------------------------- host
+
 View view_of(const long long* st) { return View{st[0], st[1], st[2]}; }
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int D, int NT>
+cudaError_t launch_fwd_one_pass(const bf16* q, const bf16* k, const bf16* v, const float* bias,
+                                bf16* o, const long long* st, int B, int heads, int S,
+                                float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)3 * tile_elems<D>() * 2 + (size_t)NT * TK * 4;
+  cudaError_t e = allow_smem(attn_fwd_one_pass_kernel<D, NT>, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((S + TQ - 1) / TQ, heads, B);
+  attn_fwd_one_pass_kernel<D, NT><<<grid, THREADS, smem, stream>>>(
+      q, k, v, bias, o, view_of(st), view_of(st + 3), view_of(st + 6), view_of(st + 9), S, scale);
+  return cudaGetLastError();
+}
 
 template <int D>
 cudaError_t launch_forward(const bf16* q, const bf16* k, const bf16* v, const float* bias, bf16* o,
                            const long long* st, int B, int heads, int S, float scale,
                            cudaStream_t stream) {
-  const size_t smem = fwd_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int n_tiles = (S + TK - 1) / TK;
+  if constexpr (D <= 64) {  // the one-pass rule: S <= 256 at D <= 64
+    switch (n_tiles) {
+      case 1: return launch_fwd_one_pass<D, 1>(q, k, v, bias, o, st, B, heads, S, scale, stream);
+      case 2: return launch_fwd_one_pass<D, 2>(q, k, v, bias, o, st, B, heads, S, scale, stream);
+      case 3: return launch_fwd_one_pass<D, 3>(q, k, v, bias, o, st, B, heads, S, scale, stream);
+      case 4: return launch_fwd_one_pass<D, 4>(q, k, v, bias, o, st, B, heads, S, scale, stream);
+      default: break;
+    }
+  }
+  const size_t smem = (size_t)5 * tile_elems<D>() * 2 + (size_t)n_tiles * TK * 4;
+  cudaError_t e = allow_smem(attn_fwd_two_pass_kernel<D>, smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((S + TQ - 1) / TQ, heads, B);
-  attn_fwd_kernel<D><<<grid, FWD_THREADS, smem, stream>>>(
+  dim3 grid(n_tiles, heads, B);
+  attn_fwd_two_pass_kernel<D><<<grid, THREADS, smem, stream>>>(
       q, k, v, bias, o, view_of(st), view_of(st + 3), view_of(st + 6), view_of(st + 9), S, scale);
   return cudaGetLastError();
 }
@@ -540,22 +813,22 @@ cudaError_t launch_backward(const bf16* q, const bf16* k, const bf16* v, const f
                             const bf16* dout, bf16* dq, bf16* dk, bf16* dv, float* stats,
                             const long long* st, int B, int heads, int S, float scale,
                             cudaStream_t stream) {
-  const size_t smem = bwd_smem_bytes<D>();
-  cudaError_t e = cudaFuncSetAttribute(attn_bwd_dq_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int n_tiles = (S + TK - 1) / TK;
+  const size_t dq_smem = (size_t)6 * tile_elems<D>() * 2 + (size_t)n_tiles * TK * 4;
+  const size_t dkdv_smem = (size_t)6 * tile_elems<D>() * 2 + (size_t)3 * n_tiles * TQ * 4;
+  cudaError_t e = allow_smem(attn_bwd_dq_kernel<D>, dq_smem);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(attn_bwd_dkdv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  e = allow_smem(attn_bwd_dkdv_kernel<D>, dkdv_smem);
   if (e != cudaSuccess) return e;
   const View vq = view_of(st), vk = view_of(st + 3), vv = view_of(st + 6),
              vdo = view_of(st + 9), vdq = view_of(st + 12), vdk = view_of(st + 15),
              vdv = view_of(st + 18);
-  dim3 grid((S + 63) / 64, heads, B);
-  attn_bwd_dq_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(q, k, v, bias, dout, dq, stats, vq,
-                                                             vk, vv, vdo, vdq, S, scale);
+  dim3 grid(n_tiles, heads, B);
+  attn_bwd_dq_kernel<D><<<grid, THREADS, dq_smem, stream>>>(q, k, v, bias, dout, dq, stats, vq,
+                                                            vk, vv, vdo, vdq, S, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<D><<<grid, BWD_THREADS, smem, stream>>>(
+  attn_bwd_dkdv_kernel<D><<<grid, THREADS, dkdv_smem, stream>>>(
       q, k, v, bias, dout, stats, dk, dv, vq, vk, vv, vdo, vdk, vdv, S, scale);
   return cudaGetLastError();
 }

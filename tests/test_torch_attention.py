@@ -11,7 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from instacart_next_order_recommendation_tpu.ops.attention import _attention_pallas
+from instacart_next_order_recommendation_tpu.ops.attention import (
+    _attention_pallas,
+    _attention_pallas_bwd_impl,
+)
 from instacart_next_order_recommendation_tpu.ops.topk import (
     cosine_topk_pallas,
     cosine_topk_reference as jax_topk_reference,
@@ -118,6 +121,83 @@ def test_cpu_backward_is_the_plain_version():
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert multi_head_attention_backward.launches == 0
+
+
+# ------------------------------------------- the CUDA backward's arithmetic
+
+
+def _bf16_parts(x, split=True):
+    """x as the bf16 terms the CUDA backward feeds to its products: hi =
+    bf16(x) and lo = bf16(x - hi), or hi alone."""
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    return (hi, (x - hi).to(torch.bfloat16).to(torch.float32)) if split else (hi,)
+
+
+def _k7_arithmetic(q, k, v, mask, do, scale, split=True, tile=64):
+    """A model of ``csrc/attention.cu``'s backward on f32 tensors. Per query
+    row: the online max m, sum l and u = sum exp(x - m) dP over 64-key tiles,
+    so Dr = u / l; then P = exp(x - m) * (1 / l) and dS = P (dP - Dr). P and
+    dS enter their products as bf16 terms (``_bf16_parts``), every product
+    summed in f32. Keys past S take the kernel's -3e38 bias."""
+    s = q.shape[2]
+    pad = -s % tile
+    kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad)) for t in (k, v))
+    bias = torch.nn.functional.pad((1.0 - mask.to(torch.float32)) * -1e9, (0, pad), value=-3e38)
+    x = (q @ kp.transpose(-1, -2)) * scale + bias[:, None, None, :]
+    dp = do @ vp.transpose(-1, -2)
+    m = torch.full(x.shape[:-1], -3e38)
+    l, u = torch.zeros_like(m), torch.zeros_like(m)
+    for t0 in range(0, s + pad, tile):
+        xt, dpt = x[..., t0 : t0 + tile], dp[..., t0 : t0 + tile]
+        mn = torch.maximum(m, xt.amax(dim=-1))
+        e, rescale = torch.exp(xt - mn[..., None]), torch.exp(m - mn)
+        l = l * rescale + e.sum(dim=-1)
+        u = u * rescale + (e * dpt).sum(dim=-1)
+        m = mn
+    p = torch.exp(x - m[..., None]) * (1.0 / l)[..., None]
+    ds = p * (dp - (u / l)[..., None])
+    dq = sum(part @ kp for part in _bf16_parts(ds, split)) * scale
+    dk = sum(part.transpose(-1, -2) @ q for part in _bf16_parts(ds, split)) * scale
+    dv = sum(part.transpose(-1, -2) @ do for part in _bf16_parts(p, split))
+    return dq, dk[..., :s, :], dv[..., :s, :]
+
+
+# The split model against f32 backwards, relative to each gradient's largest
+# magnitude: hi + lo keeps P and dS to about 2^-17, and the sums run in
+# another order.
+K7_SPLIT_REL = 1e-4
+
+
+@pytest.mark.parametrize("seq", [40, 192, 256])
+@pytest.mark.parametrize("dim", [32, 64])
+def test_k7_split_arithmetic_matches_jax_backward(dim, seq):
+    rng = np.random.default_rng(100 + dim + seq)
+    q, k, v, mask = _qkv_mask(rng, 3, 2, seq, dim)  # the last row all pad
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    # bf16 values held in f32: the kernel's operands, and no final rounding
+    # of the gradients to hide the error.
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16).to(torch.float32) for a in (q, k, v, do))
+    scale = 1.0 / dim**0.5
+    jax_grads = _attention_pallas_bwd_impl(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)), jnp.asarray(mask), jnp.asarray(do.numpy()),
+        scale, True,
+    )
+    tmask = torch.from_numpy(mask)
+    plain = multi_head_attention_backward_reference(q, k, v, tmask, do, scale)
+    model = _k7_arithmetic(q, k, v, tmask, do, scale)
+    single = _k7_arithmetic(q, k, v, tmask, do, scale, split=False)
+    single_err = 0.0
+    names = ("dq", "dk", "dv")
+    for name, got, want_jax, want_plain, one in zip(names, model, jax_grads, plain, single):
+        assert got.dtype == torch.float32 and tuple(got.shape) == q.shape, name
+        for want in (_np(want_jax), _np(want_plain)):
+            err = np.abs(_np(got) - want).max() / np.abs(want).max()
+            assert err <= K7_SPLIT_REL, (name, err)
+        want = _np(want_jax)
+        single_err = max(single_err, np.abs(_np(one) - want).max() / np.abs(want).max())
+    # One bf16 rounding of P and dS would not do: the split is what holds the
+    # kernel to JAX's f32 backward.
+    assert single_err > K7_SPLIT_REL, single_err
 
 
 # ------------------------------------------------------------- packed top-k

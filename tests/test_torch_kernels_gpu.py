@@ -274,11 +274,13 @@ def test_backward_rejects_what_it_does_not_take(dev):
         )
 
 
-# Attention: relative to each output's largest magnitude. The forward's
-# products run on bf16 tensor cores and its sums in another order than the
-# plain version's f32 products, so a bf16 rounding of P or of the output
-# may flip: one bf16 ulp is at most 2^-7 of the largest magnitude. The
-# backward is f32 throughout, then rounded to bf16 once.
+# Attention: relative to each output's largest magnitude. Both kernels sum
+# their tensor-core products in another order than the plain version, so a
+# bf16 rounding of the forward's P or of any output may flip: one bf16 ulp
+# is at most 2^-7 of the largest magnitude. The backward's bf16 operands
+# (q, k, v, dO) are the plain version's values; P and dS enter its products
+# as two bf16 terms each (about 2^-17 relative), and every gradient is
+# rounded to bf16 once.
 ATTN_REL_TOL = 1e-2
 
 
@@ -288,7 +290,9 @@ def _rel(a, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dim", [16, 32, 64, 128])
-@pytest.mark.parametrize("seq", [16, 40, 192, 256, 512])
+# 200, 255, 256 and 257 sit on both sides of the forward's one-pass limit
+# (S <= 256 at D <= 64) and on ragged tile edges.
+@pytest.mark.parametrize("seq", [16, 40, 192, 200, 255, 256, 257, 512])
 @pytest.mark.parametrize("batch", [1, 64, 256])
 def test_attention_forward_and_backward_match_plain(dev, batch, seq, dim):
     heads = 2
@@ -311,6 +315,63 @@ def test_attention_forward_and_backward_match_plain(dev, batch, seq, dim):
         assert a.dtype == torch.bfloat16 and a.shape == b.shape, name
         assert torch.isfinite(a.float()).all(), name
         assert _rel(a, b) <= ATTN_REL_TOL, (name, _rel(a, b))
+
+
+@pytest.mark.cuda
+def test_attention_backward_is_deterministic(dev):
+    # No atomics and a fixed summation order: the same inputs give the same
+    # bits in every gradient, at the mpnet training shape.
+    g = torch.Generator().manual_seed(15)
+    b, heads, s, d = 64, 12, 256, 64
+    q, k, v, do = (
+        torch.randn((b, heads, s, d), generator=g).to(dev, torch.bfloat16) for _ in range(4)
+    )
+    mask = _mask(b, s, dev)
+    first = multi_head_attention_backward(q, k, v, mask, do, d**-0.5)
+    second = multi_head_attention_backward(q, k, v, mask, do, d**-0.5)
+    torch.cuda.synchronize()
+    for name, a, b2 in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a.view(torch.int16), b2.view(torch.int16)), name
+
+
+def _attention_grads_f32(q, k, v, mask, do, scale, round_p_ds):
+    """The backward in f32 on the card, with P and dS rounded to one bf16
+    each before their products if ``round_p_ds``."""
+    q, k, v, do = (t.float() for t in (q, k, v, do))
+    bias = (1.0 - mask.float()) * -1e9
+    p = torch.softmax(q @ k.transpose(-1, -2) * scale + bias[:, None, None, :], dim=-1)
+    dp = do @ v.transpose(-1, -2)
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    if round_p_ds:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    dq = ds @ k * scale
+    dk = ds.transpose(-1, -2) @ q * scale
+    return dq, dk, p.transpose(-1, -2) @ do
+
+
+@pytest.mark.cuda
+def test_attention_backward_splits_p_and_ds(dev):
+    # P and dS enter the kernel's products as hi + lo bf16 pairs, so its
+    # bf16 gradients are the f32 gradients rounded once: at the mpnet
+    # training shape a few elements in a thousand differ, where one bf16
+    # rounding of P and dS moves a fifth to two fifths of them. A kernel
+    # that dropped the lo terms would miss as often as that rounding does.
+    g = torch.Generator().manual_seed(16)
+    b, heads, s, d = 64, 12, 256, 64
+    q, k, v, do = (
+        torch.randn((b, heads, s, d), generator=g).to(dev, torch.bfloat16) for _ in range(4)
+    )
+    mask = _mask(b, s, dev)
+    grads = multi_head_attention_backward(q, k, v, mask, do, d**-0.5)
+    exact = _attention_grads_f32(q, k, v, mask, do, d**-0.5, round_p_ds=False)
+    single = _attention_grads_f32(q, k, v, mask, do, d**-0.5, round_p_ds=True)
+    torch.cuda.synchronize()
+    for name, a, e, one in zip(("dq", "dk", "dv"), grads, exact, single):
+        want = e.to(torch.bfloat16)
+        missed = (a != want).float().mean().item()
+        missed_single = (one.to(torch.bfloat16) != want).float().mean().item()
+        assert missed_single > 0.1, (name, missed_single)
+        assert missed < missed_single / 4, (name, missed, missed_single)
 
 
 @pytest.mark.cuda
