@@ -7,12 +7,17 @@ Run from the repository root, with no arguments:
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
-   fails if ptxas spills in an attention kernel at head_dim 32 or 64.
+   fails if ptxas spills in an attention kernel at head_dim 32 or 64 or in
+   any kernel of the fused layer (K1, K5).
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
    training form of the fused layer (K1 with dropout masks) and the fused
-   backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}; the
+   backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}, K1 and
+   K5 as medians of five readings in turns with their
+   ``nn.TransformerEncoderLayer`` yardsticks, and one K1-train and one K5
+   call at B=64 S=256 broken down launch by launch (``torch.profiler``);
+   the
    attention forward and backward (K6, K7) at the shapes the unfused layer
    gives them; K4 against K3 over a 1M-row catalog.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
@@ -22,7 +27,8 @@ Run from the repository root, with no arguments:
    whose top_k + |excluded| > 256 takes the dense top-k route), a batch of
    256 queries through ``FusedServePipeline``, and single-query latency.
    The launch counts show the path ran through every kernel, and the
-   batch's top-16 ids are held against the plain versions on the card.
+   batch's top-16 ids are held against the plain versions on the card; one
+   K1 call at the batch's shape is broken down launch by launch.
    Then the same serve path for the mpnet-base-class tower at full width
    (every layer unfused: K6, no K1), MiniLM-L6 at two shapes its fused
    kernels do not take (S=512 and S=200, through K6), and
@@ -140,6 +146,15 @@ K3_TOL = 0.0     # grid-valued inputs: every dot product is exact in f32
 # dao enter the kernel's products as bf16) and the f32 sums over B*S rows
 # run in another order.
 K5_REL_TOL = 2e-2
+# The kernels of each fused-layer library, as ptxas names them: every one
+# must appear in its report, and none may spill.
+FUSED_LAYER_KERNELS = {
+    "fused_layer": ("gemm_kernel", "attn_fwd_one_pass_kernel", "residual_layernorm_kernel"),
+    "fused_layer_bwd": (
+        "gemm_kernel", "attn_fwd_one_pass_kernel", "residual_layernorm_kernel",
+        "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "ln_bwd_kernel", "colsum_kernel",
+    ),
+}
 # Three training steps, kernels against plain versions at dropout 0 and a
 # constant lr (five times the B=64 recipe's peak, so that each update moves
 # the next loss further than bf16 does): the losses, relative, and the first
@@ -240,6 +255,89 @@ def cuda_ms_median(fn, iters: int, repeats: int = 5) -> float:
     return float(np.median([cuda_ms(fn, iters) for _ in range(repeats)]))
 
 
+def ms_in_turns(fns: dict, iters: int, turns: int = 2) -> dict[str, float]:
+    """Each function's milliseconds, read in turns: in each of ``turns``
+    rounds every function takes a ``cuda_ms_median`` reading, the order
+    reversed every other round, so that a kernel and its yardstick see the
+    same state of the card; the median of the rounds."""
+    names = list(fns)
+    readings: dict[str, list[float]] = {n: [] for n in names}
+    for turn in range(turns):
+        for n in names if turn % 2 == 0 else names[::-1]:
+            readings[n].append(cuda_ms_median(fns[n], iters))
+    return {n: float(np.median(r)) for n, r in readings.items()}
+
+
+def _kernel_name(name: str) -> str:
+    """A demangled kernel name without its return type and parameter list."""
+    m = re.search(r"([\w:]+(?:<[^()]*>)?)\(", name)
+    return (m.group(1) if m else name).replace("(anonymous namespace)::", "")
+
+
+def launch_breakdown(fn, calls: int = 3) -> list[dict]:
+    """Every device launch of one ``fn()`` call, in order: kernel, copy or
+    fill, its grid and block, registers per thread, dynamic shared memory
+    and device microseconds (the median over ``calls`` calls traced in one
+    torch.profiler session, CUPTI underneath). Raises if the trace does not
+    hold the same launches for every call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    launches = [
+        e for e in sorted(events, key=lambda e: float(e.get("ts", 0)))
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    ]
+    n = len(launches) // calls
+    names = [_kernel_name(e["name"]) for e in launches]
+    if n == 0 or len(launches) != n * calls or any(
+        names[c * n : (c + 1) * n] != names[:n] for c in range(calls)
+    ):
+        raise RuntimeError(f"launch_breakdown: {len(launches)} traced launches over {calls} calls")
+    out = []
+    for i, e in enumerate(launches[:n]):
+        args = e.get("args", {})
+        out.append({
+            "name": names[i],
+            "grid": args.get("grid"),
+            "block": args.get("block"),
+            "regs": args.get("registers per thread"),
+            "smem": args.get("shared memory"),
+            "us": float(np.median([float(launches[c * n + i]["dur"]) for c in range(calls)])),
+        })
+    return out
+
+
+def show_breakdown(what: str, fn) -> None:
+    """``log_breakdown`` of ``launch_breakdown(fn)``. A trace that does not
+    hold the same launches for every call (CUPTI on the card has dropped a
+    record) is taken again, twice at most, then reported as not measured:
+    the profiler is a reading, not a check."""
+    for _ in range(3):
+        try:
+            log_breakdown(what, launch_breakdown(fn))
+            return
+        except RuntimeError as e:
+            err = e
+    log(f"{what}: not measured ({err})")
+
+
+def log_breakdown(what: str, launches: list[dict]) -> None:
+    total = sum(x["us"] for x in launches)
+    log(f"{what}: {len(launches)} launches, {total / 1e3:.4f} ms of device time")
+    for x in launches:
+        log(f"  {x['us']:9.1f} us  {x['name']}  grid={x['grid']} block={x['block']} "
+            f"regs={x['regs']} smem={x['smem']}")
+
+
 def bound_ms(n_bytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -280,15 +378,16 @@ def k5_bound(b: int, s: int, h: int, inter: int, masked: bool) -> tuple[float, s
     return bound_ms(n_bytes, ops, PEAK_BF16)
 
 
-def library_train_ms(library, x, pad, up, iters: int) -> tuple[float, float]:
+def library_train_calls(library, x, pad, up):
     """One nn.TransformerEncoderLayer forward, and its autograd backward,
-    at x's shape (the yardstick for K1-train and K5)."""
+    at x's shape, as callables (the yardsticks for K1-train and K5)."""
     xr = x.detach().requires_grad_(True)
-    fwd = cuda_ms(lambda: library(xr, src_key_padding_mask=pad), iters)
     y = library(xr, src_key_padding_mask=pad)
     inputs = [xr, *library.parameters()]
-    bwd = cuda_ms(lambda: torch.autograd.grad(y, inputs, up, retain_graph=True), iters)
-    return fwd, bwd
+    return (
+        lambda: library(xr, src_key_padding_mask=pad),
+        lambda: torch.autograd.grad(y, inputs, up, retain_graph=True),
+    )
 
 
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -534,9 +633,10 @@ def packed_ties_ok(queries, catalog, i_packed, i_exact) -> bool:
 def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_iters):
     """K1's mask form and K5 at x's shape against their plain versions (the
     plain backward is autograd of the plain forward), timed with CUDA
-    events beside one nn.TransformerEncoderLayer forward and backward.
-    Returns the two kernels-line rows (without launches), the gradient with
-    the largest relative error, and whether every output is finite."""
+    events in turns with one nn.TransformerEncoderLayer forward and backward
+    (medians of five readings). Returns the two kernels-line rows (without
+    launches), the gradient with the largest relative error, and whether
+    every output is finite."""
     from instacart_next_order_recommendation_tpu_torch.ops import (
         fused_encoder_layer_backward,
         fused_encoder_layer_train,
@@ -570,15 +670,16 @@ def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_i
     rel = {n: rel_err(a, r) for n, (a, r) in pairs.items()}
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, *dw.values()))
-    lib_fwd, lib_bwd = library_train_ms(library, x, mask == 0, up, iters)
+    lib_fwd, lib_bwd = library_train_calls(library, x, mask == 0, up)
+    ms = ms_in_turns({"k1": k1, "lib_fwd": lib_fwd, "k5": k5, "lib_bwd": lib_bwd}, iters)
     bound1, by1 = k1_bound(b, s, h, inter, masks is not None)
     bound5, by5 = k5_bound(b, s, h, inter, masks is not None)
     k1_row = dict(
-        ms=cuda_ms(k1, iters), plain_ms=cuda_ms(plain1, plain_iters, 1), library_ms=lib_fwd,
+        ms=ms["k1"], plain_ms=cuda_ms(plain1, plain_iters, 1), library_ms=ms["lib_fwd"],
         max_abs_err=e1, bound_ms=bound1, bound_by=by1,
     )
     k5_row = dict(
-        ms=cuda_ms(k5, iters), plain_ms=cuda_ms(plain5, plain_iters, 1), library_ms=lib_bwd,
+        ms=ms["k5"], plain_ms=cuda_ms(plain5, plain_iters, 1), library_ms=ms["lib_bwd"],
         max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in pairs.values()),
         max_rel_err=rel[worst], bound_ms=bound5, bound_by=by5,
     )
@@ -730,10 +831,13 @@ class Smoke:
                 err = (y.float() - y_ref.float()).abs()
                 finite = bool(torch.isfinite(y.float()).all())
                 iters = 20 if b * s <= 16384 else 5
-                ms = cuda_ms(lambda: fused_encoder_layer(x, mask, layer, **kw), iters)
-                plain = cuda_ms(lambda: fused_encoder_layer_reference(x, mask, layer, **kw), 2, 1)
                 pad = mask == 0
-                lib = cuda_ms(lambda: library(x, src_key_padding_mask=pad), iters)
+                t = ms_in_turns({
+                    "k1": lambda: fused_encoder_layer(x, mask, layer, **kw),
+                    "lib": lambda: library(x, src_key_padding_mask=pad),
+                }, iters)
+                ms, lib = t["k1"], t["lib"]
+                plain = cuda_ms(lambda: fused_encoder_layer_reference(x, mask, layer, **kw), 2, 1)
                 log(
                     f"K1 fused_encoder_layer B={b} S={s}: max_abs_err={err.max().item():.6g} "
                     f"(tol {K1_TOL}) mean_abs_err={err.mean().item():.3g} finite={finite} "
@@ -920,6 +1024,22 @@ class Smoke:
                 )
                 self.check(finite and k1["max_abs_err"] <= K1_TOL, f"K1-train B={b} S={s}")
                 self.check(finite and k5["max_rel_err"] <= K5_REL_TOL, f"K5 B={b} S={s}")
+                if s == 256 and b > 1:  # the training batches' shapes
+                    bias = ((1.0 - mask.float()) * -1e9).contiguous()
+                    show_breakdown(
+                        f"K1-train launches at B={b} S={s}",
+                        lambda: fused_encoder_layer_train(
+                            x, mask, layer, masks=masks, dropout_rate=0.1, **kw
+                        ),
+                    )
+                    show_breakdown(
+                        f"K5 launches at B={b} S={s}",
+                        lambda: fused_encoder_layer_backward(x, bias, up, masks, layer, **kw),
+                    )
+                    show_breakdown(
+                        f"K5's yardstick (layer autograd bwd) launches at B={b} S={s}",
+                        library_train_calls(library, x, mask == 0, up)[1],
+                    )
                 del x, up, mask, masks
                 torch.cuda.empty_cache()
         del library
@@ -1124,11 +1244,19 @@ class Smoke:
             ).to(dev, torch.bfloat16).eval()
             pad = m == 0
             bnd, by = k1_bound(b, s, h, inter)
+            t = ms_in_turns({
+                "k1": lambda: fused_encoder_layer(x, m, layer, **kw),
+                "lib": lambda: library(x, src_key_padding_mask=pad),
+            }, 20)
             self.kernel_rows["fused_encoder_layer"] = dict(
-                ms=cuda_ms(lambda: fused_encoder_layer(x, m, layer, **kw), 20),
+                ms=t["k1"],
                 plain_ms=cuda_ms(lambda: fused_encoder_layer_reference(x, m, layer, **kw), 3),
-                library_ms=cuda_ms(lambda: library(x, src_key_padding_mask=pad), 20),
+                library_ms=t["lib"],
                 max_abs_err=e1.max().item(), bound_ms=bnd, bound_by=by,
+            )
+            show_breakdown(
+                f"K1 launches at the serve batch's shape B={b} S={s}",
+                lambda: fused_encoder_layer(x, m, layer, **kw),
             )
             self.check(e1.max().item() <= K1_TOL, "K1 at the batch shape")
             p = masked_mean_pool_l2norm(y, m)
@@ -1811,8 +1939,8 @@ class TrainPhase:
                 entry[1] += 1
         device_ms = sum(v[0] for v in per_kernel.values())
         top = sorted(per_kernel.items(), key=lambda kv: -kv[1][0])[:12]
-        # K6 and K7 (csrc/attention.cu's attn_* kernels), which the unfused
-        # layer launches; the fused route's attention lives inside K1 and K5.
+        # The attention launches (attn_* kernels): K6 and K7 on the unfused
+        # route, the attention inside K1 and K5 on the fused route.
         attn = {name: v for name, v in per_kernel.items() if "attn_" in name}
         attn_ms = sum(v[0] for v in attn.values())
         out = {
@@ -2089,6 +2217,14 @@ def main() -> int:
         bool(on_path) and not any(on_path),
         "no ptxas spills in the attention kernels at head_dim 32 and 64",
     )
+    for name in ("fused_layer", "fused_layer_bwd"):
+        usage = _build.ptxas_usage(logs[name])
+        log(f"ptxas (registers, spill stores) of the {name} kernels: {json.dumps(usage)}")
+        smoke.check(
+            set(FUSED_LAYER_KERNELS[name]) <= {key.split("<")[0] for key in usage}
+            and not any(spill for _, spill in usage.values()),
+            f"every {name} kernel in ptxas's report, none spilling",
+        )
 
     try:
         t0 = time.perf_counter()

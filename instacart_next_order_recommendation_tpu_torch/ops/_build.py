@@ -88,27 +88,53 @@ def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     return logs
 
 
-def _template_kernel(mangled: str) -> str | None:
-    """``name<int args>`` of a mangled ``*_kernel<int...>``: the name is the
-    one its decimal length prefix spans, so a namespace hash ending in
-    digits is not taken for part of it."""
+def _template_args(mangled: str) -> list[str] | None:
+    """The arguments of a mangled template argument list (after its ``I``,
+    up to its ``E``): integers, ``float`` and named types; None for any
+    other form."""
+    args, i = [], 0
+    while i < len(mangled) and mangled[i] != "E":
+        if m := re.match(r"L[ib](\d+)E", mangled[i:]):
+            args.append(m.group(1))
+        elif mangled[i] == "f":
+            args.append("float")
+            i += 1
+            continue
+        elif m := re.match(r"(\d+)", mangled[i:]):
+            n = int(m.group(1))
+            args.append(mangled[i + len(m.group(1)) : i + len(m.group(1)) + n])
+            i += len(m.group(1)) + n
+            continue
+        else:
+            return None
+        i += len(m.group(0))
+    return args
+
+
+def _kernel_key(mangled: str) -> str | None:
+    """``name`` or ``name<template args>`` of a mangled ``*_kernel``: the
+    name is the one its decimal length prefix spans, so a namespace hash
+    ending in digits is not taken for part of it."""
     for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
         start = m.start() + len(m.group(1))
         name = mangled[start : start + int(m.group(1))]
-        args = re.match(r"I((?:Li\d+E)+)E", mangled[start + len(name) :])
-        if name.endswith("_kernel") and args:
-            values = re.findall(r"Li(\d+)E", args.group(1))
-            return f"{name}<{','.join(values)}>"
+        if not name.endswith("_kernel"):
+            continue
+        rest = mangled[start + len(name) :]
+        if not rest.startswith("I"):
+            return name
+        args = _template_args(rest[1:])
+        return None if args is None else f"{name}<{','.join(args)}>"
     return None
 
 
 def ptxas_usage(log: str) -> dict[str, tuple[int, int]]:
-    """(registers, spill-store bytes) per template kernel in nvcc's output,
-    keyed ``name<template args>``."""
+    """(registers, spill-store bytes) per kernel in nvcc's output, keyed
+    ``name`` or ``name<template args>``."""
     out, name, spills = {}, None, 0
     for line in log.splitlines():
         if "Function properties for" in line:
-            name = _template_kernel(line.split("Function properties for", 1)[1].strip())
+            name = _kernel_key(line.split("Function properties for", 1)[1].strip())
         elif m := re.search(r"(\d+) bytes spill stores", line):
             spills = int(m.group(1))
         elif name and (m := re.search(r"Used (\d+) registers", line)):

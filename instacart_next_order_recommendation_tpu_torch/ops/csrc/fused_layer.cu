@@ -18,16 +18,31 @@
 //
 // What bounds it on the H100: at serve shapes (B*S rows in the thousands)
 // the four GEMMs, 2*B*S*(4*H^2 + 2*H*I) operations, against 989 TFLOP/s of
-// bf16 tensor cores; attention adds 4*B*S^2*H. Activations are a few MB.
+// bf16 tensor cores; attention adds 4*B*S^2*H. The activations that the
+// seven launches pass through device memory (qkv, attn, the projection, x1,
+// the FFN hidden layer) come to about 1 GB written and read at the MiniLM
+// serve batch (B=256, S=192), 0.29 ms at 3.35 TB/s against the operations'
+// 0.19 ms: with this many launches, bytes are the floor.
 //
-// What the design does about it: the GEMMs run on the tensor cores (WMMA,
-// bf16 in, f32 accumulate) in 64x64 tiles; attention keeps one head's K and
-// V (S <= 256, head_dim 32: 16 KB each) in shared memory with a 64-row query
-// tile, so the [S, S] scores never reach device memory. The TPU layout
-// (block-diagonal head groups, 128-padded K/V, batch blocking for VMEM) is
-// not carried over. This is the simple first version: no TMA, no wgmma, no
-// pipelining of tile loads. The kernels live in fused_layer_common.cuh,
-// which the backward shares.
+// What the design does about it (the kernels live in fused_layer_common.cuh
+// and mma_common.cuh, which the backward shares):
+// - One GEMM core for the four products: mma.sync m16n8k16 tensor-core
+//   products fed by ldmatrix from 16-byte-padded shared tiles, 128 x 128
+//   block tiles over 8 warps, tiles arriving by cp.async into a four-stage
+//   ring, and epilogues (bias, GELU) applied to the accumulators in
+//   registers and stored as bf16 pairs, with no staging tile.
+// - Attention in one pass on tensor cores: one block per (64-query tile,
+//   head, batch row) reads q, k and v in place from the packed projection;
+//   the whole score row (S <= 256, head_dim 32) stays in the mma
+//   accumulators, the exact row max and sum follow, P is rounded to bf16 in
+//   registers and multiplied by V, so the [S, S] scores never reach shared
+//   or device memory.
+// - Residual + LayerNorm as one row kernel each (a warp per row).
+// Not wgmma with TMA: mma.sync keeps one core for the three operand forms
+// the forward and the backward need (X W, dY W^T, X^T dY); wgmma is for a
+// later change, if the measured GEMM times show the issue rate as the
+// limit. The TPU layout (block-diagonal head groups, 128-padded K/V, batch
+// blocking for VMEM) is not carried over.
 
 #include "fused_layer_common.cuh"
 
@@ -52,22 +67,22 @@ int fused_layer_forward(const void* x, const void* key_bias, const void* qkv_w,
   const int H = hidden;
   cudaError_t e;
 
-  e = launch_gemm<false, EPI_BIAS>((const bf16*)x, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
+  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)x, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
                                    nullptr, nullptr, M, 3 * H, H, stream);
   if (e != cudaSuccess) return e;
   e = launch_attention((const bf16*)qkv, (const float*)key_bias, (bf16*)attn, batch, seq, H,
                        num_heads, scale, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gemm<false, EPI_BIAS>((const bf16*)attn, (const bf16*)o_w, (const bf16*)o_b, tmp,
+  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)attn, (const bf16*)o_w, (const bf16*)o_b, tmp,
                                    nullptr, nullptr, M, H, H, stream);
   if (e != cudaSuccess) return e;
   e = launch_ln((const bf16*)x, (const bf16*)tmp, (const bf16*)m1, (const float*)ln1_s,
                 (const float*)ln1_b, (bf16*)x1, M, H, eps, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gemm<false, EPI_BIAS_GELU>((const bf16*)x1, (const bf16*)w1, (const bf16*)b1, hid,
+  e = launch_gemm<FORM_XW, EPI_BIAS_GELU>((const bf16*)x1, (const bf16*)w1, (const bf16*)b1, hid,
                                         nullptr, nullptr, M, inter, H, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gemm<false, EPI_BIAS>((const bf16*)hid, (const bf16*)w2, (const bf16*)b2, tmp,
+  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)hid, (const bf16*)w2, (const bf16*)b2, tmp,
                                    nullptr, nullptr, M, H, inter, stream);
   if (e != cudaSuccess) return e;
   return launch_ln((const bf16*)x1, (const bf16*)tmp, (const bf16*)m2, (const float*)ln2_s,

@@ -14,7 +14,8 @@
 //   LN1 backward on res1 = bf16(x + ao*m1), dy = dx1 -> dres1, ds1, db1
 //   dao = dres1 * m1; d_ob = sum(dao); dWo = attn^T bf16(dao);
 //     dattn = bf16(bf16(dao) Wo^T)
-//   attention, per head, with the deferred softmax denominator:
+//   attention, per head, with the deferred softmax denominator (P is the
+//   unnormalised exp(x - m) in f32, z its row sum):
 //     dU = dA / z, dV = bf16(P)^T bf16(dU), dP = bf16(dU) V^T,
 //     dz = -sum_d(dA * A) / z, dL = bf16(P * (dP + dz)),
 //     dQ = scale dL K, dK = scale dL^T Q             -> dqkv (bf16)
@@ -24,106 +25,40 @@
 //
 // What bounds it on the H100: the GEMMs, about 3 * 2*B*S*(4*H^2 + 2*H*I)
 // operations (forward recompute, dgrad, wgrad), plus 12*B*S^2*H in
-// attention, against 989 TFLOP/s of bf16 tensor cores; the f32 gelu' and
-// residual-gradient streams add a few hundred MB at B=512, S=256.
+// attention, against 989 TFLOP/s of bf16 tensor cores; the activations and
+// f32 gelu' and residual-gradient streams that pass between the launches
+// come to about 1.9 GB at B=64, S=256 (0.57 ms at 3.35 TB/s), more than the
+// operations' 0.2 ms.
 //
-// Design (the simple first version): the forward recompute reuses K1's
-// kernels (fused_layer_common.cuh) into scratch; row kernels do the two
-// LayerNorm backwards with the masks; one block per (head, batch row) runs
-// the attention backward with that head's K, V (S <= 256, head_dim 32), a
-// 64-row query tile of P and dL, and the dK, dV sums in shared memory; the
-// dgrad products (dY W^T) and the four weight-gradient products (X^T dY,
-// split over the B*S rows, partial tiles summed in a fixed order) are
-// hand-written WMMA GEMMs; bias and LayerNorm grads are f32 column sums in
-// a fixed order, so the result does not change from run to run. The TPU's
-// head groups, 128-padding of K/V, FFN chunking and resident probabilities
-// exist for VMEM and are not carried over.
+// Design:
+// - Every product runs on the GEMM core of fused_layer_common.cuh (mma.sync
+//   tensor cores, cp.async ring, epilogues in registers): the forward
+//   recompute as K1 does it (X W), the three dgrad products (dY W^T, with
+//   the gelu' product and its column partials, or the residual gradient,
+//   in the epilogue) and the four weight gradients (X^T dY over row splits,
+//   partial tiles summed in a fixed order by colsum_kernel).
+// - Attention backward in two kernels on tensor cores, no atomics. The dQ
+//   kernel, per 64-query tile, recomputes the scores in registers with the
+//   forward's exact max m and sum z, forms dz and dU, writes dU over dA (it
+//   is the dK/dV kernel's input; nothing else reads dA), computes dP, dL
+//   and dQ += dL K tile by tile, and leaves m, z and dz per row in an f32
+//   workspace [3, B, heads, S]. The dK/dV kernel, per 64-key tile, loops
+//   over the query tiles and computes K Q^T and V dU^T directly, so that
+//   P^T and dL^T are accumulators in the A layout, from the saved m and dz;
+//   bf16(P)^T feeds dV += P^T dU and dL^T feeds dK += dL^T Q, with Q and dU
+//   read through ldmatrix.trans. Every operand is bf16 in JAX's kernel, so
+//   each product is one mma (no hi/lo split as in K7).
+// - The LayerNorm backwards are row kernels with the masks; bias and
+//   LayerNorm grads are f32 column sums in a fixed order. Every sum runs in
+//   a fixed order, so the result is the same, bit for bit, on every run.
+// The TPU's head groups, 128-padding of K/V, FFN chunking and resident
+// probabilities exist for VMEM and are not carried over.
 
 #include "fused_layer_common.cuh"
 
 namespace {
 
 using namespace fl;
-
-// ------------------------------------------------- weight-gradient GEMM
-// part[split][K1, N] = A[m, :]^T B[m, :] summed over this split's rows m.
-// A bf16 [M, K1], B bf16 [M, N] row-major; 64x64 output tiles.
-constexpr int WBK = 32;
-constexpr int W_LD = 64 + 8;
-constexpr int W_SMEM_AB = 2 * WBK * W_LD * 2;
-constexpr int W_SMEM = GBM * C_LD * 4 > W_SMEM_AB ? GBM * C_LD * 4 : W_SMEM_AB;
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-wgrad_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, float* __restrict__ part,
-             int M, int K1, int N, int rows_per_split) {
-  __shared__ __align__(128) unsigned char smem[W_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + WBK * W_LD;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int i0 = blockIdx.y * 64;
-  const int j0 = blockIdx.x * 64;
-  const int split = blockIdx.z;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-  const int m_begin = split * rows_per_split;
-  const int m_end = min(M, m_begin + rows_per_split);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int m0 = m_begin; m0 < m_end; m0 += WBK) {
-    for (int i = tid; i < WBK * 8; i += GEMM_THREADS) {
-      const int r = i / 8;
-      const int c = (i % 8) * 8;
-      const int gm = m0 + r;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vb = make_uint4(0u, 0u, 0u, 0u);
-      if (gm < m_end) {
-        va = *reinterpret_cast<const uint4*>(A + (size_t)gm * K1 + i0 + c);
-        vb = *reinterpret_cast<const uint4*>(B + (size_t)gm * N + j0 + c);
-      }
-      *reinterpret_cast<uint4*>(As + r * W_LD + c) = va;
-      *reinterpret_cast<uint4*>(Bs + r * W_LD + c) = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < WBK; kk += 16) {
-      // A^T tile: element (i, m) sits at As[m][i], i.e. column-major.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + kk * W_LD + wm + i * 16, W_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * W_LD + wn + j * 16, W_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * C_LD + wn + j * 16, acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < 64 * 64; i += GEMM_THREADS) {
-    const int r = i / 64;
-    const int c = i % 64;
-    part[((size_t)split * K1 + i0 + r) * N + j0 + c] = Cs[r * C_LD + c];
-  }
-}
 
 // ------------------------------------------------------- column sums
 // out[chunk][c] = sum of X[r][c] over the chunk's rows, in row order within
@@ -173,25 +108,47 @@ cudaError_t reduce_columns(const T* X, int rows, int cols, float* out, float* tm
   return cudaGetLastError();
 }
 
-int wgrad_splits(int M, int K1, int N) {
-  const int tiles = (K1 / 64) * (N / 64);
-  int s = (4 * 132 + tiles - 1) / tiles;  // about four blocks per SM
-  const int max_s = (M + 255) / 256;
+// ------------------------------------------------- weight-gradient GEMM
+// The current device's SM count, read once per device (132 on an H100 SXM).
+cudaError_t device_sm_count(int* sms) {
+  static std::atomic<int> known[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int n = known[dev & 63].load(std::memory_order_relaxed);
+  if (n == 0) {
+    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    known[dev & 63].store(n, std::memory_order_relaxed);
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
+// Weight-gradient splits: about two blocks per SM over the 128 x 128
+// output tiles, at least 512 rows a split. The split count fixes the order
+// of the sums, so a card gives the same bits on every run.
+int wgrad_splits(int M, int K1, int N, int sms) {
+  const int tiles = ((K1 + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  int s = (2 * sms + tiles - 1) / tiles;
+  const int max_s = (M + 511) / 512;
   if (s > max_s) s = max_s;
   return s < 1 ? 1 : s;
 }
 
 int wgrad_rows_per_split(int M, int splits) {
   const int r = (M + splits - 1) / splits;
-  return (r + WBK - 1) / WBK * WBK;
+  return (r + GBK - 1) / GBK * GBK;
 }
 
+// out[K1, N] = A[M, K1]^T B[M, N] in f32: split partials on the GEMM core,
+// then their sum in split order.
 cudaError_t launch_wgrad(const bf16* A, const bf16* B, float* out, float* wpart, float* tmp,
-                         int M, int K1, int N, cudaStream_t stream) {
-  const int splits = wgrad_splits(M, K1, N);
-  wgrad_kernel<<<dim3(N / 64, K1 / 64, splits), GEMM_THREADS, 0, stream>>>(
-      A, B, wpart, M, K1, N, wgrad_rows_per_split(M, splits));
-  cudaError_t e = cudaGetLastError();
+                         int M, int K1, int N, int sms, cudaStream_t stream) {
+  const int splits = wgrad_splits(M, K1, N, sms);
+  cudaError_t e = launch_gemm<FORM_ATB, EPI_PARTIAL>(A, B, nullptr, wpart, nullptr, nullptr, K1,
+                                                     N, M, stream, splits,
+                                                     wgrad_rows_per_split(M, splits));
   if (e != cudaSuccess) return e;
   return reduce_columns<float>(wpart, splits, K1 * N, out, tmp, stream);
 }
@@ -287,8 +244,8 @@ cudaError_t launch_ln_bwd(const bf16* a, const bf16* r, const bf16* mask, const 
                           const float* scale, float* dres, bf16* dmasked, float* part, int M,
                           int H, float eps, cudaStream_t stream) {
   const size_t smem = (size_t)LNB_WARPS * 3 * H * 4;
-  cudaError_t e = cudaFuncSetAttribute(ln_bwd_kernel<DyT>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem_once(ln_bwd_kernel<DyT>, (size_t)LNB_WARPS * 3 * LN_MAX_H * 4, done);
   if (e != cudaSuccess) return e;
   ln_bwd_kernel<DyT><<<(M + LNB_ROWS - 1) / LNB_ROWS, LNB_WARPS * 32, smem, stream>>>(
       a, r, mask, dy, scale, dres, dmasked, part, M, H, eps);
@@ -296,222 +253,327 @@ cudaError_t launch_ln_bwd(const bf16* a, const bf16* r, const bf16* mask, const 
 }
 
 // ------------------------------------------------ attention backward
-// One block per (head, batch row), 4 warps. K, V of the head stay in shared
-// memory; query tiles of 64 rows (16 per warp) recompute the scores and
-// probabilities exactly as the forward does, then:
-//   dV += bf16(P)^T dU and dK += dL^T Q (warps split the key rows; f32 sums
-//   in shared memory), dQ = scale dL K (each warp its own query rows).
-__host__ __device__ constexpr size_t attn_bwd_smem_bytes(int S) {
-  return (size_t)2 * S * HD * 2     // K, V
-         + (size_t)2 * AQ * HD * 2  // Q tile, bf16(dU) tile
-         + (size_t)AQ * S * 4       // scores -> P (f32); later dQ staging
-         + (size_t)AQ * S * 2       // bf16(P), then dL
-         + (size_t)2 * S * HD * 4   // dK, dV sums (f32)
-         + (size_t)S * 4            // key bias
-         + (size_t)AQ * 4           // dz per query row
-         + (size_t)4 * 16 * 16 * 4; // per-warp dP tile
+// q, k, v at row stride 3H in the packed projection, A, dA and dU at row
+// stride H, head_dim 32; NT = ceil(S / 64) key (or query) tiles, all of a
+// head's tiles resident in shared memory (S <= 256: 5 KB a tile).
+constexpr int ATILE = tile_elems<HD>();
+constexpr int AROW = row_stride<HD>() * 2;  // bytes
+
+__device__ __forceinline__ View packed_view(int S, int H) {
+  return View{(long long)S * 3 * H, HD, 3LL * H};
 }
 
-// Acc[S][HD] += Xs^T Rs, Xs bf16 [AQ][S], Rs bf16 [AQ][HD]; the warp owns
-// key tiles warp, warp + 4, ...
-__device__ void accumulate_keys(const bf16* Xs, const bf16* Rs, float* Acc, int S, int warp) {
-  for (int kt = warp; kt < S / 16; kt += 4) {
-#pragma unroll
-    for (int d0 = 0; d0 < HD; d0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Acc + kt * 16 * HD + d0, HD, wmma::mem_row_major);
-#pragma unroll
-      for (int qq = 0; qq < AQ; qq += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> xa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> rb;
-        wmma::load_matrix_sync(xa, Xs + qq * S + kt * 16, S);
-        wmma::load_matrix_sync(rb, Rs + qq * HD + d0, HD);
-        wmma::mma_sync(acc, xa, rb, acc);
-      }
-      wmma::store_matrix_sync(Acc + kt * 16 * HD + d0, acc, HD, wmma::mem_row_major);
-    }
+__device__ __forceinline__ View row_view(int S, int H) {
+  return View{(long long)S * H, HD, (long long)H};
+}
+
+// Wait until at most n (0..3, known after unrolling) copy groups are pending.
+__device__ __forceinline__ void cp_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_wait<0>(); break;
+    case 1: cp_wait<1>(); break;
+    case 2: cp_wait<2>(); break;
+    default: cp_wait<3>(); break;
   }
 }
 
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
-                     const bf16* __restrict__ attn, const bf16* __restrict__ dattn,
-                     bf16* __restrict__ dqkv, int S, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + S * HD;
-  bf16* Qs = Vs + S * HD;
-  bf16* dUs = Qs + AQ * HD;
-  float* Sc = reinterpret_cast<float*>(dUs + AQ * HD);
-  bf16* Xs = reinterpret_cast<bf16*>(Sc + AQ * S);
-  float* dKa = reinterpret_cast<float*>(Xs + AQ * S);
-  float* dVa = dKa + S * HD;
-  float* Kb = dVa + S * HD;
-  float* Dz = Kb + S;
-  float* Stage = Dz + AQ;
+// bf16(p * (dp + dz)) as the A operand over columns [16 kc, 16 kc + 16),
+// dz0 for row g and dz1 for row g + 8.
+__device__ __forceinline__ void dl_operand(const float (&p)[8][4], const float (&dp)[8][4],
+                                           int kc, float dz0, float dz1, uint32_t (&a)[4]) {
+  a[0] = pack_bf16(p[2 * kc][0] * (dp[2 * kc][0] + dz0), p[2 * kc][1] * (dp[2 * kc][1] + dz0));
+  a[1] = pack_bf16(p[2 * kc][2] * (dp[2 * kc][2] + dz1), p[2 * kc][3] * (dp[2 * kc][3] + dz1));
+  a[2] = pack_bf16(p[2 * kc + 1][0] * (dp[2 * kc + 1][0] + dz0),
+                   p[2 * kc + 1][1] * (dp[2 * kc + 1][1] + dz0));
+  a[3] = pack_bf16(p[2 * kc + 1][2] * (dp[2 * kc + 1][2] + dz1),
+                   p[2 * kc + 1][3] * (dp[2 * kc + 1][3] + dz1));
+}
 
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
+// dQ of one 64-query tile; dA is replaced by dU = bf16(dA / z) in place,
+// and each row's m, z and dz go to stats ([3][B][heads][S] f32).
+template <int NT>
+__global__ void __launch_bounds__(THREADS)
+attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
+                   const bf16* __restrict__ attn, bf16* __restrict__ dattn,
+                   bf16* __restrict__ dqkv, float* __restrict__ stats, int S, int H,
+                   float scale) {
+  constexpr int LD = row_stride<HD>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dAs = Qs + ATILE;
+  bf16* As = dAs + ATILE;
+  bf16* Ks = As + ATILE;
+  bf16* Vs = Ks + NT * ATILE;
+  float* Kb = reinterpret_cast<float*>(Vs + NT * ATILE);
+  const int q0 = blockIdx.x * TQ;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int H3 = 3 * H;
-  const bf16* base = qkv + (size_t)b * S * H3;
+  const int g = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+  const View vqkv = packed_view(S, H);
+  const View vh = row_view(S, H);
 
-  for (int i = tid; i < S * (HD / 8); i += ATTN_THREADS) {
-    const int s = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    const bf16* row = base + (size_t)s * H3 + head * HD + c;
-    *reinterpret_cast<uint4*>(Ks + s * HD + c) = *reinterpret_cast<const uint4*>(row + H);
-    *reinterpret_cast<uint4*>(Vs + s * HD + c) = *reinterpret_cast<const uint4*>(row + 2 * H);
-  }
-  for (int s = tid; s < S; s += ATTN_THREADS) Kb[s] = key_bias[(size_t)b * S + s];
-  for (int i = tid; i < S * HD; i += ATTN_THREADS) {
-    dKa[i] = 0.0f;
-    dVa[i] = 0.0f;
-  }
-
-  const int r0 = warp * 16;
-  float* sc = Sc + r0 * S;
-  bf16* xw = Xs + r0 * S;
-  float* stage = Stage + warp * 256;
-
-  for (int q0 = 0; q0 < S; q0 += AQ) {
-    __syncthreads();  // the previous tile's readers of Qs, dUs, Sc, Xs are done
-    for (int i = tid; i < AQ * (HD / 8); i += ATTN_THREADS) {
-      const int r = i / (HD / 8);
-      const int c = (i % (HD / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (q0 + r < S)
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * H3 + head * HD + c);
-      *reinterpret_cast<uint4*>(Qs + r * HD + c) = v;
-    }
-    __syncthreads();
-    const bool valid = q0 + r0 < S;  // warp-uniform (S % 16 == 0)
-
-    if (valid) {
-      // Scores and probabilities, exactly as the forward computes them.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[2];
-      wmma::load_matrix_sync(qa[0], Qs + r0 * HD, HD);
-      wmma::load_matrix_sync(qa[1], Qs + r0 * HD + 16, HD);
-      for (int n0 = 0; n0 < S; n0 += 16) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.0f);
+  load_tile<HD>(Qs, qkv, vqkv, bi, hi, q0, S, tid);
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-          wmma::load_matrix_sync(kb, Ks + n0 * HD + kk * 16, HD);
-          wmma::mma_sync(acc, qa[kk], kb, acc);
-        }
-        wmma::store_matrix_sync(sc + n0, acc, S, wmma::mem_row_major);
-      }
-      __syncwarp();
-      for (int r = 0; r < 16; ++r) {
-        float* row = sc + r * S;
-        float m = -3.0e38f;
-        for (int j = lane; j < S; j += 32) {
-          const float v = __fadd_rn(__fmul_rn(row[j], scale), Kb[j]);
-          row[j] = v;
-          m = fmaxf(m, v);
-        }
-        m = warp_max(m);
-        float z = 0.0f;
-        for (int j = lane; j < S; j += 32) {
-          const float e = expf(row[j] - m);
-          row[j] = e;
-          z += e;
-          xw[r * S + j] = __float2bfloat16(e);
-        }
-        z = warp_sum(z);
-        const size_t ro = ((size_t)b * S + q0 + r0 + r) * H + head * HD + lane;
-        const float dA = __bfloat162float(dattn[ro]);
-        const float A = __bfloat162float(attn[ro]);
-        const float dz = -warp_sum(dA * A) / z;
-        dUs[(r0 + r) * HD + lane] = __float2bfloat16(dA / z);
-        if (lane == 0) Dz[r0 + r] = dz;
-      }
-    } else {
-      for (int i = lane; i < 16 * S; i += 32) xw[i] = __float2bfloat16(0.0f);
-      for (int i = lane; i < 16 * HD; i += 32) dUs[r0 * HD + i] = __float2bfloat16(0.0f);
-    }
-    __syncthreads();
-    accumulate_keys(Xs, dUs, dVa, S, warp);  // dV += bf16(P)^T bf16(dU)
-    __syncthreads();
-
-    if (valid) {
-      // dL = bf16(P * (dU V^T + dz)), one 16x16 tile of dP at a time.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ua[2];
-      wmma::load_matrix_sync(ua[0], dUs + r0 * HD, HD);
-      wmma::load_matrix_sync(ua[1], dUs + r0 * HD + 16, HD);
-      for (int n0 = 0; n0 < S; n0 += 16) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.0f);
+  for (int t = 0; t < NT; ++t) load_tile<HD>(Ks + t * ATILE, qkv + H, vqkv, bi, hi, t * TK, S, tid);
+  cp_commit();
 #pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> vb;
-          wmma::load_matrix_sync(vb, Vs + n0 * HD + kk * 16, HD);
-          wmma::mma_sync(acc, ua[kk], vb, acc);
-        }
-        wmma::store_matrix_sync(stage, acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int rr = e >> 4;
-          const int cc = e & 15;
-          const float p = sc[rr * S + n0 + cc];
-          xw[rr * S + n0 + cc] = __float2bfloat16(p * (stage[e] + Dz[r0 + rr]));
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    accumulate_keys(Xs, Qs, dKa, S, warp);  // dK += dL^T Q (scaled at the end)
-
-    if (valid) {
-      // dQ = scale * dL K for this warp's rows, 16 columns at a time.
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-      wmma::fill_fragment(acc[0], 0.0f);
-      wmma::fill_fragment(acc[1], 0.0f);
-      for (int k0 = 0; k0 < S; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> la;
-        wmma::load_matrix_sync(la, xw + k0, S);
-#pragma unroll
-        for (int d = 0; d < 2; ++d) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> kb;
-          wmma::load_matrix_sync(kb, Ks + k0 * HD + d * 16, HD);
-          wmma::mma_sync(acc[d], la, kb, acc[d]);
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < 2; ++d) {
-        wmma::store_matrix_sync(stage, acc[d], 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int rr = e >> 4;
-          const size_t o = ((size_t)b * S + q0 + r0 + rr) * H3 + head * HD + d * 16 + (e & 15);
-          dqkv[o] = __float2bfloat16(stage[e] * scale);
-        }
-        __syncwarp();
-      }
-    }
-  }
+  for (int t = 0; t < NT; ++t)
+    load_tile<HD>(Vs + t * ATILE, qkv + 2 * H, vqkv, bi, hi, t * TK, S, tid);
+  load_tile<HD>(dAs, dattn, vh, bi, hi, q0, S, tid);
+  load_tile<HD>(As, attn, vh, bi, hi, q0, S, tid);
+  cp_commit();
+  load_bias(Kb, key_bias, bi, NT, S, tid);
+  cp_wait<1>();
   __syncthreads();
-  for (int i = tid; i < S * HD; i += ATTN_THREADS) {
-    const int s = i / HD;
-    const int d = i % HD;
-    const size_t o = ((size_t)b * S + s) * H3 + head * HD + d;
-    dqkv[o + H] = __float2bfloat16(dKa[i] * scale);
-    dqkv[o + 2 * H] = __float2bfloat16(dVa[i]);
+
+  bf16* Qw = Qs + warp * 16 * LD;
+  const uint32_t qa = smem_addr(Qw) + lane_a<HD>(lane);
+  const uint32_t kbt = smem_addr(Ks) + lane_bt<HD>(lane);  // K as B^T (scores)
+  const uint32_t kb = smem_addr(Ks) + lane_a<HD>(lane);    // K as B (dQ)
+  const uint32_t vbt = smem_addr(Vs) + lane_bt<HD>(lane);  // V as B^T (dP)
+
+  // Scores, the exact max and sum, and P = exp(x - m), as the forward.
+  float x[NT][8][4];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    mma_abt<HD>(x[t], qa, kbt + t * ATILE * 2);
+    logits(x[t], Kb + t * TK, scale, lane);
+  }
+  float m0 = INIT_MAX, m1 = INIT_MAX;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float t0, t1;
+    tile_max(x[t], t0, t1);
+    m0 = fmaxf(m0, t0);
+    m1 = fmaxf(m1, t1);
+  }
+  float z0 = 0.0f, z1 = 0.0f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[t][j][0] = expf(x[t][j][0] - m0);
+      x[t][j][1] = expf(x[t][j][1] - m0);
+      x[t][j][2] = expf(x[t][j][2] - m1);
+      x[t][j][3] = expf(x[t][j][3] - m1);
+      z0 += x[t][j][0] + x[t][j][1];
+      z1 += x[t][j][2] + x[t][j][3];
+    }
+  z0 = quad_sum(z0);
+  z1 = quad_sum(z1);
+  cp_wait<0>();
+  __syncthreads();
+
+  // dz and dU from dA and A, read in the A-operand layout (rows g, g + 8;
+  // columns 16 kk + 8 hh + c2, + 1).
+  const bf16* dAw = dAs + warp * 16 * LD;
+  const bf16* Aw = As + warp * 16 * LD;
+  const int r0 = q0 + warp * 16 + g;
+  uint32_t du[2][4];
+  float s0 = 0.0f, s1 = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int d = kk * 16 + hh * 8 + c2;
+      const float2 da0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dAw + g * LD + d));
+      const float2 da1 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dAw + (g + 8) * LD + d));
+      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Aw + g * LD + d));
+      const float2 a1 =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(Aw + (g + 8) * LD + d));
+      s0 += da0.x * a0.x + da0.y * a0.y;
+      s1 += da1.x * a1.x + da1.y * a1.y;
+      du[kk][2 * hh] = pack_bf16(da0.x / z0, da0.y / z0);
+      du[kk][2 * hh + 1] = pack_bf16(da1.x / z1, da1.y / z1);
+      if (r0 < S)
+        *reinterpret_cast<uint32_t*>(dattn + vh.at(bi, hi, r0) + d) = du[kk][2 * hh];
+      if (r0 + 8 < S)
+        *reinterpret_cast<uint32_t*>(dattn + vh.at(bi, hi, r0 + 8) + d) = du[kk][2 * hh + 1];
+    }
+  const float dz0 = -quad_sum(s0) / z0;
+  const float dz1 = -quad_sum(s1) / z1;
+  if ((lane & 3) == 0) {
+    const size_t plane = (size_t)gridDim.z * gridDim.y * S;
+    const size_t row = ((size_t)bi * gridDim.y + hi) * S;
+    if (r0 < S) {
+      stats[row + r0] = m0;
+      stats[plane + row + r0] = z0;
+      stats[2 * plane + row + r0] = dz0;
+    }
+    if (r0 + 8 < S) {
+      stats[row + r0 + 8] = m1;
+      stats[plane + row + r0 + 8] = z1;
+      stats[2 * plane + row + r0 + 8] = dz1;
+    }
+  }
+
+  // Per key tile: dP = bf16(dU) V^T, dL = bf16(P (dP + dz)), dQ += dL K.
+  float dq[HD / 8][4];
+  zero<HD>(dq);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    float dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        uint32_t b[4];
+        ldsm_x4(b, vbt + t * ATILE * 2 + jj * 16 * AROW + kk * 32);
+        mma(dp[2 * jj], du[kk], b[0], b[1]);
+        mma(dp[2 * jj + 1], du[kk], b[2], b[3]);
+      }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[1][4];
+      dl_operand(x[t], dp, kc, dz0, dz1, a[0]);
+      mma_ab<HD, 1>(dq, a, kb + t * ATILE * 2, kc);
+    }
+  }
+  store_rows<HD>(dq, scale, Qw, dqkv, vqkv, bi, hi, q0 + warp * 16, S, lane);
+}
+
+// dK and dV of one 64-key tile, looping over the query tiles. A warp owns
+// 16 keys: its accumulator tiles are K Q^T and V dU^T (keys by queries).
+template <int NT>
+__global__ void __launch_bounds__(THREADS)
+attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
+                     const bf16* __restrict__ du, const float* __restrict__ stats,
+                     bf16* __restrict__ dqkv, int S, int H, float scale) {
+  constexpr int LD = row_stride<HD>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + ATILE;
+  bf16* Qs = Vs + ATILE;
+  bf16* dUs = Qs + NT * ATILE;
+  float* Ms = reinterpret_cast<float*>(dUs + NT * ATILE);  // per query: m, dz
+  float* Dzs = Ms + NT * TQ;
+  const int k0 = blockIdx.x * TK;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const View vqkv = packed_view(S, H);
+  const View vh = row_view(S, H);
+
+  load_tile<HD>(Ks, qkv + H, vqkv, bi, hi, k0, S, tid);
+  load_tile<HD>(Vs, qkv + 2 * H, vqkv, bi, hi, k0, S, tid);
+  cp_commit();
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    load_tile<HD>(Qs + t * ATILE, qkv, vqkv, bi, hi, t * TQ, S, tid);
+    load_tile<HD>(dUs + t * ATILE, du, vh, bi, hi, t * TQ, S, tid);
+    cp_commit();
+  }
+  {
+    const size_t plane = (size_t)gridDim.z * gridDim.y * S;
+    const size_t row = ((size_t)bi * gridDim.y + hi) * S;
+    for (int j = tid; j < NT * TQ; j += THREADS) {
+      const bool ok = j < S;  // queries past S: P = exp(x - 3e38) = 0
+      Ms[j] = ok ? stats[row + j] : -PAD_BIAS;
+      Dzs[j] = ok ? stats[2 * plane + row + j] : 0.0f;
+    }
+  }
+  const int kr = k0 + warp * 16 + (lane >> 2);  // this lane's keys: kr, kr + 8
+  const float b0 = kr < S ? key_bias[(size_t)bi * S + kr] : PAD_BIAS;
+  const float b1 = kr + 8 < S ? key_bias[(size_t)bi * S + kr + 8] : PAD_BIAS;
+
+  bf16* Kw = Ks + warp * 16 * LD;
+  bf16* Vw = Vs + warp * 16 * LD;
+  const uint32_t ka = smem_addr(Kw) + lane_a<HD>(lane);
+  const uint32_t va = smem_addr(Vw) + lane_a<HD>(lane);
+  const uint32_t qbt = smem_addr(Qs) + lane_bt<HD>(lane);  // Q, dU as B^T
+  const uint32_t dubt = smem_addr(dUs) + lane_bt<HD>(lane);
+  const uint32_t qb = smem_addr(Qs) + lane_a<HD>(lane);    // Q, dU as B
+  const uint32_t dub = smem_addr(dUs) + lane_a<HD>(lane);
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+  zero<HD>(dk);
+  zero<HD>(dv);
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    cp_wait_upto(NT - 1 - t);
+    __syncthreads();
+    float p[8][4], dl[8][4];
+    mma_abt<HD>(p, ka, qbt + t * ATILE * 2);    // scores, keys by queries
+    mma_abt<HD>(dl, va, dubt + t * ATILE * 2);  // dP^T
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = t * TQ + j * 8 + 2 * (lane & 3);
+      const float2 m = *reinterpret_cast<const float2*>(Ms + c);
+      const float2 dz = *reinterpret_cast<const float2*>(Dzs + c);
+      p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x);
+      p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y);
+      p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x);
+      p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y);
+      dl[j][0] = p[j][0] * (dl[j][0] + dz.x);
+      dl[j][1] = p[j][1] * (dl[j][1] + dz.y);
+      dl[j][2] = p[j][2] * (dl[j][2] + dz.x);
+      dl[j][3] = p[j][3] * (dl[j][3] + dz.y);
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[1][4];
+      a_operand(p, kc, 1.0f, 1.0f, a[0]);
+      mma_ab<HD, 1>(dv, a, dub + t * ATILE * 2, kc);  // dV += bf16(P)^T dU
+      a_operand(dl, kc, 1.0f, 1.0f, a[0]);
+      mma_ab<HD, 1>(dk, a, qb + t * ATILE * 2, kc);   // dK += dL^T Q
+    }
+  }
+  store_rows<HD>(dk, scale, Kw, dqkv + H, vqkv, bi, hi, k0 + warp * 16, S, lane);
+  store_rows<HD>(dv, 1.0f, Vw, dqkv + 2 * H, vqkv, bi, hi, k0 + warp * 16, S, lane);
+}
+
+template <int NT>
+cudaError_t launch_attention_bwd_nt(const bf16* qkv, const float* key_bias, const bf16* attn,
+                                    bf16* dattn, bf16* dqkv, float* stats, int batch, int seq,
+                                    int H, int heads, float scale, cudaStream_t stream) {
+  const size_t dq_smem = (size_t)(3 + 2 * NT) * ATILE * 2 + (size_t)NT * TK * 4;
+  const size_t dkdv_smem = (size_t)(2 + 2 * NT) * ATILE * 2 + (size_t)2 * NT * TQ * 4;
+  static std::atomic<unsigned long long> dq_done{0}, dkdv_done{0};
+  cudaError_t e = allow_smem_once(attn_bwd_dq_kernel<NT>, dq_smem, dq_done);
+  if (e != cudaSuccess) return e;
+  e = allow_smem_once(attn_bwd_dkdv_kernel<NT>, dkdv_smem, dkdv_done);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(NT, heads, batch);
+  attn_bwd_dq_kernel<NT><<<grid, THREADS, dq_smem, stream>>>(qkv, key_bias, attn, dattn, dqkv,
+                                                              stats, seq, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_dkdv_kernel<NT><<<grid, THREADS, dkdv_smem, stream>>>(qkv, key_bias, dattn, stats,
+                                                                  dqkv, seq, H, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention_bwd(const bf16* qkv, const float* key_bias, const bf16* attn,
+                                 bf16* dattn, bf16* dqkv, float* stats, int batch, int seq, int H,
+                                 int heads, float scale, cudaStream_t stream) {
+  switch ((seq + TK - 1) / TK) {
+    case 1: return launch_attention_bwd_nt<1>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 2: return launch_attention_bwd_nt<2>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 3: return launch_attention_bwd_nt<3>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 4: return launch_attention_bwd_nt<4>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 
 // --------------------------------------------------------- workspace
 struct Layout {
-  size_t qkv, attn, ao, x1, hg, f, dfc, dhpre, daoc, dattn, dqkv;  // bf16
-  size_t gp, dres, dx1, part_ln, part_b1, red_tmp, wpart, out3;    // f32
+  size_t qkv, attn, ao, x1, hg, f, dfc, dhpre, daoc, dattn, dqkv;      // bf16
+  size_t gp, dres, dx1, part_ln, part_b1, red_tmp, wpart, out3, stats;  // f32
   size_t total;
 };
 
-Layout make_layout(int batch, int seq, int H, int I) {
+Layout make_layout(int batch, int seq, int H, int I, int sms) {
   const size_t M = (size_t)batch * seq;
   size_t n = 0;
   auto take = [&n](size_t bytes) {
@@ -534,20 +596,20 @@ Layout make_layout(int batch, int seq, int H, int I) {
   L.gp = take(M * I * 4);
   L.dres = take(M * H * 4);
   L.dx1 = take(M * H * 4);
-  const size_t row_blocks = (M + 63) / 64;
-  L.part_ln = take(row_blocks * 3 * H * 4);
-  L.part_b1 = take(row_blocks * I * 4);
+  L.part_ln = take((M + LNB_ROWS - 1) / LNB_ROWS * 3 * H * 4);
+  L.part_b1 = take((size_t)gemm_row_tiles((int)M) * I * 4);
   const size_t widest = (size_t)(3 * H > I ? 3 * H : I);
   L.red_tmp = take(((M + COLSUM_CHUNK - 1) / COLSUM_CHUNK + 1) * widest * 4);
   const int Mi = (int)M;
   size_t wp = 0;
   const int shapes[4][2] = {{H, 3 * H}, {H, H}, {H, I}, {I, H}};
   for (const auto& s : shapes) {
-    const size_t need = (size_t)wgrad_splits(Mi, s[0], s[1]) * s[0] * s[1] * 4;
+    const size_t need = (size_t)wgrad_splits(Mi, s[0], s[1], sms) * s[0] * s[1] * 4;
     if (need > wp) wp = need;
   }
   L.wpart = take(wp);
   L.out3 = take((size_t)3 * H * 4);
+  L.stats = take((size_t)3 * M * (H / HD) * 4);
   L.total = n;
   return L;
 }
@@ -558,10 +620,14 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Bytes of device scratch fused_layer_backward needs at these shapes.
+// Bytes of device scratch fused_layer_backward needs at these shapes on the
+// current device.
 int fused_layer_backward_workspace(int batch, int seq, int hidden, int inter,
                                    unsigned long long* bytes) {
-  *bytes = (unsigned long long)make_layout(batch, seq, hidden, inter).total;
+  int sms = 0;
+  const cudaError_t e = device_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  *bytes = (unsigned long long)make_layout(batch, seq, hidden, inter, sms).total;
   return 0;
 }
 
@@ -585,7 +651,10 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
   const int M = batch * seq;
   const int H = hidden;
   const int I = inter;
-  const Layout L = make_layout(batch, seq, H, I);
+  int sms = 0;
+  cudaError_t e = device_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const Layout L = make_layout(batch, seq, H, I, sms);
   unsigned char* ws = reinterpret_cast<unsigned char*>(workspace);
   bf16* qkv = reinterpret_cast<bf16*>(ws + L.qkv);
   bf16* attn = reinterpret_cast<bf16*>(ws + L.attn);
@@ -606,12 +675,12 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
   float* red_tmp = reinterpret_cast<float*>(ws + L.red_tmp);
   float* wpart = reinterpret_cast<float*>(ws + L.wpart);
   float* out3 = reinterpret_cast<float*>(ws + L.out3);
+  float* stats = reinterpret_cast<float*>(ws + L.stats);
 
   const bf16* xb = (const bf16*)x;
   const bf16* mask1 = (const bf16*)m1;
   const bf16* mask2 = (const bf16*)m2;
-  const int row_blocks = (M + 63) / 64;
-  cudaError_t e;
+  const int ln_blocks = (M + LNB_ROWS - 1) / LNB_ROWS;
 #define FLB_CHECK(call)            \
   do {                             \
     e = (call);                    \
@@ -619,55 +688,51 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
   } while (0)
 
   // ---- forward recompute (K1's kernels)
-  FLB_CHECK((launch_gemm<false, EPI_BIAS>(xb, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
+  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(xb, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
                                           nullptr, nullptr, M, 3 * H, H, stream)));
   FLB_CHECK(launch_attention(qkv, (const float*)key_bias, attn, batch, seq, H, num_heads, scale,
                              stream));
-  FLB_CHECK((launch_gemm<false, EPI_BIAS>(attn, (const bf16*)o_w, (const bf16*)o_b, ao, nullptr,
+  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(attn, (const bf16*)o_w, (const bf16*)o_b, ao, nullptr,
                                           nullptr, M, H, H, stream)));
   FLB_CHECK(launch_ln(xb, ao, mask1, (const float*)ln1_s, (const float*)ln1_b, x1, M, H, eps,
                       stream));
-  FLB_CHECK((launch_gemm<false, EPI_BIAS_GELU_GRAD>(x1, (const bf16*)w1, (const bf16*)b1, hg,
+  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS_GELU_GRAD>(x1, (const bf16*)w1, (const bf16*)b1, hg,
                                                     nullptr, gp, M, I, H, stream)));
-  FLB_CHECK((launch_gemm<false, EPI_BIAS>(hg, (const bf16*)w2, (const bf16*)b2, f, nullptr,
+  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(hg, (const bf16*)w2, (const bf16*)b2, f, nullptr,
                                           nullptr, M, H, I, stream)));
 
   // ---- second LayerNorm, FFN
   FLB_CHECK(launch_ln_bwd<bf16>(x1, f, mask2, (const bf16*)g, (const float*)ln2_s, dres, dfc,
                                 part_ln, M, H, eps, stream));
-  FLB_CHECK(reduce_columns<float>(part_ln, row_blocks, 3 * H, out3, red_tmp, stream));
+  FLB_CHECK(reduce_columns<float>(part_ln, ln_blocks, 3 * H, out3, red_tmp, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln2_s, out3, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln2_b, out3 + H, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_b2, out3 + 2 * H, H * 4, cudaMemcpyDeviceToDevice, stream));
-  FLB_CHECK(launch_wgrad(hg, dfc, (float*)d_w2, wpart, red_tmp, M, I, H, stream));
-  FLB_CHECK((launch_gemm<true, EPI_MUL_AUX>(dfc, (const bf16*)w2, nullptr, dhpre, gp, part_b1, M,
+  FLB_CHECK(launch_wgrad(hg, dfc, (float*)d_w2, wpart, red_tmp, M, I, H, sms, stream));
+  FLB_CHECK((launch_gemm<FORM_XWT, EPI_MUL_AUX>(dfc, (const bf16*)w2, nullptr, dhpre, gp, part_b1, M,
                                             I, H, stream)));
-  FLB_CHECK(reduce_columns<float>(part_b1, row_blocks, I, (float*)d_b1, red_tmp, stream));
-  FLB_CHECK(launch_wgrad(x1, dhpre, (float*)d_w1, wpart, red_tmp, M, H, I, stream));
-  FLB_CHECK((launch_gemm<true, EPI_ADD_AUX_F32>(dhpre, (const bf16*)w1, nullptr, dx1, dres,
+  FLB_CHECK(reduce_columns<float>(part_b1, gemm_row_tiles(M), I, (float*)d_b1, red_tmp, stream));
+  FLB_CHECK(launch_wgrad(x1, dhpre, (float*)d_w1, wpart, red_tmp, M, H, I, sms, stream));
+  FLB_CHECK((launch_gemm<FORM_XWT, EPI_ADD_AUX_F32>(dhpre, (const bf16*)w1, nullptr, dx1, dres,
                                                 nullptr, M, H, I, stream)));
 
   // ---- first LayerNorm, output projection
   FLB_CHECK(launch_ln_bwd<float>(xb, ao, mask1, dx1, (const float*)ln1_s, dres, daoc, part_ln, M,
                                  H, eps, stream));
-  FLB_CHECK(reduce_columns<float>(part_ln, row_blocks, 3 * H, out3, red_tmp, stream));
+  FLB_CHECK(reduce_columns<float>(part_ln, ln_blocks, 3 * H, out3, red_tmp, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln1_s, out3, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln1_b, out3 + H, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_o_b, out3 + 2 * H, H * 4, cudaMemcpyDeviceToDevice, stream));
-  FLB_CHECK(launch_wgrad(attn, daoc, (float*)d_o_w, wpart, red_tmp, M, H, H, stream));
-  FLB_CHECK((launch_gemm<true, EPI_BIAS>(daoc, (const bf16*)o_w, nullptr, dattn, nullptr, nullptr,
+  FLB_CHECK(launch_wgrad(attn, daoc, (float*)d_o_w, wpart, red_tmp, M, H, H, sms, stream));
+  FLB_CHECK((launch_gemm<FORM_XWT, EPI_BIAS>(daoc, (const bf16*)o_w, nullptr, dattn, nullptr, nullptr,
                                          M, H, H, stream)));
 
   // ---- attention, QKV projection, dx
-  const size_t smem = attn_bwd_smem_bytes(seq);
-  FLB_CHECK(cudaFuncSetAttribute(attention_bwd_kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem));
-  attention_bwd_kernel<<<dim3(num_heads, batch), ATTN_THREADS, smem, stream>>>(
-      qkv, (const float*)key_bias, attn, dattn, dqkv, seq, H, scale);
-  FLB_CHECK(cudaGetLastError());
-  FLB_CHECK(launch_wgrad(xb, dqkv, (float*)d_qkv_w, wpart, red_tmp, M, H, 3 * H, stream));
+  FLB_CHECK(launch_attention_bwd(qkv, (const float*)key_bias, attn, dattn, dqkv, stats, batch,
+                                 seq, H, num_heads, scale, stream));
+  FLB_CHECK(launch_wgrad(xb, dqkv, (float*)d_qkv_w, wpart, red_tmp, M, H, 3 * H, sms, stream));
   FLB_CHECK(reduce_columns<bf16>(dqkv, M, 3 * H, (float*)d_qkv_b, red_tmp, stream));
-  FLB_CHECK((launch_gemm<true, EPI_ADD_AUX_BF16>(dqkv, (const bf16*)qkv_w, nullptr, dx, dres,
+  FLB_CHECK((launch_gemm<FORM_XWT, EPI_ADD_AUX_BF16>(dqkv, (const bf16*)qkv_w, nullptr, dx, dres,
                                                  nullptr, M, H, 3 * H, stream)));
 #undef FLB_CHECK
   return cudaSuccess;

@@ -1,6 +1,7 @@
 // Device code shared by the fused encoder layer's forward (fused_layer.cu)
-// and backward (fused_layer_bwd.cu): WMMA GEMMs with fused epilogues, the
-// per-head attention forward, residual + LayerNorm, and small reductions.
+// and backward (fused_layer_bwd.cu): one tensor-core GEMM core with fused
+// epilogues, the per-head attention forward, residual + LayerNorm, and
+// small reductions.
 //
 // Cast points follow the JAX package's ops/fused_layer.py (_kernel and
 // _bwd_kernel): bf16 operands into every product with f32 accumulation,
@@ -8,15 +9,29 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include <atomic>
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "mma_common.cuh"
 
 namespace fl {
+
+using namespace mmac;
+
+// A kernel's dynamic shared memory allowance, set once per device (`done`
+// is the launcher's own set of devices done): at small batches the host's
+// launch path is the critical one, and the call costs host time on every
+// launch otherwise.
+template <typename Kernel>
+cudaError_t allow_smem_once(Kernel kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e == cudaSuccess) done.fetch_or(bit);
+  return e;
+}
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
@@ -29,12 +44,6 @@ __device__ __forceinline__ float gelu_erf_grad(float v) {
   return cdf + v * pdf;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -45,319 +54,342 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // ---------------------------------------------------------------- GEMM
-// C[M, N] = epilogue(A[M, K] @ B), A bf16 row-major, f32 accumulation on the
-// tensor cores (WMMA 16x16x16) in 64x64 block tiles, 4 warps of 32x32.
-//   B_TRANS = false: B = W, W bf16 [K, N] row-major  (forward products)
-//   B_TRANS = true:  B = W^T, W bf16 [N, K] row-major (dgrad products dY W^T)
-constexpr int GBM = 64, GBN = 64, GBK = 32;
-constexpr int A_LD = GBK + 8;   // padded shared-memory strides (elements)
-constexpr int B_LD = GBN + 8;   // W tile [GBK][GBN]
-constexpr int BT_LD = GBK + 8;  // W tile [GBN][GBK] (B_TRANS)
-constexpr int C_LD = GBN + 4;
-constexpr int GEMM_THREADS = 128;
-constexpr int GEMM_SMEM_AB = (GBM * A_LD + (GBK * B_LD > GBN * BT_LD ? GBK * B_LD : GBN * BT_LD)) * 2;
-constexpr int GEMM_SMEM =
-    GBM * C_LD * 4 > GEMM_SMEM_AB ? GBM * C_LD * 4 : GEMM_SMEM_AB;
+// One core for every product of the layer, on mma.sync m16n8k16 (bf16 in,
+// f32 accumulation). Block tiles of 128 x 128 over 8 warps (2 x 4, each
+// 64 x 32: 16 products per 16-deep step), 32 deep; tiles arrive by cp.async
+// 16-byte copies into a ring of four stages in dynamic shared memory, so
+// the copies of the next three steps overlap each step's products. Two
+// blocks per SM are asked of ptxas (at most 128 registers a thread).
+// Rows are padded by 16 bytes (conflict-free ldmatrix). Copies past the
+// matrix edges are zero-filled; rows and columns past M and N are not
+// stored, so N need only be a multiple of 8 (the layer's are multiples of
+// 64, such as 3H = 960 at H = 320) and M anything.
+//
+// Operand forms:
+//   FORM_XW:  C[M, N] = A[M, K] W, W bf16 [K, N] row-major (forward
+//             products); W's tile [k][n] feeds B through ldmatrix.trans.
+//   FORM_XWT: C[M, N] = A[M, K] W^T, W bf16 [N, K] row-major (dgrad
+//             products dY W^T); W's tile [n][k] feeds B through ldmatrix.
+//   FORM_ATB: part[z][M, N] = A[r, M]^T B[r, N] summed over split z's rows
+//             r (weight gradients, K = the row count); A's tile [r][m]
+//             feeds the A operand through ldmatrix.trans.
+// Epilogues work on the accumulators in registers and store bf16 pairs (or
+// f32 pairs) straight to device memory.
+enum Form { FORM_XW = 0, FORM_XWT, FORM_ATB };
 
 enum Epilogue {
   EPI_BIAS = 0,       // C bf16 = acc + bias (bias may be null)
   EPI_BIAS_GELU,      // C bf16 = gelu(acc + bias)
   EPI_BIAS_GELU_GRAD, // C bf16 = gelu(acc + bias); aux_out f32 = gelu'(acc + bias)
-  EPI_MUL_AUX,        // d = acc * aux (f32); C bf16 = d; colpart[blockIdx.y][n] = sum of d
+  EPI_MUL_AUX,        // d = acc * aux (f32); C bf16 = d; aux_out[row tile][n] = sum of d
   EPI_ADD_AUX_F32,    // C f32 = acc + aux (f32)
   EPI_ADD_AUX_BF16,   // C bf16 = acc + aux (f32)
+  EPI_PARTIAL,        // C f32 = acc, at C + z * M * N (FORM_ATB)
 };
 
-template <bool B_TRANS, int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
+constexpr int GBM = 128, GBN = 128, GBK = 32, GSTAGES = 4;
+constexpr int WARP_M = 64, WARP_N = 32;
+constexpr int WARPS_M = GBM / WARP_M, WARPS_N = GBN / WARP_N;
+constexpr int GEMM_THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int MI = WARP_M / 16, NI = WARP_N / 8;
+
+template <int FORM>
+struct GemmTiles {
+  // A: [GBM][GBK + 8], or [GBK][GBM + 8] read transposed (FORM_ATB).
+  // B: [GBK][GBN + 8] read transposed, or [GBN][GBK + 8] (FORM_XWT).
+  static constexpr int LDA = FORM == FORM_ATB ? GBM + 8 : GBK + 8;
+  static constexpr int LDB = FORM == FORM_XWT ? GBK + 8 : GBN + 8;
+  static constexpr int A_ELEMS = FORM == FORM_ATB ? GBK * LDA : GBM * LDA;
+  static constexpr int B_ELEMS = FORM == FORM_XWT ? GBN * LDB : GBK * LDB;
+  static constexpr int STAGE = A_ELEMS + B_ELEMS;
+  static constexpr size_t SMEM = (size_t)GSTAGES * STAGE * 2;
+};
+
+// One stage of A and B tiles, rows [row0, row0 + GBM) of the product and
+// columns [col0, col0 + GBN), depth [k0, k0 + GBK) clipped at k_end.
+template <int FORM>
+__device__ __forceinline__ void gemm_load_stage(bf16* As, bf16* Bs, const bf16* A, const bf16* W,
+                                                int M, int N, int K, int row0, int col0, int k0,
+                                                int k_end, int tid) {
+  using T = GemmTiles<FORM>;
+#pragma unroll
+  for (int it = 0; it < GBM * GBK / 8 / GEMM_THREADS; ++it) {
+    const int i = tid + it * GEMM_THREADS;
+    if (FORM == FORM_ATB) {  // [k][m]: rows of A, GBM / 8 chunks each
+      const int r = i / (GBM / 8), c = (i % (GBM / 8)) * 8;
+      const bool ok = k0 + r < k_end && row0 + c < M;
+      cp_async16(As + r * T::LDA + c, ok ? A + (size_t)(k0 + r) * M + row0 + c : A, ok);
+    } else {  // [m][k]
+      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
+      const bool ok = row0 + r < M;
+      cp_async16(As + r * T::LDA + c, ok ? A + (size_t)(row0 + r) * K + k0 + c : A, ok);
+    }
+  }
+#pragma unroll
+  for (int it = 0; it < GBN * GBK / 8 / GEMM_THREADS; ++it) {
+    const int i = tid + it * GEMM_THREADS;
+    if (FORM == FORM_XWT) {  // [n][k]: rows of W
+      const int r = i / (GBK / 8), c = (i % (GBK / 8)) * 8;
+      const bool ok = col0 + r < N;
+      cp_async16(Bs + r * T::LDB + c, ok ? W + (size_t)(col0 + r) * K + k0 + c : W, ok);
+    } else {  // [k][n]
+      const int r = i / (GBN / 8), c = (i % (GBN / 8)) * 8;
+      const bool ok = k0 + r < k_end && col0 + c < N;
+      cp_async16(Bs + r * T::LDB + c, ok ? W + (size_t)(k0 + r) * N + col0 + c : W, ok);
+    }
+  }
+}
+
+// FORM_XW / FORM_XWT: A bf16 [M, K], W as the form says, K % GBK == 0.
+// FORM_ATB: A bf16 [K, M] and W bf16 [K, N] (the row count K split into
+// gridDim.z ranges of rows_per_split, a multiple of GBK). Block b takes
+// column tile b % n_tiles of row tile b / n_tiles, so the blocks that run
+// together share A's rows.
+template <int FORM, int EPI>
+__global__ void __launch_bounds__(GEMM_THREADS, 2)
 gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W,
             const bf16* __restrict__ bias, void* __restrict__ Cv,
-            const float* __restrict__ aux, float* __restrict__ aux_out, int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem[GEMM_SMEM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + GBM * A_LD;
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the k loop
+            const float* __restrict__ aux, float* __restrict__ aux_out, int M, int N, int K,
+            int rows_per_split) {
+  using T = GemmTiles<FORM>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ring = reinterpret_cast<bf16*>(smem);
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int row0 = blockIdx.y * GBM;
-  const int col0 = blockIdx.x * GBN;
-  const int wm = (warp >> 1) * 32;
-  const int wn = (warp & 1) * 32;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += GBK) {
-    // A tile: 64 rows x 32 cols, 16-byte chunks of 8 bf16; rows past M are 0.
-    for (int i = tid; i < GBM * (GBK / 8); i += GEMM_THREADS) {
-      const int r = i / (GBK / 8);
-      const int c = (i % (GBK / 8)) * 8;
-      const int gr = row0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gr < M) v = *reinterpret_cast<const uint4*>(A + (size_t)gr * K + k0 + c);
-      *reinterpret_cast<uint4*>(As + r * A_LD + c) = v;
-    }
-    if (B_TRANS) {
-      // W rows col0..col0+63, cols k0..k0+31: stored [n][k] (B in column-major).
-      for (int i = tid; i < GBN * (GBK / 8); i += GEMM_THREADS) {
-        const int n = i / (GBK / 8);
-        const int c = (i % (GBK / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + n * BT_LD + c) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(col0 + n) * K + k0 + c);
-      }
-    } else {
-      // W tile: 32 rows x 64 cols.
-      for (int i = tid; i < GBK * (GBN / 8); i += GEMM_THREADS) {
-        const int r = i / (GBN / 8);
-        const int c = (i % (GBN / 8)) * 8;
-        *reinterpret_cast<uint4*>(Bs + r * B_LD + c) =
-            *reinterpret_cast<const uint4*>(W + (size_t)(k0 + r) * N + col0 + c);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm + i * 16) * A_LD + kk, A_LD);
-      if (B_TRANS) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + (wn + j * 16) * BT_LD + kk, BT_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Bs + kk * B_LD + wn + j * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * C_LD + wn + j * 16, acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = tid; i < GBM * (GBN / 2); i += GEMM_THREADS) {
-    const int r = i / (GBN / 2);
-    const int c = (i % (GBN / 2)) * 2;
-    const int gr = row0 + r;
-    if (gr >= M) {
-      if (EPI == EPI_MUL_AUX) {
-        Cs[r * C_LD + c] = 0.0f;
-        Cs[r * C_LD + c + 1] = 0.0f;
-      }
-      continue;
-    }
-    const size_t off = (size_t)gr * N + col0 + c;
-    float v0 = Cs[r * C_LD + c];
-    float v1 = Cs[r * C_LD + c + 1];
-    if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_GRAD) {
-      if (bias != nullptr) {
-        v0 += __bfloat162float(bias[col0 + c]);
-        v1 += __bfloat162float(bias[col0 + c + 1]);
-      }
-    }
-    if (EPI == EPI_BIAS_GELU_GRAD) {
-      aux_out[off] = gelu_erf_grad(v0);
-      aux_out[off + 1] = gelu_erf_grad(v1);
-    }
-    if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_GRAD) {
-      v0 = gelu_erf(v0);
-      v1 = gelu_erf(v1);
-    }
-    if (EPI == EPI_MUL_AUX) {
-      v0 *= aux[off];
-      v1 *= aux[off + 1];
-      Cs[r * C_LD + c] = v0;
-      Cs[r * C_LD + c + 1] = v1;
-    }
-    if (EPI == EPI_ADD_AUX_F32 || EPI == EPI_ADD_AUX_BF16) {
-      v0 += aux[off];
-      v1 += aux[off + 1];
-    }
-    if (EPI == EPI_ADD_AUX_F32) {
-      float* C = reinterpret_cast<float*>(Cv);
-      C[off] = v0;
-      C[off + 1] = v1;
-    } else {
-      bf16* C = reinterpret_cast<bf16*>(Cv);
-      *reinterpret_cast<__nv_bfloat162*>(C + off) = __floats2bfloat162_rn(v0, v1);
-    }
-  }
-  if (EPI == EPI_MUL_AUX) {
-    // Column sums of the f32 products over this block's 64 rows, in row
-    // order: one partial row per block row, reduced by colsum_kernel.
-    __syncthreads();
-    for (int c = tid; c < GBN; c += GEMM_THREADS) {
-      float s = 0.0f;
-      for (int r = 0; r < GBM; ++r) s += Cs[r * C_LD + c];
-      aux_out[(size_t)blockIdx.y * N + col0 + c] = s;
-    }
-  }
-}
-
-template <bool B_TRANS, int EPI>
-cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias, void* C,
-                        const float* aux, float* aux_out, int M, int N, int K,
-                        cudaStream_t stream) {
-  dim3 grid(N / GBN, (M + GBM - 1) / GBM);
-  gemm_kernel<B_TRANS, EPI><<<grid, GEMM_THREADS, 0, stream>>>(A, W, bias, C, aux, aux_out, M,
-                                                               N, K);
-  return cudaGetLastError();
-}
-
-// ----------------------------------------------------------- attention
-// Forward: one block per (64-query tile, head, batch row); 4 warps of 16
-// query rows. K and V of one head (S <= 256, head_dim 32) sit in shared
-// memory; the scores never reach device memory.
-constexpr int HD = 32;
-constexpr int AQ = 64;
-constexpr int ATTN_THREADS = 128;
-
-__host__ __device__ constexpr size_t attn_smem_bytes(int S) {
-  return (size_t)2 * S * HD * 2   // K, V
-         + (size_t)AQ * HD * 2    // Q tile
-         + (size_t)AQ * S * 4     // f32 scores, 16 rows per warp
-         + (size_t)AQ * S * 2     // bf16 probabilities
-         + (size_t)S * 4          // key bias
-         + (size_t)AQ * 4;        // row sums
-}
-
-__global__ void __launch_bounds__(ATTN_THREADS)
-attention_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
-                 bf16* __restrict__ out, int S, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + S * HD;
-  bf16* Qs = Vs + S * HD;
-  float* Sc = reinterpret_cast<float*>(Qs + AQ * HD);
-  bf16* Ps = reinterpret_cast<bf16*>(Sc + AQ * S);
-  float* Kb = reinterpret_cast<float*>(Ps + AQ * S);
-  float* Zs = Kb + S;
-
-  const int q0 = blockIdx.x * AQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int H3 = 3 * H;
-  const bf16* base = qkv + (size_t)b * S * H3;
+  const int n_tiles = (N + GBN - 1) / GBN;
+  const int row_tile = blockIdx.x / n_tiles;
+  const int row0 = row_tile * GBM;
+  const int col0 = (blockIdx.x % n_tiles) * GBN;
+  const int wm = (warp / WARPS_N) * WARP_M;
+  const int wn = (warp % WARPS_N) * WARP_N;
+  const int k_begin = FORM == FORM_ATB ? blockIdx.z * rows_per_split : 0;
+  const int k_end = FORM == FORM_ATB ? min(K, k_begin + rows_per_split) : K;
+  const int steps = k_end > k_begin ? (k_end - k_begin + GBK - 1) / GBK : 0;
 
-  for (int i = tid; i < S * (HD / 8); i += ATTN_THREADS) {
-    const int s = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    const bf16* row = base + (size_t)s * H3 + head * HD + c;
-    *reinterpret_cast<uint4*>(Ks + s * HD + c) = *reinterpret_cast<const uint4*>(row + H);
-    *reinterpret_cast<uint4*>(Vs + s * HD + c) = *reinterpret_cast<const uint4*>(row + 2 * H);
-  }
-  for (int i = tid; i < AQ * (HD / 8); i += ATTN_THREADS) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < S)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * H3 + head * HD + c);
-    *reinterpret_cast<uint4*>(Qs + r * HD + c) = v;
-  }
-  for (int s = tid; s < S; s += ATTN_THREADS) Kb[s] = key_bias[(size_t)b * S + s];
-  __syncthreads();
+  // Each lane's ldmatrix offset (bytes) within a stage's A and B tiles.
+  const uint32_t a_lane =
+      FORM == FORM_ATB
+          ? ((((lane & 7) + ((lane >> 4) << 3)) * T::LDA + ((lane >> 3) & 1) * 8 + wm) * 2)
+          : (((lane & 15) + wm) * T::LDA + (lane >> 4) * 8) * 2;
+  const uint32_t b_lane =
+      FORM == FORM_XWT
+          ? ((((lane & 7) + ((lane >> 4) << 3)) + wn) * T::LDB + ((lane >> 3) & 1) * 8) * 2
+          : ((lane & 15) * T::LDB + (lane >> 4) * 8 + wn) * 2;
 
-  const int r0 = warp * 16;
-  if (q0 + r0 >= S) return;  // warp-uniform; no block barrier follows
-  float* sc = Sc + r0 * S;
-  bf16* p = Ps + r0 * S;
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[2];
-  wmma::load_matrix_sync(qa[0], Qs + r0 * HD, HD);
-  wmma::load_matrix_sync(qa[1], Qs + r0 * HD + 16, HD);
-  for (int n0 = 0; n0 < S; n0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
+  float acc[MI][NI][4];
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      // K stored [S][HD] row-major is K^T in column-major order.
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-      wmma::load_matrix_sync(kb, Ks + n0 * HD + kk * 16, HD);
-      wmma::mma_sync(acc, qa[kk], kb, acc);
-    }
-    wmma::store_matrix_sync(sc + n0, acc, S, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  for (int r = 0; r < 16; ++r) {
-    float* row = sc + r * S;
-    float m = -3.0e38f;  // below any biased score (keys carry >= -1e9)
-    for (int j = lane; j < S; j += 32) {
-      const float v = __fadd_rn(__fmul_rn(row[j], scale), Kb[j]);
-      row[j] = v;
-      m = fmaxf(m, v);
-    }
-    m = warp_max(m);
-    float z = 0.0f;
-    for (int j = lane; j < S; j += 32) {
-      const float e = expf(row[j] - m);
-      z += e;
-      p[r * S + j] = __float2bfloat16(e);
-    }
-    z = warp_sum(z);
-    if (lane == 0) Zs[r0 + r] = z;
-  }
-  __syncwarp();
-
-  // PV into the (now free) score rows, [16][HD] f32 at stride HD.
+  for (int i = 0; i < MI; ++i)
 #pragma unroll
-  for (int d0 = 0; d0 < HD; d0 += 16) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int k0 = 0; k0 < S; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-      wmma::load_matrix_sync(pa, p + k0, S);
-      wmma::load_matrix_sync(vb, Vs + k0 * HD + d0, HD);
-      wmma::mma_sync(acc, pa, vb, acc);
-    }
-    wmma::store_matrix_sync(sc + d0, acc, HD, wmma::mem_row_major);
-  }
-  __syncwarp();
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
 
-  for (int i = lane; i < 16 * HD; i += 32) {
-    const int r = i / HD;
-    const int d = i % HD;
-    const int q = q0 + r0 + r;
-    if (q < S)
-      out[((size_t)b * S + q) * H + head * HD + d] = __float2bfloat16(sc[r * HD + d] / Zs[r0 + r]);
+#pragma unroll
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (s < steps) {
+      bf16* As = ring + s * T::STAGE;
+      gemm_load_stage<FORM>(As, As + T::A_ELEMS, A, W, M, N, K, row0, col0,
+                            k_begin + s * GBK, k_end, tid);
+    }
+    cp_commit();
+  }
+  for (int kt = 0; kt < steps; ++kt) {
+    cp_wait<GSTAGES - 2>();
+    __syncthreads();  // step kt has landed; every warp is done with step kt - 1
+    {
+      const int next = kt + GSTAGES - 1;
+      if (next < steps) {
+        bf16* As = ring + (next % GSTAGES) * T::STAGE;
+        gemm_load_stage<FORM>(As, As + T::A_ELEMS, A, W, M, N, K, row0, col0,
+                              k_begin + next * GBK, k_end, tid);
+      }
+      cp_commit();
+    }
+    const uint32_t a_base = smem_addr(ring + (kt % GSTAGES) * T::STAGE) + a_lane;
+    const uint32_t b_base = smem_addr(ring + (kt % GSTAGES) * T::STAGE + T::A_ELEMS) + b_lane;
+#pragma unroll
+    for (int kk = 0; kk < GBK / 16; ++kk) {
+      uint32_t af[MI][4];
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        if (FORM == FORM_ATB)
+          ldsm_x4_trans(af[i], a_base + (kk * 16 * T::LDA + i * 16) * 2);
+        else
+          ldsm_x4(af[i], a_base + (i * 16 * T::LDA + kk * 16) * 2);
+      }
+#pragma unroll
+      for (int jj = 0; jj < NI / 2; ++jj) {
+        uint32_t b[4];
+        if (FORM == FORM_XWT)
+          ldsm_x4(b, b_base + (jj * 16 * T::LDB + kk * 16) * 2);
+        else
+          ldsm_x4_trans(b, b_base + (kk * 16 * T::LDB + jj * 16) * 2);
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma(acc[i][2 * jj], af[i], b[0], b[1]);
+          mma(acc[i][2 * jj + 1], af[i], b[2], b[3]);
+        }
+      }
+    }
+  }
+
+  // Epilogue, from the registers: lane (g, t) holds rows g and g + 8 of
+  // each 16-row tile, columns 2 t and 2 t + 1 of each 8-column tile.
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  float colsum[NI][2];
+#pragma unroll
+  for (int j = 0; j < NI; ++j) {
+    colsum[j][0] = 0.0f;
+    colsum[j][1] = 0.0f;
+    const int col = col0 + wn + j * 8 + 2 * t;
+    if (col >= N) continue;  // N % 8 == 0: the whole pair is past the edge
+    float b0 = 0.0f, b1 = 0.0f;
+    if ((EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_GRAD) &&
+        bias != nullptr) {
+      const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+      b0 = bb.x;
+      b1 = bb.y;
+    }
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wm + i * 16 + g + 8 * h;
+        if (row >= M) continue;
+        float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
+        if (EPI == EPI_PARTIAL) {
+          float* C = reinterpret_cast<float*>(Cv) + (size_t)blockIdx.z * M * N;
+          *reinterpret_cast<float2*>(C + (size_t)row * N + col) = make_float2(v0, v1);
+          continue;
+        }
+        const size_t off = (size_t)row * N + col;
+        if (EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_GRAD) {
+          v0 += b0;
+          v1 += b1;
+        }
+        if (EPI == EPI_BIAS_GELU_GRAD)
+          *reinterpret_cast<float2*>(aux_out + off) =
+              make_float2(gelu_erf_grad(v0), gelu_erf_grad(v1));
+        if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_GRAD) {
+          v0 = gelu_erf(v0);
+          v1 = gelu_erf(v1);
+        }
+        if (EPI == EPI_MUL_AUX) {
+          const float2 a = *reinterpret_cast<const float2*>(aux + off);
+          v0 *= a.x;
+          v1 *= a.y;
+          colsum[j][0] += v0;
+          colsum[j][1] += v1;
+        }
+        if (EPI == EPI_ADD_AUX_F32 || EPI == EPI_ADD_AUX_BF16) {
+          const float2 a = *reinterpret_cast<const float2*>(aux + off);
+          v0 += a.x;
+          v1 += a.y;
+        }
+        if (EPI == EPI_ADD_AUX_F32)
+          *reinterpret_cast<float2*>(reinterpret_cast<float*>(Cv) + off) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(reinterpret_cast<bf16*>(Cv) + off) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+  }
+  if (EPI == EPI_MUL_AUX) {
+    // Column sums of the f32 products over this row tile, in a fixed
+    // order: each lane's rows, then the 8 lanes of a column (g), then the
+    // two warps of a column; one partial row per row tile, reduced by
+    // colsum_kernel.
+#pragma unroll
+    for (int j = 0; j < NI; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = colsum[j][e];
+        v += __shfl_xor_sync(FULL, v, 4);
+        v += __shfl_xor_sync(FULL, v, 8);
+        v += __shfl_xor_sync(FULL, v, 16);
+        colsum[j][e] = v;
+      }
+    cp_wait<0>();
+    __syncthreads();  // the ring is free
+    float* red = reinterpret_cast<float*>(smem);  // [WARPS_M][GBN]
+    if (g == 0) {
+#pragma unroll
+      for (int j = 0; j < NI; ++j) {
+        red[(warp / WARPS_N) * GBN + wn + j * 8 + 2 * t] = colsum[j][0];
+        red[(warp / WARPS_N) * GBN + wn + j * 8 + 2 * t + 1] = colsum[j][1];
+      }
+    }
+    __syncthreads();
+    for (int c = tid; c < GBN; c += GEMM_THREADS) {
+      if (col0 + c >= N) break;
+      float v = 0.0f;
+#pragma unroll
+      for (int w = 0; w < WARPS_M; ++w) v += red[w * GBN + c];
+      aux_out[(size_t)row_tile * N + col0 + c] = v;
+    }
   }
 }
 
-inline cudaError_t launch_attention(const bf16* qkv, const float* key_bias, bf16* out, int batch,
-                                    int seq, int H, int num_heads, float scale,
-                                    cudaStream_t stream) {
-  const size_t smem = attn_smem_bytes(seq);
-  cudaError_t e = cudaFuncSetAttribute(attention_kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// The launchers are static: their flags for allow_smem_once stay each
+// library's own (a static local of a function with external linkage would
+// be one object across every library the process loads, and the second
+// library's kernels would launch without their allowance).
+template <int FORM, int EPI>
+static cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias, void* C,
+                               const float* aux, float* aux_out, int M, int N, int K,
+                               cudaStream_t stream, int splits = 1, int rows_per_split = 0) {
+  constexpr size_t smem = GemmTiles<FORM>::SMEM;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem_once(gemm_kernel<FORM, EPI>, smem, done);
   if (e != cudaSuccess) return e;
-  dim3 grid((seq + AQ - 1) / AQ, num_heads, batch);
-  attention_kernel<<<grid, ATTN_THREADS, smem, stream>>>(qkv, key_bias, out, seq, H, scale);
+  const int tiles = ((M + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  gemm_kernel<FORM, EPI><<<dim3(tiles, 1, splits), GEMM_THREADS, smem, stream>>>(
+      A, W, bias, C, aux, aux_out, M, N, K, rows_per_split);
   return cudaGetLastError();
+}
+
+// Row tiles of a GEMM over M rows (the column-partial rows of EPI_MUL_AUX).
+__host__ __device__ constexpr int gemm_row_tiles(int M) { return (M + GBM - 1) / GBM; }
+
+// ----------------------------------------------------------- attention
+// Forward: the one-pass kernel of mma_common.cuh with the JAX _kernel's
+// cast point (P = exp(x - m) rounded to bf16 unnormalised, 1/z applied to
+// the f32 P V product), reading q, k and v in place from the packed
+// [B * S, 3 H] projection and writing [B * S, H]. One block per (64-query
+// tile, head, batch row), 4 warps of 16 query rows; every score row stays
+// in the mma accumulators (head_dim 32, S <= 256: at most 128 f32 per
+// thread), K and V stream through a two-stage cp.async ring of 64-key
+// tiles, and no score touches shared memory.
+constexpr int HD = 32;
+
+template <int NT>
+static cudaError_t launch_attention_nt(const bf16* qkv, const float* key_bias, bf16* out,
+                                       int batch, int seq, int H, int num_heads, float scale,
+                                       cudaStream_t stream) {
+  const size_t smem = (size_t)3 * tile_elems<HD>() * 2 + (size_t)NT * TK * 4;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem_once(attn_fwd_one_pass_kernel<HD, NT, DIVIDE_AFTER_PV>, smem, done);
+  if (e != cudaSuccess) return e;
+  const View vqkv{(long long)seq * 3 * H, HD, 3LL * H};
+  const View vo{(long long)seq * H, HD, (long long)H};
+  dim3 grid((seq + TQ - 1) / TQ, num_heads, batch);
+  attn_fwd_one_pass_kernel<HD, NT, DIVIDE_AFTER_PV><<<grid, THREADS, smem, stream>>>(
+      qkv, qkv + H, qkv + 2 * H, key_bias, out, vqkv, vqkv, vqkv, vo, seq, scale);
+  return cudaGetLastError();
+}
+
+static inline cudaError_t launch_attention(const bf16* qkv, const float* key_bias, bf16* out,
+                                           int batch, int seq, int H, int num_heads, float scale,
+                                           cudaStream_t stream) {
+  switch ((seq + TK - 1) / TK) {
+    case 1: return launch_attention_nt<1>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 2: return launch_attention_nt<2>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 3: return launch_attention_nt<3>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 4: return launch_attention_nt<4>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------ residual + LayerNorm
@@ -366,6 +398,7 @@ inline cudaError_t launch_attention(const bf16* qkv, const float* key_bias, bf16
 // H <= 1024.
 constexpr int LN_ROWS = 4;
 constexpr int LN_MAX_PER_LANE = 32;
+constexpr int LN_MAX_H = 32 * LN_MAX_PER_LANE;
 
 __device__ __forceinline__ float residual_in(const bf16* x, const bf16* r, const bf16* mask,
                                              size_t idx) {

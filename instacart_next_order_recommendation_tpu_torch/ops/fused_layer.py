@@ -324,7 +324,8 @@ def fused_encoder_layer_backward(
     inter = weights["w1"].shape[1]
     lib = _build.load("fused_layer_bwd", _BWD_SIGNATURES)
     n_bytes = ctypes.c_ulonglong(0)
-    lib.fused_layer_backward_workspace(b, s, h, inter, ctypes.byref(n_bytes))
+    err = lib.fused_layer_backward_workspace(b, s, h, inter, ctypes.byref(n_bytes))
+    _build.check(lib, err, "fused_layer_backward_workspace")
     workspace = torch.empty(n_bytes.value, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
     grads = {n: torch.empty(weights[n].shape, dtype=torch.float32, device=x.device)

@@ -49,19 +49,19 @@ def dev():
     return torch.device("cuda")
 
 
-def _layer(dev, seed=0):
+def _layer(dev, seed=0, h=H, inter=INTER):
     g = torch.Generator().manual_seed(seed)
     raw = {
         name: 0.05 * torch.randn(shape, generator=g)
         for name, shape in {
-            "q_w": (H, H), "k_w": (H, H), "v_w": (H, H), "o_w": (H, H),
-            "q_b": (H,), "k_b": (H,), "v_b": (H,), "o_b": (H,),
-            "attn_ln_bias": (H,), "ffn_ln_bias": (H,),
-            "ffn_w1": (H, INTER), "ffn_b1": (INTER,), "ffn_w2": (INTER, H), "ffn_b2": (H,),
+            "q_w": (h, h), "k_w": (h, h), "v_w": (h, h), "o_w": (h, h),
+            "q_b": (h,), "k_b": (h,), "v_b": (h,), "o_b": (h,),
+            "attn_ln_bias": (h,), "ffn_ln_bias": (h,),
+            "ffn_w1": (h, inter), "ffn_b1": (inter,), "ffn_w2": (inter, h), "ffn_b2": (h,),
         }.items()
     }
-    raw["attn_ln_scale"] = 1 + 0.1 * torch.randn(H, generator=g)
-    raw["ffn_ln_scale"] = 1 + 0.1 * torch.randn(H, generator=g)
+    raw["attn_ln_scale"] = 1 + 0.1 * torch.randn(h, generator=g)
+    raw["ffn_ln_scale"] = 1 + 0.1 * torch.randn(h, generator=g)
     return prepare_layer({k: v.to(dev) for k, v in raw.items()}, torch.bfloat16)
 
 
@@ -171,9 +171,9 @@ def test_topk_dense_route_above_block(dev):
     assert cosine_topk.launches == launches + 1
 
 
-def _dropout(batch, seq, dev, seed=5):
+def _dropout(batch, seq, dev, seed=5, h=H):
     g = torch.Generator(device=dev).manual_seed(seed)
-    return draw_dropout_masks((batch, seq, H), 0.1, g, dev, torch.bfloat16)
+    return draw_dropout_masks((batch, seq, h), 0.1, g, dev, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -224,6 +224,77 @@ def test_backward_matches_plain(dev, batch, seq, dropout):
         assert torch.isfinite(a.float()).all(), name
         rel = (a.float() - b.float()).abs().max() / b.float().abs().max()
         assert rel.item() <= GRAD_REL_TOL, (name, rel.item())
+
+
+# Shapes where the tensor-core tiles of K1 and K5 meet their edges: hidden
+# 320 (10 heads; the products' N = 960 and 320 are not multiples of the
+# 128-column tile), hidden 1024 (32 heads), an intermediate size of 64 x 23,
+# S from one to four 64-key tiles with ragged last tiles (48, 240), and
+# B * S rows that are not a multiple of the 128-row tile (144, 240, 720).
+# Every batch holds an all-pad row.
+FRAGILE = [
+    (320, 1280, 3, 48), (320, 1472, 3, 240), (1024, 4096, 2, 16), (1024, 1472, 3, 256),
+    (384, 1472, 5, 48), (384, 1536, 3, 240),
+]
+
+
+def _fragile_case(dev, hidden, inter, batch, seq, seed):
+    layer = _layer(dev, seed, h=hidden, inter=inter)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((batch, seq, hidden), generator=g).to(dev, torch.bfloat16)
+    kw = dict(num_heads=hidden // 32, scale=1 / 32**0.5, eps=1e-12)
+    return layer, x, _mask(batch, seq, dev), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,inter,batch,seq", FRAGILE)
+def test_fused_layer_forms_match_plain_at_tile_edges(dev, hidden, inter, batch, seq):
+    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 20)
+    masks = _dropout(batch, seq, dev, h=hidden)
+    y = fused_encoder_layer(x, mask, layer, **kw)
+    y_ref = fused_encoder_layer_reference(x, mask, layer, **kw)
+    yt = fused_encoder_layer_train(x, mask, layer, masks=masks, dropout_rate=0.1, **kw)
+    yt_ref = fused_encoder_layer_train_reference(x, mask, layer, masks=masks, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in (("K1", y, y_ref), ("K1-train", yt, yt_ref)):
+        assert torch.isfinite(a.float()).all(), name
+        # Two bf16 ulps at |y| < 8, as at the MiniLM width.
+        assert (a.float() - b.float()).abs().max().item() <= 0.0625, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden,inter,batch,seq", FRAGILE)
+def test_backward_matches_plain_at_tile_edges(dev, hidden, inter, batch, seq):
+    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 21)
+    up = torch.randn(x.shape, generator=torch.Generator().manual_seed(22)).to(dev, torch.bfloat16)
+    bias = ((1.0 - mask.float()) * -1e9).contiguous()
+    masks = _dropout(batch, seq, dev, h=hidden)
+    dx, dw = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
+    dx_ref, dw_ref = fused_encoder_layer_backward_reference(x, bias, up, masks, layer, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in [("dx", dx, dx_ref)] + [(n, dw[n], dw_ref[n]) for n in WEIGHT_NAMES]:
+        assert torch.isfinite(a.float()).all(), name
+        rel = (a.float() - b.float()).abs().max() / b.float().abs().max()
+        assert rel.item() <= GRAD_REL_TOL, (name, rel.item())
+
+
+@pytest.mark.cuda
+def test_backward_is_deterministic(dev):
+    # Every sum in a fixed order and no atomics: the same inputs give the
+    # same bits in dx and in all twelve weight gradients, at the MiniLM
+    # training shape.
+    layer = _layer(dev)
+    g = torch.Generator().manual_seed(23)
+    x, up = (torch.randn((64, 256, H), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    mask = _mask(64, 256, dev)
+    bias = ((1.0 - mask.float()) * -1e9).contiguous()
+    masks = _dropout(64, 256, dev)
+    first = fused_encoder_layer_backward(x, bias, up, masks, layer, **KW)
+    second = fused_encoder_layer_backward(x, bias, up, masks, layer, **KW)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int16), second[0].view(torch.int16))
+    for name in WEIGHT_NAMES:
+        assert torch.equal(first[1][name].view(torch.int32), second[1][name].view(torch.int32)), name
 
 
 @pytest.mark.cuda
