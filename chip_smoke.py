@@ -8,18 +8,23 @@ Run from the repository root, with no arguments:
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
    fails if ptxas spills in an attention kernel at head_dim 32 or 64 or in
-   any kernel of the fused layer (K1, K5).
+   any kernel of the fused layer (K1, K5), or if a head_dim 32 or 64
+   instance of the fused layer's attention kernels is missing.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
    training form of the fused layer (K1 with dropout masks) and the fused
    backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}, K1 and
    K5 as medians of five readings in turns with their
-   ``nn.TransformerEncoderLayer`` yardsticks, and one K1-train and one K5
-   call at B=64 S=256 broken down launch by launch (``torch.profiler``);
-   the
-   attention forward and backward (K6, K7) at the shapes the unfused layer
-   gives them; K4 against K3 over a 1M-row catalog.
+   ``nn.TransformerEncoderLayer`` yardsticks, and K1-train, K5 and K5's
+   yardstick at S=256 broken down launch by launch (``torch.profiler``);
+   the same three fused-layer kernels (and K2) at head_dim 64
+   (mpnet-base-class widths) at B in {1, 64, 256} and S in {32, 64, 128,
+   192, 256}, read in turns with their yardsticks at the serve shape
+   (256, 192) and the train shape (64, 256); each K1 reading with the
+   largest |y| and the worst error in bf16 ulps; the attention forward and
+   backward (K6, K7) at the shapes the unfused layer gives them; K4 against
+   K3 over a 1M-row catalog.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
    seeded generator): a WordPiece vocab trained on a 50,000-product catalog,
    ``Recommender`` encoding the catalog through the kernels, a few
@@ -30,8 +35,9 @@ Run from the repository root, with no arguments:
    batch's top-16 ids are held against the plain versions on the card; one
    K1 call at the batch's shape is broken down launch by launch.
    Then the same serve path for the mpnet-base-class tower at full width
-   (every layer unfused: K6, no K1), MiniLM-L6 at two shapes its fused
-   kernels do not take (S=512 and S=200, through K6), and
+   (head_dim 64 through the fused layer: 12 K1 per forward, no K6),
+   MiniLM-L6 and mpnet-base-class at two lengths their fused kernels do not
+   take (S=512 and S=200, through K6), and
    ``Recommender(topk_extraction="packed")`` (K4) against the exact one.
 4. MNRL training of MiniLM-L6 at full width through
    ``TwoTowerTrainer.train(data=...)``: synthetic (user context, product)
@@ -48,10 +54,15 @@ Run from the repository root, with no arguments:
    goes at B=64 and B=512: host-clock step time, and the device time per
    kernel from ``torch.profiler`` over a few steps.
 5. The same training for the mpnet-base-class tower (``model_name:
-   mpnet-base``) for one epoch: 24 K6 and 24 K7 launches per step, the
-   3-step check with planted K7 faults, B=256 steps with the remat that
-   ``_resolve_remat`` chooses beside the same steps without it, and the
-   profiler's breakdown of a B=64 step, with K6's and K7's share of it.
+   mpnet-base``) for one epoch through the fused layer: 24 K1-train and 24
+   K5 launches per step, 12 K1 per eval forward, no K6 or K7; the 3-step
+   check with planted K5 faults; the same check at S=200, which the fused
+   kernels do not take, with planted K7 faults (24 K6 and 24 K7 launches a
+   step); B=256 steps with the remat that ``_resolve_remat`` chooses, with
+   their peak device memory and launch counts, at S=256 (off: the fused
+   backward keeps only the layer inputs) and at S=200 (on: the unfused
+   layers under ``torch.utils.checkpoint``, K6 run again in the backward);
+   and the profiler's breakdown of a B=64 step.
 6. One JSON line describing each kernel, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import re
 import subprocess
@@ -138,7 +150,13 @@ NAME_UNITS = [
     "Variety Pack of 8", "32 oz Tub", "10 ct Box", "750 ml",
 ]
 
-K1_TOL = 0.0625  # two bf16 ulps at |y| < 8: another summation order flips roundings
+# K1 (both forms), absolute: two bf16 ulps at |y| in [4, 8), where the
+# largest outputs lie. Another summation order moves the sums before each
+# LayerNorm, so an element's error is a few ulps of the row's scale, not
+# of its own |y|: a small |y| may read several of its own ulps. Every K1
+# reading logs the largest |y| and, at the worst element, |y| and the error
+# in ulps of it (``k1_error``); PERF.md records them.
+K1_TOL = 0.0625
 K2_TOL = 1e-5    # f32 sums in another order, unit-norm output
 K3_TOL = 0.0     # grid-valued inputs: every dot product is exact in f32
 # K5, relative to each gradient's largest magnitude: bf16 operands round at
@@ -155,6 +173,20 @@ FUSED_LAYER_KERNELS = {
         "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "ln_bwd_kernel", "colsum_kernel",
     ),
 }
+# The attention instances of each fused-layer library: head_dim 32 and 64,
+# one to four 64-key tiles (S <= 256).
+_FWD = [f"attn_fwd_one_pass_kernel<{d},{n},0>" for d in (32, 64) for n in range(1, 5)]
+FUSED_LAYER_ATTENTION = {
+    "fused_layer": _FWD,
+    "fused_layer_bwd": _FWD + [
+        f"{k}<{d},{n}>" for k in ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+        for d in (32, 64) for n in range(1, 5)
+    ],
+}
+# (hidden, heads, intermediate) of MiniLM-L6 (12 heads of 32) and of
+# mpnet-base-class (12 heads of 64).
+MINILM_WIDTHS = (384, 12, 1536)
+MPNET_WIDTHS = (768, 12, 3072)
 # Three training steps, kernels against plain versions at dropout 0 and a
 # constant lr (five times the B=64 recipe's peak, so that each update moves
 # the next loss further than bf16 does): the losses, relative, and the first
@@ -188,6 +220,9 @@ MPNET_EPOCHS = 1
 # two between, beside a torch.nn tower that shares no code with the port's.
 MPNET_LR = 3e-5
 REMAT_BATCH = 256
+# The length of the mpnet training batches that hold K6 and K7 through
+# TrainStep: one the fused kernels refuse (S % 16 != 0).
+ATTENTION_TRAIN_SEQ = 200
 
 
 def log(msg: str) -> None:
@@ -390,8 +425,60 @@ def library_train_calls(library, x, pad, up):
     )
 
 
+def measure_k1(x, m, layer, kw, iters: int = 20):
+    """K1 at x's shape against its plain version, timed in turns with one
+    nn.TransformerEncoderLayer forward (eval) at the same widths (medians of
+    five). Returns the kernels-line row, without launches, and K1's output."""
+    from instacart_next_order_recommendation_tpu_torch.ops import fused_encoder_layer
+    from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+        fused_encoder_layer_reference,
+    )
+
+    b, s, h = x.shape
+    inter = layer["w1"].shape[1]
+    y = fused_encoder_layer(x, m, layer, **kw)
+    err = k1_error(y, fused_encoder_layer_reference(x, m, layer, **kw))
+    library = torch.nn.TransformerEncoderLayer(
+        d_model=h, nhead=kw["num_heads"], dim_feedforward=inter, dropout=0.0,
+        activation="gelu", batch_first=True, norm_first=False,
+    ).to(x.device, torch.bfloat16).eval()
+    pad = m == 0
+    t = ms_in_turns({
+        "k1": lambda: fused_encoder_layer(x, m, layer, **kw),
+        "lib": lambda: library(x, src_key_padding_mask=pad),
+    }, iters)
+    bnd, by = k1_bound(b, s, h, inter)
+    row = dict(
+        ms=t["k1"],
+        plain_ms=cuda_ms(lambda: fused_encoder_layer_reference(x, m, layer, **kw), 3),
+        library_ms=t["lib"], bound_ms=bnd, bound_by=by, **err,
+    )
+    return row, y
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30)).item()
+
+
+def bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |a|: 2^(e - 7) for |a| in [2^e, 2^(e+1))."""
+    return torch.exp2(torch.floor(torch.log2(a.float().abs().clamp_min(2.0**-126))) - 7)
+
+
+def k1_error(y: torch.Tensor, y_ref: torch.Tensor) -> dict:
+    """K1's output (either form) against its plain version's: the largest
+    absolute error, which K1_TOL holds; the largest |y_ref|; and at the
+    element with the largest error, |y_ref| and the error in bf16 ulps of
+    |y_ref|."""
+    err = (y.float() - y_ref.float()).abs().flatten()
+    ref = y_ref.float().abs().flatten()
+    i = int(err.argmax())
+    return {
+        "max_abs_err": err[i].item(),
+        "max_abs_ref": ref.max().item(),
+        "worst_abs_ref": ref[i].item(),
+        "worst_ulps": (err[i] / bf16_ulp(ref[i])).item(),
+    }
 
 
 def attention_bound(b: int, h: int, s: int, d: int, backward: bool) -> tuple[float, str]:
@@ -632,11 +719,12 @@ def packed_ties_ok(queries, catalog, i_packed, i_exact) -> bool:
 
 def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_iters):
     """K1's mask form and K5 at x's shape against their plain versions (the
-    plain backward is autograd of the plain forward), timed with CUDA
-    events in turns with one nn.TransformerEncoderLayer forward and backward
-    (medians of five readings). Returns the two kernels-line rows (without
-    launches), the gradient with the largest relative error, and whether
-    every output is finite."""
+    plain backward is autograd of the plain forward), with their bounds;
+    unless ``library`` is None, timed with CUDA events in turns with one
+    ``library`` (nn.TransformerEncoderLayer) forward and backward (medians of
+    five readings). Returns the two kernels-line rows (without launches),
+    the gradient with the largest relative error, and whether every output
+    is finite."""
     from instacart_next_order_recommendation_tpu_torch.ops import (
         fused_encoder_layer_backward,
         fused_encoder_layer_train,
@@ -664,25 +752,28 @@ def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_i
         return fused_encoder_layer_backward_reference(x, bias, up, masks, layer, **kw)
 
     y = k1()
-    e1 = (y.float() - plain1().float()).abs().max().item()
     (dx, dw), (dx_r, dw_r) = k5(), plain5()
     pairs = {"dx": (dx, dx_r), **{n: (dw[n], dw_r[n]) for n in WEIGHT_NAMES}}
     rel = {n: rel_err(a, r) for n, (a, r) in pairs.items()}
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, *dw.values()))
-    lib_fwd, lib_bwd = library_train_calls(library, x, mask == 0, up)
-    ms = ms_in_turns({"k1": k1, "lib_fwd": lib_fwd, "k5": k5, "lib_bwd": lib_bwd}, iters)
     bound1, by1 = k1_bound(b, s, h, inter, masks is not None)
     bound5, by5 = k5_bound(b, s, h, inter, masks is not None)
-    k1_row = dict(
-        ms=ms["k1"], plain_ms=cuda_ms(plain1, plain_iters, 1), library_ms=ms["lib_fwd"],
-        max_abs_err=e1, bound_ms=bound1, bound_by=by1,
-    )
+    k1_row = dict(bound_ms=bound1, bound_by=by1, **k1_error(y, plain1()))
     k5_row = dict(
-        ms=ms["k5"], plain_ms=cuda_ms(plain5, plain_iters, 1), library_ms=ms["lib_bwd"],
         max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in pairs.values()),
         max_rel_err=rel[worst], bound_ms=bound5, bound_by=by5,
     )
+    del y, dx, dw, dx_r, dw_r, pairs
+    if library is not None:
+        lib_fwd, lib_bwd = library_train_calls(library, x, mask == 0, up)
+        ms = ms_in_turns({"k1": k1, "lib_fwd": lib_fwd, "k5": k5, "lib_bwd": lib_bwd}, iters)
+        k1_row.update(
+            ms=ms["k1"], plain_ms=cuda_ms(plain1, plain_iters, 1), library_ms=ms["lib_fwd"]
+        )
+        k5_row.update(
+            ms=ms["k5"], plain_ms=cuda_ms(plain5, plain_iters, 1), library_ms=ms["lib_bwd"]
+        )
     return k1_row, k5_row, worst, finite
 
 
@@ -797,9 +888,13 @@ class Smoke:
 
     # ------------------------------------------------------------ phase 2
 
-    def compare_kernels(self, dev) -> None:
+    def compare_forward_kernels(self, dev, widths, batches, seqs, g, timed=None) -> None:
+        """K1, and K2 on its output, against their plain versions at
+        ``widths`` (hidden, heads, intermediate) over ``batches`` x ``seqs``,
+        every batch above 1 with an all-pad row; K1 read in turns with one
+        nn.TransformerEncoderLayer forward (eval) at the shapes in ``timed``
+        (every shape when None). Inputs and weights are drawn from ``g``."""
         from instacart_next_order_recommendation_tpu_torch.ops import (
-            cosine_topk,
             fused_encoder_layer,
             masked_mean_pool_l2norm,
         )
@@ -809,42 +904,27 @@ class Smoke:
         from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
             masked_mean_pool_l2norm_reference,
         )
-        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
-            cosine_topk_packed_reference,
-            cosine_topk_reference,
-        )
 
-        h, inter, heads = 384, 1536, 12
-        kw = dict(num_heads=heads, scale=1.0 / 32**0.5, eps=1e-12)
-        g = torch.Generator().manual_seed(1)
+        h, heads, inter = widths
+        kw = dict(num_heads=heads, scale=1.0 / (h // heads) ** 0.5, eps=1e-12)
         layer = random_layer(h, inter, g, dev)
-        library = torch.nn.TransformerEncoderLayer(
-            d_model=h, nhead=heads, dim_feedforward=inter, dropout=0.0, activation="gelu",
-            batch_first=True, norm_first=False,
-        ).to(dev, torch.bfloat16).eval()
-        for b in (1, 256, 512):
-            for s in (32, 64, 128, 256):
+        for b in batches:
+            for s in seqs:
                 x = torch.randn((b, s, h), generator=g).to(dev, torch.bfloat16)
                 mask = random_mask(b, s, g, dev)
-                y = fused_encoder_layer(x, mask, layer, **kw)
-                y_ref = fused_encoder_layer_reference(x, mask, layer, **kw)
-                err = (y.float() - y_ref.float()).abs()
+                if timed is None or (b, s) in timed:
+                    iters = 20 if b * s <= 16384 else 5
+                    row, y = measure_k1(x, mask, layer, kw, iters)
+                else:
+                    y = fused_encoder_layer(x, mask, layer, **kw)
+                    row = k1_error(y, fused_encoder_layer_reference(x, mask, layer, **kw))
+                    row.update(zip(("bound_ms", "bound_by"), k1_bound(b, s, h, inter)))
                 finite = bool(torch.isfinite(y.float()).all())
-                iters = 20 if b * s <= 16384 else 5
-                pad = mask == 0
-                t = ms_in_turns({
-                    "k1": lambda: fused_encoder_layer(x, mask, layer, **kw),
-                    "lib": lambda: library(x, src_key_padding_mask=pad),
-                }, iters)
-                ms, lib = t["k1"], t["lib"]
-                plain = cuda_ms(lambda: fused_encoder_layer_reference(x, mask, layer, **kw), 2, 1)
                 log(
-                    f"K1 fused_encoder_layer B={b} S={s}: max_abs_err={err.max().item():.6g} "
-                    f"(tol {K1_TOL}) mean_abs_err={err.mean().item():.3g} finite={finite} "
-                    f"ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} "
-                    f"launches={fused_encoder_layer.launches}"
+                    f"K1 fused_encoder_layer {widths} B={b} S={s}: {json.dumps(row)} "
+                    f"(tol {K1_TOL}) finite={finite} launches={fused_encoder_layer.launches}"
                 )
-                self.check(finite and err.max().item() <= K1_TOL, f"K1 B={b} S={s}")
+                self.check(finite and row["max_abs_err"] <= K1_TOL, f"K1 {widths} B={b} S={s}")
 
                 p = masked_mean_pool_l2norm(y, mask)
                 p_ref = masked_mean_pool_l2norm_reference(y, mask)
@@ -852,17 +932,31 @@ class Smoke:
                 ms2 = cuda_ms(lambda: masked_mean_pool_l2norm(y, mask), 20)
                 plain2 = cuda_ms(lambda: masked_mean_pool_l2norm_reference(y, mask), 5)
                 log(
-                    f"K2 masked_mean_pool_l2norm B={b} S={s}: max_abs_err={err2:.3g} "
+                    f"K2 masked_mean_pool_l2norm H={h} B={b} S={s}: max_abs_err={err2:.3g} "
                     f"(tol {K2_TOL}) ms={ms2:.4f} plain_ms={plain2:.4f} "
                     f"launches={masked_mean_pool_l2norm.launches}"
                 )
-                self.check(err2 <= K2_TOL and bool(torch.isfinite(p).all()), f"K2 B={b} S={s}")
-                del x, y, y_ref, err, p, p_ref
-        del library
+                self.check(
+                    err2 <= K2_TOL and bool(torch.isfinite(p).all()), f"K2 H={h} B={b} S={s}"
+                )
+                del x, y, p, p_ref
+                torch.cuda.empty_cache()
+
+    def compare_kernels(self, dev) -> None:
+        """K1 and K2 at MiniLM-L6 widths over B in {1, 256, 512} and S in
+        {32, 64, 128, 256}, every shape timed; then K3 and K4."""
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            cosine_topk_packed_reference,
+            cosine_topk_reference,
+        )
+
+        g = torch.Generator().manual_seed(1)
+        self.compare_forward_kernels(dev, MINILM_WIDTHS, (1, 256, 512), (32, 64, 128, 256), g)
 
         # K3: grid-valued catalog and queries, so every score is exact in
         # f32 under any summation order; ids must then be identical.
-        n, d = N_PRODUCTS, h
+        n, d = N_PRODUCTS, MINILM_WIDTHS[0]
         c = (torch.randint(-8, 9, (n, d), generator=g).float() / 16).to(dev)
         c[25_000:25_010] = c[123]  # deliberate ties, across blocks
         c[124] = c[123]            # and within one
@@ -978,11 +1072,16 @@ class Smoke:
 
     # ----------------------------------------------------------- phase 2b
 
-    def compare_train_kernels(self, dev) -> None:
-        """K1 with dropout masks and K5 against their plain versions at the
-        training shapes. The yardstick is one nn.TransformerEncoderLayer
-        (dropout 0.1, train mode) forward and backward at the same shape;
-        the port never calls it."""
+    def compare_train_kernels(
+        self, dev, widths, batches, seqs, seed: int, timed=None, traced=()
+    ) -> None:
+        """K1 with dropout masks and K5 against their plain versions at
+        ``widths`` (hidden, heads, intermediate) over ``batches`` x ``seqs``,
+        every batch above 1 with an all-pad row. At the shapes in ``timed``
+        (every shape when None) both are read in turns with their yardstick,
+        one nn.TransformerEncoderLayer (dropout 0.1, train mode) forward and
+        backward at the same shape, which the port never calls; at the shapes
+        in ``traced`` the three are traced launch by launch."""
         from instacart_next_order_recommendation_tpu_torch.ops import (
             fused_encoder_layer_backward,
             fused_encoder_layer_train,
@@ -991,17 +1090,17 @@ class Smoke:
             draw_dropout_masks,
         )
 
-        h, inter, heads = 384, 1536, 12
-        kw = dict(num_heads=heads, scale=1.0 / 32**0.5, eps=1e-12)
-        g = torch.Generator().manual_seed(2)
+        h, heads, inter = widths
+        kw = dict(num_heads=heads, scale=1.0 / (h // heads) ** 0.5, eps=1e-12)
+        g = torch.Generator().manual_seed(seed)
         layer = random_layer(h, inter, g, dev)
         library = torch.nn.TransformerEncoderLayer(
             d_model=h, nhead=heads, dim_feedforward=inter, dropout=0.1, activation="gelu",
             batch_first=True, norm_first=False,
         ).to(dev, torch.bfloat16).train()
         gen = torch.Generator(device=dev)
-        for b in (1, 64, 512):
-            for s in (32, 64, 128, 256):
+        for b in batches:
+            for s in seqs:
                 x = torch.randn((b, s, h), generator=g).to(dev, torch.bfloat16)
                 up = torch.randn((b, s, h), generator=g).to(dev, torch.bfloat16)
                 mask = random_mask(b, s, g, dev)
@@ -1009,35 +1108,36 @@ class Smoke:
                 masks = draw_dropout_masks((b, s, h), 0.1, gen, dev, torch.bfloat16)
                 iters = 10 if b * s <= 16384 else 3
                 k1, k5, worst, finite = measure_train_kernels(
-                    x, mask, layer, masks, up, library, kw, iters, 1
+                    x, mask, layer, masks, up,
+                    library if timed is None or (b, s) in timed else None, kw, iters, 1,
                 )
                 log(
-                    f"K1-train B={b} S={s}: max_abs_err={k1['max_abs_err']:.4g} (tol {K1_TOL}) "
-                    f"ms={k1['ms']:.4f} plain_ms={k1['plain_ms']:.4f} "
-                    f"library_fwd_ms={k1['library_ms']:.4f} bound_ms={k1['bound_ms']:.4g} "
-                    f"({k1['bound_by']}); K5 B={b} S={s}: worst rel_err {worst}="
-                    f"{k5['max_rel_err']:.3g} (tol {K5_REL_TOL}) finite={finite} "
-                    f"ms={k5['ms']:.4f} plain_ms={k5['plain_ms']:.4f} "
-                    f"library_bwd_ms={k5['library_ms']:.4f} bound_ms={k5['bound_ms']:.4g} "
-                    f"({k5['bound_by']}); launches K1-train={fused_encoder_layer_train.launches} "
+                    f"K1-train {widths} B={b} S={s}: {json.dumps(k1)} (tol {K1_TOL}); "
+                    f"K5: worst rel_err {worst}={k5['max_rel_err']:.3g} (tol {K5_REL_TOL}) "
+                    f"{json.dumps(k5)}; finite={finite}; launches "
+                    f"K1-train={fused_encoder_layer_train.launches} "
                     f"K5={fused_encoder_layer_backward.launches}"
                 )
-                self.check(finite and k1["max_abs_err"] <= K1_TOL, f"K1-train B={b} S={s}")
-                self.check(finite and k5["max_rel_err"] <= K5_REL_TOL, f"K5 B={b} S={s}")
-                if s == 256 and b > 1:  # the training batches' shapes
+                self.check(
+                    finite and k1["max_abs_err"] <= K1_TOL, f"K1-train {widths} B={b} S={s}"
+                )
+                self.check(
+                    finite and k5["max_rel_err"] <= K5_REL_TOL, f"K5 {widths} B={b} S={s}"
+                )
+                if (b, s) in traced:
                     bias = ((1.0 - mask.float()) * -1e9).contiguous()
                     show_breakdown(
-                        f"K1-train launches at B={b} S={s}",
+                        f"K1-train launches at {widths} B={b} S={s}",
                         lambda: fused_encoder_layer_train(
                             x, mask, layer, masks=masks, dropout_rate=0.1, **kw
                         ),
                     )
                     show_breakdown(
-                        f"K5 launches at B={b} S={s}",
+                        f"K5 launches at {widths} B={b} S={s}",
                         lambda: fused_encoder_layer_backward(x, bias, up, masks, layer, **kw),
                     )
                     show_breakdown(
-                        f"K5's yardstick (layer autograd bwd) launches at B={b} S={s}",
+                        f"K5's yardstick (layer autograd bwd) launches at {widths} B={b} S={s}",
                         library_train_calls(library, x, mask == 0, up)[1],
                     )
                 del x, up, mask, masks
@@ -1059,9 +1159,6 @@ class Smoke:
             cosine_topk,
             fused_encoder_layer,
             masked_mean_pool_l2norm,
-        )
-        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
-            fused_encoder_layer_reference,
         )
         from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
             masked_mean_pool_l2norm_reference,
@@ -1236,29 +1333,13 @@ class Smoke:
             layer = rec.encoder.layers[0]
             b, s, h = x.shape
             inter = config.intermediate_size
-            y = fused_encoder_layer(x, m, layer, **kw)
-            e1 = (y.float() - fused_encoder_layer_reference(x, m, layer, **kw).float()).abs()
-            library = torch.nn.TransformerEncoderLayer(
-                d_model=h, nhead=config.num_heads, dim_feedforward=inter, dropout=0.0,
-                activation="gelu", batch_first=True, norm_first=False,
-            ).to(dev, torch.bfloat16).eval()
-            pad = m == 0
-            bnd, by = k1_bound(b, s, h, inter)
-            t = ms_in_turns({
-                "k1": lambda: fused_encoder_layer(x, m, layer, **kw),
-                "lib": lambda: library(x, src_key_padding_mask=pad),
-            }, 20)
-            self.kernel_rows["fused_encoder_layer"] = dict(
-                ms=t["k1"],
-                plain_ms=cuda_ms(lambda: fused_encoder_layer_reference(x, m, layer, **kw), 3),
-                library_ms=t["lib"],
-                max_abs_err=e1.max().item(), bound_ms=bnd, bound_by=by,
-            )
+            row, y = measure_k1(x, m, layer, kw)
+            self.kernel_rows["fused_encoder_layer"] = row
             show_breakdown(
                 f"K1 launches at the serve batch's shape B={b} S={s}",
                 lambda: fused_encoder_layer(x, m, layer, **kw),
             )
-            self.check(e1.max().item() <= K1_TOL, "K1 at the batch shape")
+            self.check(row["max_abs_err"] <= K1_TOL, "K1 at the batch shape")
             p = masked_mean_pool_l2norm(y, m)
             e2 = (p - masked_mean_pool_l2norm_reference(y, m)).abs().max().item()
             bnd, by = k2_bound(b, s, h)
@@ -1301,8 +1382,8 @@ class Smoke:
     def serve_mpnet(self, dev, workdir: Path) -> dict:
         """The mpnet-base-class tower at full width (random weights from a
         seeded generator, the serve phase's vocab) served by Recommender over
-        the same 50k products: every layer takes the unfused route, so K6
-        runs 12 times per forward and K1 never."""
+        the same 50k products: head_dim 64 at S <= 256 takes the fused
+        route, so K1 runs 12 times per forward and K6 never."""
         from instacart_next_order_recommendation_tpu_torch.models.checkpoint import save_tower
         from instacart_next_order_recommendation_tpu_torch.models.encoder import (
             MPNET_BASE_CLASS,
@@ -1332,6 +1413,7 @@ class Smoke:
         params = init_params(config, torch.Generator().manual_seed(0))
         model_dir = workdir / "mpnet"
         save_tower(model_dir, params, config, tok)
+        st["mpnet_dir"] = model_dir
         del params
         log(
             f"setup: mpnet-base-class {config.num_layers}x{config.hidden_size} "
@@ -1359,9 +1441,9 @@ class Smoke:
         n_forwards = counts["masked_mean_pool_l2norm"]
         log(f"mpnet main-path launches: {counts} ({n_forwards} tower forwards)")
         self.check(
-            counts["multi_head_attention"] == config.num_layers * n_forwards
-            and counts["fused_encoder_layer"] == 0 and n_forwards > 0 and counts["cosine_topk"] > 0,
-            "mpnet serve: 12 K6 launches per forward, no K1",
+            counts["fused_encoder_layer"] == config.num_layers * n_forwards
+            and counts["multi_head_attention"] == 0 and n_forwards > 0 and counts["cosine_topk"] > 0,
+            "mpnet serve: 12 K1 launches per forward, no K6",
         )
         ids, b_idx = timed["ids"], timed["idx"]
         self.check(len(r1) == 10 and bool(np.isfinite(timed["scores"]).all()), "mpnet recommend")
@@ -1388,26 +1470,27 @@ class Smoke:
         self.check(agreed["identical_or_near_tie"] >= 0.95, "mpnet top-16 agreement with plain")
         del catalog_plain
 
-        # ---- K6 (and K2, K3 at D=768) at the batch's shapes
+        # ---- K1 at head_dim 64 (and K2, K3 at D=768) at the batch's shapes
         with torch.no_grad():
             ids_t = torch.from_numpy(ids).to(dev)
             m = (ids_t != rec.encoder.tokenizer.pad_id).to(torch.int32)
             x = embed(rec.encoder.params, ids_t, config)
-            q, k, v = layer_qkv(x, rec.encoder.layers[0], config.num_heads)
-            do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev, q.dtype)
-        fwd, bwd = measure_attention(q, k, v, m, do, config.head_dim**-0.5, iters=10)
-        self.check(attention_rows_ok(fwd, bwd), "K6/K7 at the mpnet batch shape")
-        self.kernel_rows["multi_head_attention"] = {
-            **kernel_row({**fwd, "launches": counts["multi_head_attention"]}),
-            "max_rel_err": fwd["max_rel_err"],
+            kw = dict(
+                num_heads=config.num_heads, scale=1.0 / config.head_dim**0.5,
+                eps=config.layer_norm_eps,
+            )
+            row, y = measure_k1(x, m, rec.encoder.layers[0], kw)
+        self.check(row["max_abs_err"] <= K1_TOL, "K1 at the mpnet batch shape")
+        self.kernel_rows["fused_encoder_layer_hd64"] = {
+            **row, "launches": counts["fused_encoder_layer"]
         }
         b, s, h = x.shape
         with torch.no_grad():
-            p = masked_mean_pool_l2norm(x, m)
-            e2 = (p - masked_mean_pool_l2norm_reference(x, m)).abs().max().item()
+            p = masked_mean_pool_l2norm(y, m)
+            e2 = (p - masked_mean_pool_l2norm_reference(y, m)).abs().max().item()
             k2 = dict(
-                ms=cuda_ms(lambda: masked_mean_pool_l2norm(x, m), 50),
-                plain_ms=cuda_ms(lambda: masked_mean_pool_l2norm_reference(x, m), 20),
+                ms=cuda_ms(lambda: masked_mean_pool_l2norm(y, m), 50),
+                plain_ms=cuda_ms(lambda: masked_mean_pool_l2norm_reference(y, m), 20),
                 max_abs_err=e2, bound_ms=k2_bound(b, s, h)[0],
             )
             cat = rec.index.catalog
@@ -1421,10 +1504,9 @@ class Smoke:
                 bound_ms=k3_bound(b, N_PRODUCTS, h, K_BATCH, False)[0],
             )
         log(
-            f"at the mpnet batch shape B={b} S={s} H={h}: K6 "
-            f"{json.dumps(self.kernel_rows['multi_head_attention'])}; K7 ms={bwd['ms']:.4f} "
-            f"bound_ms={bwd['bound_ms']:.4g}; K2 {json.dumps(k2)}; K3 N={N_PRODUCTS} D={h} "
-            f"{json.dumps(k3)}"
+            f"at the mpnet batch shape B={b} S={s} H={h}: K1 "
+            f"{json.dumps(self.kernel_rows['fused_encoder_layer_hd64'])}; K2 {json.dumps(k2)}; "
+            f"K3 N={N_PRODUCTS} D={h} {json.dumps(k3)}"
         )
         self.check(e2 <= K2_TOL and k3["max_abs_err"] <= 1e-5 and k3["ids_identical"] >= 0.99,
                    "K2 and K3 at the mpnet shapes")
@@ -1444,10 +1526,10 @@ class Smoke:
         return out
 
     def repaired_shapes(self, dev) -> dict:
-        """MiniLM-L6 at two shapes its fused kernels do not take: a batch
-        that buckets to S=512 under max_seq_length 512, and one that fills
-        max_seq_length 200. Both take the unfused layer (K6, no K1) and
-        must match the plain versions."""
+        """MiniLM-L6 and mpnet-base-class at two lengths their fused kernels
+        do not take: a batch that buckets to S=512 under max_seq_length 512,
+        and one that fills max_seq_length 200. Each takes the unfused layer
+        (K6 in every layer, no K1) and must match the plain versions."""
         from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
         from instacart_next_order_recommendation_tpu_torch.ops import (
             fused_encoder_layer,
@@ -1458,8 +1540,9 @@ class Smoke:
         st = self.serve_state
         names = [t.split("Product: ")[1].split(".")[0] for t in st["catalog_texts"][:400]]
         out = {}
-        for max_len in (512, 200):
-            enc = TextEncoder.load(st["model_dir"], max_seq_length=max_len)
+        towers = [("MiniLM-L6", st["model_dir"]), ("mpnet-base-class", st["mpnet_dir"])]
+        for (tower, model_dir), max_len in itertools.product(towers, (512, 200)):
+            enc = TextEncoder.load(model_dir, max_seq_length=max_len)
             # Eight contexts of 10 to 160 product names: the longest runs past
             # max_len tokens and is cut to it.
             texts = [", ".join(names[i * 40 : i * 40 + n]) for i, n in
@@ -1474,13 +1557,15 @@ class Smoke:
             with torch.no_grad():
                 plain = plain_encoder(enc, dev, enc.config, enc.layers)(ids)
             err = (emb - plain).abs().max().item()
-            out[max_len] = {"seq": int(ids.shape[1]), "max_abs_err": err, "launches": counts}
-            log(f"MiniLM-L6 at max_seq_length {max_len}: {json.dumps(out[max_len])}")
+            key = f"{tower} S={max_len}"
+            out[key] = {"seq": int(ids.shape[1]), "max_abs_err": err, "launches": counts}
+            log(f"{tower} at max_seq_length {max_len}: {json.dumps(out[key])}")
             self.check(
-                ids.shape[1] == max_len and counts["multi_head_attention"] == 6
+                ids.shape[1] == max_len
+                and counts["multi_head_attention"] == enc.config.num_layers
                 and counts["fused_encoder_layer"] == 0 and err <= 5e-3
                 and bool(torch.isfinite(emb).all()),
-                f"MiniLM-L6 at S={max_len} through K6, matching the plain versions",
+                f"{tower} at S={max_len} through K6, matching the plain versions",
             )
         return out
 
@@ -1550,10 +1635,29 @@ class Smoke:
         return out
 
 
+def training_wrappers() -> tuple:
+    """Every kernel wrapper a training run may launch, on either route."""
+    from instacart_next_order_recommendation_tpu_torch.ops import (
+        cosine_topk,
+        fused_encoder_layer,
+        fused_encoder_layer_backward,
+        fused_encoder_layer_train,
+        masked_mean_pool_l2norm,
+        multi_head_attention,
+        multi_head_attention_backward,
+    )
+
+    return (
+        fused_encoder_layer_train, fused_encoder_layer_backward, masked_mean_pool_l2norm,
+        fused_encoder_layer, cosine_topk, multi_head_attention, multi_head_attention_backward,
+    )
+
+
 class TrainPhase:
     """Phase 4: MNRL training of MiniLM-L6 through TwoTowerTrainer.train(data=...)."""
 
     model_name = "minilm-l6"
+    row_suffix = ""  # the kernels-line names of this tower's K1-train and K5 rows
 
     def __init__(self, smoke: "Smoke", dev, workdir: Path, data=None):
         self.smoke = smoke
@@ -1732,7 +1836,7 @@ class TrainPhase:
             b = []
             for texts in (anchors, positives):
                 ids, mask = tokenizer.encode_batch(
-                    [texts[i] for i in idx], max_seq_length=256, pad_to=seq
+                    [texts[i] for i in idx], max_seq_length=seq, pad_to=seq
                 )
                 b += [torch.from_numpy(ids).to(self.dev), torch.from_numpy(mask).to(self.dev)]
             out.append(b)
@@ -1766,10 +1870,10 @@ class TrainPhase:
         k1, k5, worst, finite = measure_train_kernels(x, a_mask, layer, masks, up, library, kw, 20, 3)
         self.smoke.check(finite and k1["max_abs_err"] <= K1_TOL, "K1-train at the training batch shape")
         self.smoke.check(finite and k5["max_rel_err"] <= K5_REL_TOL, "K5 at the training batch shape")
-        self.smoke.kernel_rows["fused_encoder_layer_train"] = {
+        self.smoke.kernel_rows["fused_encoder_layer_train" + self.row_suffix] = {
             **k1, "launches": counts["fused_encoder_layer_train"]
         }
-        self.smoke.kernel_rows["fused_encoder_layer_backward"] = {
+        self.smoke.kernel_rows["fused_encoder_layer_backward" + self.row_suffix] = {
             **k5, "launches": counts["fused_encoder_layer_backward"]
         }
         log(
@@ -1791,11 +1895,12 @@ class TrainPhase:
 
     def kernels_against_plain_steps(self, seq: int, faults: dict, counter, per_step: int) -> dict:
         """3 AdamW steps at dropout 0 and a constant lr, from the same params
-        on the same batches: TrainStep through the kernels against TrainStep
-        with every kernel replaced by its plain version. Compared: the three
-        losses (the second and third follow the updates before them) and
-        every parameter's gradient at the first step, relative to its
-        largest magnitude.
+        on the same batches of length ``seq``: TrainStep through the kernels
+        against TrainStep with every kernel replaced by its plain version.
+        Compared: the three losses (the second and third follow the updates
+        before them) and every parameter's gradient at the first step,
+        relative to its largest magnitude. The kernels' run counts every
+        wrapper's launches from zero (``launches`` in the result).
 
         Both readings are taken again with each fault in ``faults`` planted
         at run time: ``name -> (module, wrapper name, change)``, the backward
@@ -1853,9 +1958,12 @@ class TrainPhase:
                 "k_b_max_abs": grads["layers/k_b"].abs().max().item(),
             }
 
-        before = counter.launches
+        wrappers = training_wrappers()
+        for w in wrappers:
+            w.launches = 0
         sound = readings(*run())
-        launched = counter.launches - before
+        counts = {w.__name__: w.launches for w in wrappers}
+        launched = counter.launches
 
         def planted(module, name, change):
             wrapper = getattr(module, name)
@@ -1894,7 +2002,10 @@ class TrainPhase:
             and any(f["loss_rel"] > STEP_LOSS_REL_TOL for f in fault_readings.values()),
             f"{self.model_name} 3 steps: the limits catch the planted faults",
         )
-        return {"plain_losses": plain_losses, "kernels": sound, "planted_faults": fault_readings}
+        return {
+            "seq": seq, "plain_losses": plain_losses, "kernels": sound,
+            "planted_faults": fault_readings, "launches": counts,
+        }
 
     def step_breakdown(self, seq: int, batch: int, n_steps: int = 5) -> dict:
         """Where a training step's time goes: ``n_steps`` TrainStep calls
@@ -1993,20 +2104,19 @@ class TrainPhase:
 class MpnetTrainPhase(TrainPhase):
     """Phase 5: MNRL training of the mpnet-base-class tower at full width
     (hidden 768, 12 layers, 12 heads of 64, intermediate 3072) through
-    TwoTowerTrainer.train(data=...) on the same pairs: every layer takes the
-    unfused route, K6 forward and K7 backward."""
+    TwoTowerTrainer.train(data=...) on the same pairs: at S=256 every layer
+    takes the fused route, K1-train forward and K5 backward. The attention
+    kernels K6 and K7 stay held through TrainStep at S=200, which the fused
+    kernels do not take."""
 
     model_name = "mpnet-base"
+    row_suffix = "_hd64"
 
     def run(self) -> dict:
         from instacart_next_order_recommendation_tpu_torch.ops import (
             attention,
-            cosine_topk,
-            fused_encoder_layer,
             fused_encoder_layer_backward,
-            fused_encoder_layer_train,
-            masked_mean_pool_l2norm,
-            multi_head_attention,
+            fused_layer,
             multi_head_attention_backward,
         )
         from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
@@ -2015,11 +2125,7 @@ class MpnetTrainPhase(TrainPhase):
         ndcg_untrained = self.untrained(self.workdir / "train_corpus.json")
 
         # ---- the main path, counted from zero
-        wrappers = (
-            multi_head_attention, multi_head_attention_backward, masked_mean_pool_l2norm,
-            cosine_topk, fused_encoder_layer, fused_encoder_layer_train,
-            fused_encoder_layer_backward,
-        )
+        wrappers = training_wrappers()
         for w in wrappers:
             w.launches = 0
         trainer = TwoTowerTrainer(
@@ -2057,22 +2163,36 @@ class MpnetTrainPhase(TrainPhase):
         smoke.check(steps == sum(n_epoch), "mpnet: steps per epoch as the batches give")
         smoke.check(bool(np.isfinite(losses).all()), "mpnet training losses finite")
         smoke.check(tail < head, f"mpnet loss falls (first 10 mean {head:.4f}, last 10 {tail:.4f})")
-        forwards = counts["masked_mean_pool_l2norm"]
+        eval_forwards = counts["masked_mean_pool_l2norm"] - 2 * steps
         smoke.check(
-            counts["multi_head_attention_backward"] == 24 * steps
-            and counts["multi_head_attention"] == 12 * forwards
-            and forwards > 2 * steps  # the eval's forwards too
+            counts["fused_encoder_layer_train"] == 24 * steps
+            and counts["fused_encoder_layer_backward"] == 24 * steps
+            and eval_forwards > 0
+            and counts["fused_encoder_layer"] == 12 * eval_forwards
             and counts["cosine_topk"] > 0
-            and counts["fused_encoder_layer"] == counts["fused_encoder_layer_train"] == 0
-            and counts["fused_encoder_layer_backward"] == 0,
-            "mpnet: 24 K6 and 24 K7 launches per step (12 K6 per eval forward), no K1 or K5",
+            and counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
+            "mpnet: 24 K1-train and 24 K5 launches per step, 12 K1 per eval forward, no K6 or K7",
         )
         best = max(hist, key=lambda h: h["ndcg_at_10"])
         log(f"mpnet NDCG@10: trained {best['ndcg_at_10']:.4f}, untrained {ndcg_untrained:.4f}")
 
-        self.attention_rows(result["final_dir"], trainer.seq_len, counts)
+        self.kernel_rows(trainer, result["final_dir"], counts)
         step_check = self.kernels_against_plain_steps(
             trainer.seq_len,
+            {
+                "weight_grads_x0.9": (
+                    fused_layer, "fused_encoder_layer_backward",
+                    lambda dx, dw: (dx, {n: 0.9 * g for n, g in dw.items()}),
+                ),
+                "dx_negated": (
+                    fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
+                ),
+            },
+            fused_encoder_layer_backward, 24,
+        )
+        # ---- K6 and K7 through TrainStep, at a length the fused kernels refuse
+        k7_check = self.kernels_against_plain_steps(
+            ATTENTION_TRAIN_SEQ,
             {
                 "dk_x0.9": (
                     attention, "multi_head_attention_backward",
@@ -2084,7 +2204,17 @@ class MpnetTrainPhase(TrainPhase):
             },
             multi_head_attention_backward, 24,
         )
-        remat = self.remat_sample(trainer.seq_len)
+        launched = k7_check["launches"]
+        smoke.check(
+            launched["multi_head_attention"] == 3 * 24
+            and launched["fused_encoder_layer_train"] == launched["fused_encoder_layer_backward"] == 0,
+            f"mpnet at S={ATTENTION_TRAIN_SEQ}: 24 K6 and 24 K7 launches per step, no K1 or K5",
+        )
+        self.attention_rows(result["final_dir"], ATTENTION_TRAIN_SEQ, launched)
+        b256 = {
+            f"S={seq}": self.remat_sample(seq, remat)
+            for seq, remat in ((trainer.seq_len, False), (ATTENTION_TRAIN_SEQ, True))
+        }
         breakdown = self.step_breakdown(trainer.seq_len, 64, n_steps=3)
         return {
             "batch": 64,
@@ -2096,13 +2226,15 @@ class MpnetTrainPhase(TrainPhase):
             "ndcg_at_10_untrained": ndcg_untrained,
             "launches": counts,
             "three_steps_kernels_vs_plain": step_check,
-            "remat_b256": remat,
+            "three_steps_attention_kernels_vs_plain": k7_check,
+            "b256_steps": b256,
             "step_breakdown": breakdown,
         }
 
     def attention_rows(self, final_dir, seq: int, counts: dict) -> None:
-        """K7 (and K6) at the training batch's shape, from the trained
-        tower's first layer, for the kernels line."""
+        """K6 and K7 at the shape of the batches that run them, B=64 at
+        ``seq``, from the trained tower's first layer, for the kernels line;
+        ``counts`` are that path's launches."""
         from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
         from instacart_next_order_recommendation_tpu_torch.models.encoder import embed
         from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import prepare_layer
@@ -2116,22 +2248,25 @@ class MpnetTrainPhase(TrainPhase):
             q, k, v = layer_qkv(x, layer, cfg.num_heads)
         do = torch.randn(q.shape, generator=torch.Generator().manual_seed(10)).to(self.dev, q.dtype)
         fwd, bwd = measure_attention(q, k, v, a_mask, do, cfg.head_dim**-0.5, iters=20)
-        self.smoke.check(attention_rows_ok(fwd, bwd), "K6/K7 at the mpnet training batch shape")
-        self.smoke.kernel_rows["multi_head_attention_backward"] = {
-            **kernel_row({**bwd, "launches": counts["multi_head_attention_backward"]}),
-            "max_rel_err": bwd["max_rel_err"],
-        }
+        self.smoke.check(attention_rows_ok(fwd, bwd), f"K6/K7 at the mpnet B=64 S={seq} batch")
+        for name, row in (("multi_head_attention", fwd), ("multi_head_attention_backward", bwd)):
+            self.smoke.kernel_rows[name] = {
+                **kernel_row({**row, "launches": counts[name]}), "max_rel_err": row["max_rel_err"]
+            }
         log(
-            f"K7 row at the training batch shape B=64 S={seq} heads={cfg.num_heads} "
-            f"D={cfg.head_dim}: {json.dumps(self.smoke.kernel_rows['multi_head_attention_backward'])}"
-            f"; K6 there: ms={fwd['ms']:.4f} plain_ms={fwd['plain_ms']:.4f} "
-            f"sdpa_ms={fwd['library_ms']:.4f} bound_ms={fwd['bound_ms']:.4g}"
+            f"K6/K7 rows at the training batch shape B=64 S={seq} heads={cfg.num_heads} "
+            f"D={cfg.head_dim}: K6 {json.dumps(self.smoke.kernel_rows['multi_head_attention'])}; "
+            f"K7 {json.dumps(self.smoke.kernel_rows['multi_head_attention_backward'])}"
         )
 
-    def remat_sample(self, seq: int, n_steps: int = 5) -> dict:
-        """B=256 steps with remat as _resolve_remat chooses it (on: the fused
-        kernels do not take the tower), timed, with the peak device memory;
-        then the same steps without remat, if they fit."""
+    def remat_sample(self, seq: int, expect_remat: bool, n_steps: int = 5) -> dict:
+        """B=256 steps at ``seq`` with the remat that _resolve_remat chooses,
+        timed, with the peak device memory and every wrapper's launches; they
+        must fit and give finite losses. At S=256 the fused kernels take the
+        tower and remat is off (K5 keeps only the layer inputs, where the
+        unfused route without remat keeps every layer's activations); at a
+        length they refuse it is on, and each unfused layer runs under
+        torch.utils.checkpoint, its K6 launched again in the backward."""
         from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
         from instacart_next_order_recommendation_tpu_torch.train.trainer import (
             TrainStep,
@@ -2145,42 +2280,60 @@ class MpnetTrainPhase(TrainPhase):
         chosen = trainer._resolve_remat(
             cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, seq
         )
-        self.smoke.check(chosen, f"_resolve_remat turns remat on at B={REMAT_BATCH}")
+        self.smoke.check(
+            chosen == expect_remat,
+            f"_resolve_remat turns remat {'on' if expect_remat else 'off'} at "
+            f"B={REMAT_BATCH} S={seq}",
+        )
         batches = self.batches(tok, seq, REMAT_BATCH, n_steps + 1)
-        out = {}
-        for remat in (chosen, not chosen):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            params = self.fresh_params()[0]
-            step = TrainStep(
-                params, dataclasses.replace(cfg, remat=remat), build_optimizer(params, 0.0),
-                warmup_cosine_schedule(2e-4, 100), loss_scale=30.0, accum=1, device=self.dev,
-            )
-            key = "remat" if remat else "no_remat"
-            try:
-                step(batches[0], seed=0)  # warm-up
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                losses = [step(b, seed=i) for i, b in enumerate(batches[1:], 1)]
-                torch.cuda.synchronize()
-                ms = (time.perf_counter() - t0) * 1e3 / n_steps
-                out[key] = {
-                    "step_ms": ms,
-                    "pairs_per_s": REMAT_BATCH / ms * 1e3,
-                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                    "losses": torch.stack(losses).tolist(),
-                }
-            except torch.cuda.OutOfMemoryError:
-                out[key] = {
-                    "did_not_fit": True,
-                    "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-                }
-            del step, params
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        params = self.fresh_params()[0]
+        step = TrainStep(
+            params, dataclasses.replace(cfg, remat=chosen), build_optimizer(params, 0.0),
+            warmup_cosine_schedule(2e-4, 100), loss_scale=30.0, accum=1, device=self.dev,
+        )
+        wrappers = training_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        try:
+            step(batches[0], seed=0)  # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step(b, seed=i) for i, b in enumerate(batches[1:], 1)]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / n_steps
+            out = {
+                "remat": chosen,
+                "step_ms": ms,
+                "pairs_per_s": REMAT_BATCH / ms * 1e3,
+                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "losses": torch.stack(losses).tolist(),
+            }
+        except torch.cuda.OutOfMemoryError:
+            out = {
+                "remat": chosen,
+                "did_not_fit": True,
+                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            }
+        out["launches"] = {w.__name__: w.launches for w in wrappers}
+        del step, params
         torch.cuda.empty_cache()
         log(f"mpnet B={REMAT_BATCH} S={seq}, {n_steps} steps: {json.dumps(out)}")
         self.smoke.check(
-            "losses" in out["remat"] and bool(np.isfinite(out["remat"]["losses"]).all()),
-            f"mpnet B={REMAT_BATCH} steps with remat",
+            "losses" in out and bool(np.isfinite(out["losses"]).all()),
+            f"mpnet B={REMAT_BATCH} S={seq} steps (remat {chosen}) fit, losses finite",
+        )
+        n = n_steps + 1  # the warm-up step counts too
+        expected = {name: 0 for name in out["launches"]}
+        expected["masked_mean_pool_l2norm"] = 2 * n
+        if chosen:  # two towers of 12 unfused layers, each K6 run again in the backward
+            expected.update(multi_head_attention=48 * n, multi_head_attention_backward=24 * n)
+        else:
+            expected.update(fused_encoder_layer_train=24 * n, fused_encoder_layer_backward=24 * n)
+        self.smoke.check(
+            out["launches"] == expected,
+            f"mpnet B={REMAT_BATCH} S={seq} (remat {chosen}): launches over {n} steps {expected}",
         )
         return out
 
@@ -2222,15 +2375,28 @@ def main() -> int:
         log(f"ptxas (registers, spill stores) of the {name} kernels: {json.dumps(usage)}")
         smoke.check(
             set(FUSED_LAYER_KERNELS[name]) <= {key.split("<")[0] for key in usage}
+            and set(FUSED_LAYER_ATTENTION[name]) <= set(usage)
             and not any(spill for _, spill in usage.values()),
-            f"every {name} kernel in ptxas's report, none spilling",
+            f"every {name} kernel in ptxas's report (head_dim 32 and 64), none spilling",
         )
 
     try:
         t0 = time.perf_counter()
+        hd64_seqs = (32, 64, 128, 192, 256)
         with torch.inference_mode():
             smoke.compare_kernels(dev)
-        smoke.compare_train_kernels(dev)
+            smoke.compare_forward_kernels(  # timed at the mpnet serve batch's shape
+                dev, MPNET_WIDTHS, (1, 64, 256), hd64_seqs, torch.Generator().manual_seed(12),
+                timed={(BATCH, 192)},
+            )
+        smoke.compare_train_kernels(
+            dev, MINILM_WIDTHS, (1, 64, 512), (32, 64, 128, 256), seed=2,
+            traced={(64, 256), (512, 256)},
+        )
+        smoke.compare_train_kernels(  # timed and traced at the mpnet training batch's shape
+            dev, MPNET_WIDTHS, (1, 64, 256), hd64_seqs, seed=12,
+            timed={(64, 256)}, traced={(64, 256)},
+        )
         smoke.compare_attention_kernels(dev)
         smoke.compare_packed_topk(dev)
         log(f"phase 2 (kernels vs plain) {time.perf_counter() - t0:.1f}s")
@@ -2270,6 +2436,9 @@ def main() -> int:
         "cosine_topk": ("topk.cu", "ops/topk.py:154"),
         "fused_encoder_layer_train": ("fused_layer.cu", "ops/fused_layer.py:135"),
         "fused_encoder_layer_backward": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
+        "fused_encoder_layer_hd64": ("fused_layer.cu", "ops/fused_layer.py:135"),
+        "fused_encoder_layer_train_hd64": ("fused_layer.cu", "ops/fused_layer.py:135"),
+        "fused_encoder_layer_backward_hd64": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
         "cosine_topk_packed": ("topk.cu", "ops/topk.py:75"),
         "multi_head_attention": ("attention.cu", "ops/attention.py:62"),
         "multi_head_attention_backward": ("attention.cu", "ops/attention.py:164"),

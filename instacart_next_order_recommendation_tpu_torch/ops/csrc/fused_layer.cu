@@ -33,7 +33,7 @@
 //   registers and stored as bf16 pairs, with no staging tile.
 // - Attention in one pass on tensor cores: one block per (64-query tile,
 //   head, batch row) reads q, k and v in place from the packed projection;
-//   the whole score row (S <= 256, head_dim 32) stays in the mma
+//   the whole score row (S <= 256, head_dim 32 or 64) stays in the mma
 //   accumulators, the exact row max and sum follow, P is rounded to bf16 in
 //   registers and multiplied by V, so the [S, S] scores never reach shared
 //   or device memory.
@@ -50,9 +50,9 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// Shapes the wrapper has checked: H == num_heads * 32, H % 64 == 0,
-// H <= 1024, I % 64 == 0, S % 16 == 0, 16 <= S <= 256, every pointer
-// 16-byte aligned and contiguous. m1, m2: [B, S, H] bf16 or both null.
+// Shapes the wrapper has checked: H == num_heads * head_dim with head_dim
+// 32 or 64, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
+// 16 <= S <= 256, every pointer 16-byte aligned and contiguous. m1, m2: [B, S, H] bf16 or both null.
 // Scratch buffers come from the caller.
 int fused_layer_forward(const void* x, const void* key_bias, const void* qkv_w,
                         const void* qkv_b, const void* o_w, const void* o_b, const void* ln1_s,

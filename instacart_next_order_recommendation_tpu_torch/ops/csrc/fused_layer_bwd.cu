@@ -39,7 +39,9 @@
 //   partial tiles summed in a fixed order by colsum_kernel).
 // - Attention backward in two kernels on tensor cores, no atomics. The dQ
 //   kernel, per 64-query tile, recomputes the scores in registers with the
-//   forward's exact max m and sum z, forms dz and dU, writes dU over dA (it
+//   forward's exact max m and sum z (the whole row at once where it fits
+//   in registers, else the key tiles twice: head_dim 64 at S > 192, rule at
+//   dq_row_in_registers), forms dz and dU, writes dU over dA (it
 //   is the dK/dV kernel's input; nothing else reads dA), computes dP, dL
 //   and dQ += dL K tile by tile, and leaves m, z and dz per row in an f32
 //   workspace [3, B, heads, S]. The dK/dV kernel, per 64-key tile, loops
@@ -254,15 +256,15 @@ cudaError_t launch_ln_bwd(const bf16* a, const bf16* r, const bf16* mask, const 
 
 // ------------------------------------------------ attention backward
 // q, k, v at row stride 3H in the packed projection, A, dA and dU at row
-// stride H, head_dim 32; NT = ceil(S / 64) key (or query) tiles, all of a
-// head's tiles resident in shared memory (S <= 256: 5 KB a tile).
-constexpr int ATILE = tile_elems<HD>();
-constexpr int AROW = row_stride<HD>() * 2;  // bytes
-
+// stride H, head_dim HD in {32, 64}; NT = ceil(S / 64) key (or query)
+// tiles, all of a head's tiles resident in shared memory (S <= 256: 5 KB a
+// tile at HD 32, 9 KB at HD 64).
+template <int HD>
 __device__ __forceinline__ View packed_view(int S, int H) {
   return View{(long long)S * 3 * H, HD, 3LL * H};
 }
 
+template <int HD>
 __device__ __forceinline__ View row_view(int S, int H) {
   return View{(long long)S * H, HD, (long long)H};
 }
@@ -289,15 +291,31 @@ __device__ __forceinline__ void dl_operand(const float (&p)[8][4], const float (
                    p[2 * kc + 1][3] * (dp[2 * kc + 1][3] + dz1));
 }
 
+// Whether the dQ kernel keeps a warp's whole score row in registers: NT *
+// 32 f32 a lane, beside dQ (HD / 2) and dU (HD / 4). At 152 of these (HD
+// 32, S = 256) ptxas fits the kernel in 201 registers; at 176 (HD 64, S =
+// 256) it spilled at the 255 cap, even with dP formed 32 keys at a time.
+// Where the row does not fit, the kernel passes over the key tiles twice,
+// as K7's dQ kernel does.
+template <int HD, int NT>
+__host__ __device__ constexpr bool dq_row_in_registers() {
+  return NT * 32 + HD / 2 + HD / 4 <= 160;
+}
+
 // dQ of one 64-query tile; dA is replaced by dU = bf16(dA / z) in place,
-// and each row's m, z and dz go to stats ([3][B][heads][S] f32).
-template <int NT>
+// and each row's m, z and dz go to stats ([3][B][heads][S] f32). One pass
+// where the score row fits in registers: the exact max m, then z = sum of
+// exp(x - m). Else two: the first keeps m and z online (z rescaled when m
+// grows), the second recomputes each key tile's scores.
+template <int HD, int NT>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
                    const bf16* __restrict__ attn, bf16* __restrict__ dattn,
                    bf16* __restrict__ dqkv, float* __restrict__ stats, int S, int H,
                    float scale) {
   constexpr int LD = row_stride<HD>();
+  constexpr int ATILE = tile_elems<HD>();
+  constexpr int AROW = row_stride<HD>() * 2;  // bytes
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dAs = Qs + ATILE;
@@ -313,8 +331,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int c2 = 2 * (lane & 3);
-  const View vqkv = packed_view(S, H);
-  const View vh = row_view(S, H);
+  const View vqkv = packed_view<HD>(S, H);
+  const View vh = row_view<HD>(S, H);
 
   load_tile<HD>(Qs, qkv, vqkv, bi, hi, q0, S, tid);
 #pragma unroll
@@ -336,35 +354,57 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   const uint32_t kb = smem_addr(Ks) + lane_a<HD>(lane);    // K as B (dQ)
   const uint32_t vbt = smem_addr(Vs) + lane_bt<HD>(lane);  // V as B^T (dP)
 
-  // Scores, the exact max and sum, and P = exp(x - m), as the forward.
-  float x[NT][8][4];
+  // Scores, the exact max m and the sum z of P = exp(x - m), as the
+  // forward: the whole row at once, or online over the key tiles.
+  constexpr bool ROW = dq_row_in_registers<HD, NT>();
+  float x[ROW ? NT : 1][8][4];
+  float m0 = INIT_MAX, m1 = INIT_MAX, z0 = 0.0f, z1 = 0.0f;
+  if constexpr (ROW) {
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    mma_abt<HD>(x[t], qa, kbt + t * ATILE * 2);
-    logits(x[t], Kb + t * TK, scale, lane);
-  }
-  float m0 = INIT_MAX, m1 = INIT_MAX;
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    float t0, t1;
-    tile_max(x[t], t0, t1);
-    m0 = fmaxf(m0, t0);
-    m1 = fmaxf(m1, t1);
-  }
-  float z0 = 0.0f, z1 = 0.0f;
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      x[t][j][0] = expf(x[t][j][0] - m0);
-      x[t][j][1] = expf(x[t][j][1] - m0);
-      x[t][j][2] = expf(x[t][j][2] - m1);
-      x[t][j][3] = expf(x[t][j][3] - m1);
-      z0 += x[t][j][0] + x[t][j][1];
-      z1 += x[t][j][2] + x[t][j][3];
+    for (int t = 0; t < NT; ++t) {
+      mma_abt<HD>(x[t], qa, kbt + t * ATILE * 2);
+      logits(x[t], Kb + t * TK, scale, lane);
     }
-  z0 = quad_sum(z0);
-  z1 = quad_sum(z1);
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      float t0, t1;
+      tile_max(x[t], t0, t1);
+      m0 = fmaxf(m0, t0);
+      m1 = fmaxf(m1, t1);
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[t][j][0] = expf(x[t][j][0] - m0);
+        x[t][j][1] = expf(x[t][j][1] - m0);
+        x[t][j][2] = expf(x[t][j][2] - m1);
+        x[t][j][3] = expf(x[t][j][3] - m1);
+        z0 += x[t][j][0] + x[t][j][1];
+        z1 += x[t][j][2] + x[t][j][3];
+      }
+    z0 = quad_sum(z0);
+    z1 = quad_sum(z1);
+  } else {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      mma_abt<HD>(x[0], qa, kbt + t * ATILE * 2);
+      logits(x[0], Kb + t * TK, scale, lane);
+      float t0, t1;
+      tile_max(x[0], t0, t1);
+      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e0 += expf(x[0][j][0] - n0) + expf(x[0][j][1] - n0);
+        e1 += expf(x[0][j][2] - n1) + expf(x[0][j][3] - n1);
+      }
+      z0 = fmaf(z0, expf(m0 - n0), quad_sum(e0));
+      z1 = fmaf(z1, expf(m1 - n1), quad_sum(e1));
+      m0 = n0;
+      m1 = n1;
+    }
+  }
   cp_wait<0>();
   __syncthreads();
 
@@ -373,10 +413,10 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   const bf16* dAw = dAs + warp * 16 * LD;
   const bf16* Aw = As + warp * 16 * LD;
   const int r0 = q0 + warp * 16 + g;
-  uint32_t du[2][4];
+  uint32_t du[HD / 16][4];
   float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
-  for (int kk = 0; kk < 2; ++kk)
+  for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int d = kk * 16 + hh * 8 + c2;
@@ -417,13 +457,25 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   zero<HD>(dq);
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
+    if constexpr (!ROW) {  // this tile's P = exp(x - m) again
+      mma_abt<HD>(x[0], qa, kbt + t * ATILE * 2);
+      logits(x[0], Kb + t * TK, scale, lane);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        x[0][j][0] = expf(x[0][j][0] - m0);
+        x[0][j][1] = expf(x[0][j][1] - m0);
+        x[0][j][2] = expf(x[0][j][2] - m1);
+        x[0][j][3] = expf(x[0][j][3] - m1);
+      }
+    }
+    const float(&p)[8][4] = x[ROW ? t : 0];
     float dp[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < HD / 16; ++kk)
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         uint32_t b[4];
@@ -434,7 +486,7 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t a[1][4];
-      dl_operand(x[t], dp, kc, dz0, dz1, a[0]);
+      dl_operand(p, dp, kc, dz0, dz1, a[0]);
       mma_ab<HD, 1>(dq, a, kb + t * ATILE * 2, kc);
     }
   }
@@ -443,12 +495,13 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
 
 // dK and dV of one 64-key tile, looping over the query tiles. A warp owns
 // 16 keys: its accumulator tiles are K Q^T and V dU^T (keys by queries).
-template <int NT>
+template <int HD, int NT>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
                      const bf16* __restrict__ du, const float* __restrict__ stats,
                      bf16* __restrict__ dqkv, int S, int H, float scale) {
   constexpr int LD = row_stride<HD>();
+  constexpr int ATILE = tile_elems<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + ATILE;
@@ -462,8 +515,8 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const View vqkv = packed_view(S, H);
-  const View vh = row_view(S, H);
+  const View vqkv = packed_view<HD>(S, H);
+  const View vh = row_view<HD>(S, H);
 
   load_tile<HD>(Ks, qkv + H, vqkv, bi, hi, k0, S, tid);
   load_tile<HD>(Vs, qkv + 2 * H, vqkv, bi, hi, k0, S, tid);
@@ -533,35 +586,48 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key
   store_rows<HD>(dv, 1.0f, Vw, dqkv + 2 * H, vqkv, bi, hi, k0 + warp * 16, S, lane);
 }
 
-template <int NT>
+template <int HD, int NT>
 cudaError_t launch_attention_bwd_nt(const bf16* qkv, const float* key_bias, const bf16* attn,
                                     bf16* dattn, bf16* dqkv, float* stats, int batch, int seq,
                                     int H, int heads, float scale, cudaStream_t stream) {
+  constexpr int ATILE = tile_elems<HD>();
   const size_t dq_smem = (size_t)(3 + 2 * NT) * ATILE * 2 + (size_t)NT * TK * 4;
   const size_t dkdv_smem = (size_t)(2 + 2 * NT) * ATILE * 2 + (size_t)2 * NT * TQ * 4;
   static std::atomic<unsigned long long> dq_done{0}, dkdv_done{0};
-  cudaError_t e = allow_smem_once(attn_bwd_dq_kernel<NT>, dq_smem, dq_done);
+  cudaError_t e = allow_smem_once(attn_bwd_dq_kernel<HD, NT>, dq_smem, dq_done);
   if (e != cudaSuccess) return e;
-  e = allow_smem_once(attn_bwd_dkdv_kernel<NT>, dkdv_smem, dkdv_done);
+  e = allow_smem_once(attn_bwd_dkdv_kernel<HD, NT>, dkdv_smem, dkdv_done);
   if (e != cudaSuccess) return e;
   const dim3 grid(NT, heads, batch);
-  attn_bwd_dq_kernel<NT><<<grid, THREADS, dq_smem, stream>>>(qkv, key_bias, attn, dattn, dqkv,
-                                                              stats, seq, H, scale);
+  attn_bwd_dq_kernel<HD, NT><<<grid, THREADS, dq_smem, stream>>>(qkv, key_bias, attn, dattn,
+                                                                  dqkv, stats, seq, H, scale);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<NT><<<grid, THREADS, dkdv_smem, stream>>>(qkv, key_bias, dattn, stats,
-                                                                  dqkv, seq, H, scale);
+  attn_bwd_dkdv_kernel<HD, NT><<<grid, THREADS, dkdv_smem, stream>>>(qkv, key_bias, dattn,
+                                                                      stats, dqkv, seq, H, scale);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_attention_bwd_hd(const bf16* qkv, const float* key_bias, const bf16* attn,
+                                    bf16* dattn, bf16* dqkv, float* stats, int batch, int seq,
+                                    int H, int heads, float scale, cudaStream_t stream) {
+  switch ((seq + TK - 1) / TK) {
+    case 1: return launch_attention_bwd_nt<HD, 1>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 2: return launch_attention_bwd_nt<HD, 2>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 3: return launch_attention_bwd_nt<HD, 3>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 4: return launch_attention_bwd_nt<HD, 4>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 cudaError_t launch_attention_bwd(const bf16* qkv, const float* key_bias, const bf16* attn,
                                  bf16* dattn, bf16* dqkv, float* stats, int batch, int seq, int H,
                                  int heads, float scale, cudaStream_t stream) {
-  switch ((seq + TK - 1) / TK) {
-    case 1: return launch_attention_bwd_nt<1>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 2: return launch_attention_bwd_nt<2>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 3: return launch_attention_bwd_nt<3>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 4: return launch_attention_bwd_nt<4>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+  if (heads <= 0 || H % heads) return cudaErrorInvalidValue;
+  switch (H / heads) {
+    case 32: return launch_attention_bwd_hd<32>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 64: return launch_attention_bwd_hd<64>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -573,7 +639,7 @@ struct Layout {
   size_t total;
 };
 
-Layout make_layout(int batch, int seq, int H, int I, int sms) {
+Layout make_layout(int batch, int seq, int H, int heads, int I, int sms) {
   const size_t M = (size_t)batch * seq;
   size_t n = 0;
   auto take = [&n](size_t bytes) {
@@ -609,7 +675,7 @@ Layout make_layout(int batch, int seq, int H, int I, int sms) {
   }
   L.wpart = take(wp);
   L.out3 = take((size_t)3 * H * 4);
-  L.stats = take((size_t)3 * M * (H / HD) * 4);
+  L.stats = take((size_t)3 * M * heads * 4);
   L.total = n;
   return L;
 }
@@ -622,18 +688,18 @@ const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err);
 
 // Bytes of device scratch fused_layer_backward needs at these shapes on the
 // current device.
-int fused_layer_backward_workspace(int batch, int seq, int hidden, int inter,
+int fused_layer_backward_workspace(int batch, int seq, int hidden, int num_heads, int inter,
                                    unsigned long long* bytes) {
   int sms = 0;
   const cudaError_t e = device_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  *bytes = (unsigned long long)make_layout(batch, seq, hidden, inter, sms).total;
+  *bytes = (unsigned long long)make_layout(batch, seq, hidden, num_heads, inter, sms).total;
   return 0;
 }
 
-// Shapes the wrapper has checked: H == num_heads * 32, H % 64 == 0,
-// H <= 1024, I % 64 == 0, S % 16 == 0, 16 <= S <= 256, every pointer
-// 16-byte aligned and contiguous. g, dx: [B, S, H] bf16; m1, m2: [B, S, H]
+// Shapes the wrapper has checked: H == num_heads * head_dim with head_dim
+// 32 or 64, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
+// 16 <= S <= 256, every pointer 16-byte aligned and contiguous. g, dx: [B, S, H] bf16; m1, m2: [B, S, H]
 // bf16 or both null; the twelve grads are f32 in the weights' shapes
 // (Wqkv [H, 3H], bqkv [3H], Wo [H, H], bo, ln1 scale/shift [H], W1 [H, I],
 // b1 [I], W2 [I, H], b2, ln2 scale/shift [H]); workspace holds
@@ -654,7 +720,7 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
   int sms = 0;
   cudaError_t e = device_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const Layout L = make_layout(batch, seq, H, I, sms);
+  const Layout L = make_layout(batch, seq, H, num_heads, I, sms);
   unsigned char* ws = reinterpret_cast<unsigned char*>(workspace);
   bf16* qkv = reinterpret_cast<bf16*>(ws + L.qkv);
   bf16* attn = reinterpret_cast<bf16*>(ws + L.attn);

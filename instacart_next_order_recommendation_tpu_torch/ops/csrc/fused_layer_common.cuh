@@ -359,12 +359,11 @@ __host__ __device__ constexpr int gemm_row_tiles(int M) { return (M + GBM - 1) /
 // the f32 P V product), reading q, k and v in place from the packed
 // [B * S, 3 H] projection and writing [B * S, H]. One block per (64-query
 // tile, head, batch row), 4 warps of 16 query rows; every score row stays
-// in the mma accumulators (head_dim 32, S <= 256: at most 128 f32 per
-// thread), K and V stream through a two-stage cp.async ring of 64-key
-// tiles, and no score touches shared memory.
-constexpr int HD = 32;
-
-template <int NT>
+// in the mma accumulators (head_dim HD in {32, 64}, S <= 256: at most 128
+// f32 per thread), K and V stream through a two-stage cp.async ring of
+// 64-key tiles, and no score touches shared memory. K6 runs the same
+// template at head_dim 64 without a spill.
+template <int HD, int NT>
 static cudaError_t launch_attention_nt(const bf16* qkv, const float* key_bias, bf16* out,
                                        int batch, int seq, int H, int num_heads, float scale,
                                        cudaStream_t stream) {
@@ -380,14 +379,28 @@ static cudaError_t launch_attention_nt(const bf16* qkv, const float* key_bias, b
   return cudaGetLastError();
 }
 
+template <int HD>
+static cudaError_t launch_attention_hd(const bf16* qkv, const float* key_bias, bf16* out,
+                                       int batch, int seq, int H, int num_heads, float scale,
+                                       cudaStream_t stream) {
+  switch ((seq + TK - 1) / TK) {
+    case 1: return launch_attention_nt<HD, 1>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 2: return launch_attention_nt<HD, 2>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 3: return launch_attention_nt<HD, 3>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 4: return launch_attention_nt<HD, 4>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The head_dim comes from hidden / num_heads: 32 (MiniLM-class) or 64
+// (mpnet-base-class).
 static inline cudaError_t launch_attention(const bf16* qkv, const float* key_bias, bf16* out,
                                            int batch, int seq, int H, int num_heads, float scale,
                                            cudaStream_t stream) {
-  switch ((seq + TK - 1) / TK) {
-    case 1: return launch_attention_nt<1>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 2: return launch_attention_nt<2>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 3: return launch_attention_nt<3>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 4: return launch_attention_nt<4>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+  if (num_heads <= 0 || H % num_heads) return cudaErrorInvalidValue;
+  switch (H / num_heads) {
+    case 32: return launch_attention_hd<32>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 64: return launch_attention_hd<64>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,8 +10,9 @@ are the plain PyTorch versions of the same math (the latter's autograd
 gradient is the plain backward, ``fused_encoder_layer_backward_reference``),
 and the entry points launch the hand-written CUDA kernels for a tensor on the
 GPU: ``csrc/fused_layer.cu`` (K1, forward, with or without masks) and
-``csrc/fused_layer_bwd.cu`` (K5, dx and the twelve weight grads). Cast points
-follow ``_kernel``: matmuls accumulate in f32 over compute-dtype operands, the
+``csrc/fused_layer_bwd.cu`` (K5, dx and the twelve weight grads), both at
+head_dim 32 (MiniLM-class) and 64 (mpnet-base-class). Cast points follow
+``_kernel``: matmuls accumulate in f32 over compute-dtype operands, the
 softmax is f32 with 1/sum applied after the PV product, residual adds and the
 dropout products happen in the compute dtype, and LayerNorm runs in f32.
 """
@@ -25,7 +26,7 @@ import torch
 from instacart_next_order_recommendation_tpu_torch.ops import _build
 
 _NEG_INF = -1e9  # key bias at padded keys: finite, so all-pad rows stay finite
-HEAD_DIM = 32
+HEAD_DIMS = (32, 64)
 MAX_SEQ = 256
 # Kernel-layout weights in the order the CUDA entry points take them.
 WEIGHT_NAMES = (
@@ -173,7 +174,7 @@ _SIGNATURES = {
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "fused_layer_backward_workspace": [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_ulonglong)],
+    "fused_layer_backward_workspace": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_ulonglong)],
     "fused_layer_backward": [ctypes.c_void_p] * 31
     + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
@@ -182,13 +183,15 @@ _BWD_SIGNATURES = {
 
 def supports(hidden: int, num_heads: int, seq: int, inter: int) -> bool:
     """Whether the fused-layer kernels (K1 and K5) take this shape: head_dim
-    32, hidden % 64 == 0 and at most 1024, intermediate % 64 == 0, and
-    16 <= S <= 256 with S % 16 == 0. Named after the JAX package's gate,
-    but this is the port kernels' own envelope. ``encode`` sends every other
-    shape to the unfused layer."""
+    32 or 64 (hidden == num_heads * head_dim), hidden % 64 == 0 and at most
+    1024, intermediate % 64 == 0, and 16 <= S <= 256 with S % 16 == 0.
+    Named after the JAX package's gate, but this is the port kernels' own
+    envelope: JAX's also admits head_dim 16 and 128 and any S % 16 == 0.
+    ``encode`` sends every other shape to the unfused layer."""
     return (
         num_heads > 0
-        and hidden == num_heads * HEAD_DIM
+        and hidden % num_heads == 0
+        and hidden // num_heads in HEAD_DIMS
         and hidden % 64 == 0
         and hidden <= 1024
         and inter % 64 == 0
@@ -204,7 +207,7 @@ def _check_kernel_inputs(x: torch.Tensor, bias: torch.Tensor, w: dict, num_heads
         raise ValueError(f"fused_encoder_layer kernel takes bfloat16, got {x.dtype}")
     if not supports(h, num_heads, s, inter):
         raise ValueError(
-            f"fused_encoder_layer kernel takes head_dim {HEAD_DIM}, hidden % 64 == 0 "
+            f"fused_encoder_layer kernel takes head_dim 32 or 64, hidden % 64 == 0 "
             f"(<= 1024), intermediate % 64 == 0 and 16 <= S <= {MAX_SEQ} with S % 16 == 0; "
             f"got hidden={h}, heads={num_heads}, intermediate={inter}, S={s}"
         )
@@ -324,7 +327,7 @@ def fused_encoder_layer_backward(
     inter = weights["w1"].shape[1]
     lib = _build.load("fused_layer_bwd", _BWD_SIGNATURES)
     n_bytes = ctypes.c_ulonglong(0)
-    err = lib.fused_layer_backward_workspace(b, s, h, inter, ctypes.byref(n_bytes))
+    err = lib.fused_layer_backward_workspace(b, s, h, num_heads, inter, ctypes.byref(n_bytes))
     _build.check(lib, err, "fused_layer_backward_workspace")
     workspace = torch.empty(n_bytes.value, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)

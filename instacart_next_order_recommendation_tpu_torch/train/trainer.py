@@ -274,12 +274,18 @@ class TwoTowerTrainer:
     # ------------------------------------------------------------------ model
 
     def _resolve_remat(self, hidden: int, num_heads: int, inter: int, seq: int) -> bool:
-        """Remat policy, as the JAX trainer's: an explicit ``remat`` wins;
-        below batch 256 it is off; at 256 and above it is on exactly when
-        the fused kernels do not take the tower at ``seq``, the longest
-        sequence a batch may run at. (JAX tests its gate at ``seq`` rounded
-        down to a multiple of 16, though a batch that fills ``seq`` then
-        takes the unfused layer; the port tests ``seq`` itself.)"""
+        """Remat policy: an explicit ``remat`` wins; below batch 256 it is
+        off; at 256 and above it is on exactly when the fused kernels do not
+        take the tower at ``seq``, the longest sequence a batch may run at
+        (their backward keeps only the layer inputs).
+
+        Two differences from the JAX trainer's policy. JAX also asks its
+        backward kernel's VMEM gate (``bwd_supports``), which refuses
+        mpnet-base-class on a v5e, so it keeps remat on for mpnet at
+        B >= 256 where the port, whose K5 takes head_dim 64, turns it off:
+        a TPU limit, not the function's. And JAX tests its gate at ``seq``
+        rounded down to a multiple of 16, though a batch that fills ``seq``
+        then takes the unfused layer; the port tests ``seq`` itself."""
         if self.cfg.remat is not None:
             return bool(self.cfg.remat)
         if self.cfg.train_batch_size < 256:

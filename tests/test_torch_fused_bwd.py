@@ -5,13 +5,17 @@ package's ``_bwd_kernel`` (Pallas, interpret mode) and against the port's
 plain backward. The CUDA kernel cannot run here; this pins its algebra:
 
 - the dQ pass, per 64-query tile: the scores with the forward's exact row
-  max m and sum z, dz = -sum_d(dA * A) / z, dU = bf16(dA / z),
+  max m and sum z (online over the key tiles where the kernel's score row
+  does not fit in registers: head_dim 64 at S > 192),
+  dz = -sum_d(dA * A) / z, dU = bf16(dA / z),
   dP = dU V^T, dL = bf16(P * (dP + dz)) with P = exp(x - m) unnormalised,
   dQ = scale * dL K summed tile by tile; it leaves m, z and dz per row (and
   dU, which the kernel writes over dA);
 - the dK/dV pass, per 64-key tile, looping over the query tiles with only
   those: P^T and dL^T from K Q^T and V dU^T, dV += bf16(P)^T dU,
   dK += dL^T Q, scaled once at the end.
+
+Each case runs at head_dim 32 (MiniLM-class) and 64 (mpnet-base-class).
 """
 
 import jax
@@ -28,10 +32,26 @@ from instacart_next_order_recommendation_tpu_torch.ops import (
 )
 from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import prepare_layer
 
-HIDDEN, INTER, HEADS, HEAD_DIM = 128, 256, 4, 32
-SCALE = 1.0 / HEAD_DIM**0.5
+HIDDEN, INTER = 128, 256
 EPS = 1e-12
 TILE = 64
+# (seq, all_pad, head_dim); the head_dim 64 ids carry a prefix.
+CASES = [
+    pytest.param(seq, all_pad, hd, id=("" if hd == 32 else "head_dim_64-") + f"{seq}-{all_pad}")
+    for hd in (32, 64)
+    for seq in (48, 256)
+    for all_pad in (False, True)
+]
+
+
+def _scale(head_dim):
+    return 1.0 / head_dim**0.5
+
+
+def _row_in_registers(head_dim, n_tiles):
+    """K5's dQ kernel keeps the whole score row in registers by this rule
+    (``dq_row_in_registers``), else it sums z online over the key tiles."""
+    return n_tiles * 32 + head_dim // 2 + head_dim // 4 <= 160
 
 
 def _layer_np(rng):
@@ -50,7 +70,7 @@ def _layer_np(rng):
     }
 
 
-def tiled_attention_backward(qkv, attn, dattn, bias, bf16, cast_dl=True):
+def tiled_attention_backward(qkv, attn, dattn, bias, bf16, head_dim, cast_dl=True):
     """dqkv [B, S, 3H] of the attention part of the layer, as K5's two
     kernels compute it; every argument an f32 tensor (bf16 values where the
     kernel takes bf16), bias [B, S]. ``bf16`` rounds where the kernel does
@@ -59,24 +79,30 @@ def tiled_attention_backward(qkv, attn, dattn, bias, bf16, cast_dl=True):
     r = (lambda t: t.to(torch.bfloat16).float()) if bf16 else (lambda t: t)
     r_dl = r if cast_dl else (lambda t: t)
     b, s, _ = qkv.shape
-
-    def heads(t):
-        return t.reshape(b, s, HEADS, HEAD_DIM).permute(0, 2, 1, 3)
-
-    q, k, v = (heads(qkv[..., i * HIDDEN : (i + 1) * HIDDEN]) for i in range(3))
-    a, da = heads(attn), heads(dattn)
+    n_heads, scale = HIDDEN // head_dim, _scale(head_dim)
+    q, k, v = (_heads(qkv[..., i * HIDDEN : (i + 1) * HIDDEN], head_dim) for i in range(3))
+    a, da = _heads(attn, head_dim), _heads(dattn, head_dim)
     kb = bias[:, None, None, :]
     tiles = [(t0, min(s, t0 + TILE)) for t0 in range(0, s, TILE)]
+    online = not _row_in_registers(head_dim, len(tiles))
 
     # dQ pass, per query tile.
     dq = torch.zeros_like(q)
     du = torch.zeros_like(q)
-    m, z, dz = (torch.zeros((b, HEADS, s, 1)) for _ in range(3))
+    m, z, dz = (torch.zeros((b, n_heads, s, 1)) for _ in range(3))
     for q0, q1 in tiles:
-        x = (q[:, :, q0:q1] @ k.transpose(-1, -2)) * SCALE + kb
+        x = (q[:, :, q0:q1] @ k.transpose(-1, -2)) * scale + kb
         m_t = x.amax(dim=-1, keepdim=True)
         p = torch.exp(x - m_t)
         z_t = p.sum(dim=-1, keepdim=True)
+        if online:  # the first of two passes: z rescaled as the max grows
+            m_run = torch.full_like(m_t, -3.0e38)
+            z_t = torch.zeros_like(m_t)
+            for k0, k1 in tiles:
+                m_new = torch.maximum(m_run, x[..., k0:k1].amax(dim=-1, keepdim=True))
+                e = torch.exp(x[..., k0:k1] - m_new).sum(dim=-1, keepdim=True)
+                z_t = z_t * torch.exp(m_run - m_new) + e
+                m_run = m_new
         dz_t = -(da[:, :, q0:q1] * a[:, :, q0:q1]).sum(dim=-1, keepdim=True) / z_t
         du_t = r(da[:, :, q0:q1] / z_t)
         acc = torch.zeros_like(q[:, :, q0:q1])
@@ -84,7 +110,7 @@ def tiled_attention_backward(qkv, attn, dattn, bias, bf16, cast_dl=True):
             dp = du_t @ v[:, :, k0:k1].transpose(-1, -2)
             dl = r_dl(p[..., k0:k1] * (dp + dz_t))
             acc = acc + dl @ k[:, :, k0:k1]
-        dq[:, :, q0:q1] = r(acc * SCALE)
+        dq[:, :, q0:q1] = r(acc * scale)
         du[:, :, q0:q1] = du_t
         m[:, :, q0:q1], z[:, :, q0:q1], dz[:, :, q0:q1] = m_t, z_t, dz_t
 
@@ -95,24 +121,21 @@ def tiled_attention_backward(qkv, attn, dattn, bias, bf16, cast_dl=True):
         acc_k = torch.zeros_like(k[:, :, k0:k1])
         acc_v = torch.zeros_like(acc_k)
         for q0, q1 in tiles:
-            xt = (k[:, :, k0:k1] @ q[:, :, q0:q1].transpose(-1, -2)) * SCALE
+            xt = (k[:, :, k0:k1] @ q[:, :, q0:q1].transpose(-1, -2)) * scale
             xt = xt + bias[:, None, k0:k1, None]
             pt = torch.exp(xt - m[:, :, q0:q1].transpose(-1, -2))
             dpt = v[:, :, k0:k1] @ du[:, :, q0:q1].transpose(-1, -2)
             dlt = r_dl(pt * (dpt + dz[:, :, q0:q1].transpose(-1, -2)))
             acc_v = acc_v + r(pt) @ du[:, :, q0:q1]
             acc_k = acc_k + dlt @ q[:, :, q0:q1]
-        dk[:, :, k0:k1] = r(acc_k * SCALE)
+        dk[:, :, k0:k1] = r(acc_k * scale)
         dv[:, :, k0:k1] = r(acc_v)
 
-    def packed(t):
-        return t.permute(0, 2, 1, 3).reshape(b, s, HIDDEN)
-
-    dqkv = torch.cat([packed(dq), packed(dk), packed(dv)], dim=-1)
+    dqkv = torch.cat([_packed(dq), _packed(dk), _packed(dv)], dim=-1)
     return dqkv, (m[..., 0], z[..., 0], dz[..., 0])
 
 
-def _case(seq, all_pad, dtype, batch=3, seed=30):
+def _case(seq, all_pad, dtype, head_dim, batch=3, seed=30):
     """The JAX kernel's dqkv, and the model's inputs taken from the same
     JAX run: qkv and dattn as the kernel computes them, attn and dao among
     its outputs (the ``wgrads=False`` form of ``_bwd_kernel``)."""
@@ -140,9 +163,8 @@ def _case(seq, all_pad, dtype, batch=3, seed=30):
     bias = jnp.asarray(np.pad(bias_np[:, None, :], ((0, 0), (0, 0), (0, skv - seq)),
                               constant_values=-1e9))
     x, g = jnp.asarray(x_np, cdt), jnp.asarray(g_np, cdt)
-    outs = jax_fused._call_bwd(
-        x, bias, g, *weights, num_heads=HEADS, scale=SCALE, eps=EPS, interpret=True
-    )
+    kw = dict(num_heads=HIDDEN // head_dim, scale=_scale(head_dim), eps=EPS)
+    outs = jax_fused._call_bwd(x, bias, g, *weights, **kw, interpret=True)
     dqkv_jax, dao, attn = outs[1], outs[2], outs[5]
     f32 = jnp.float32
     n = batch * seq
@@ -158,7 +180,8 @@ def _case(seq, all_pad, dtype, batch=3, seed=30):
         t(qkv, (batch, seq, 3 * HIDDEN)), t(attn, (batch, seq, HIDDEN)),
         t(dattn, (batch, seq, HIDDEN)), torch.from_numpy(bias_np.astype(np.float32)),
     )
-    return model_in, t(dqkv_jax, (batch, seq, 3 * HIDDEN)), (x_np, mask_np, g_np, layer)
+    jax_in = (x, bias, g, weights, kw)
+    return model_in, t(dqkv_jax, (batch, seq, 3 * HIDDEN)), (x_np, mask_np, g_np, layer), jax_in
 
 
 def _rows_jax_agrees_on(seq, all_pad, batch=3):
@@ -168,9 +191,9 @@ def _rows_jax_agrees_on(seq, all_pad, batch=3):
     return list(range(batch - 1)) if all_pad and seq % 128 else list(range(batch))
 
 
-def _heads(t):
+def _heads(t, head_dim):
     b, s, _ = t.shape
-    return t.reshape(b, s, HEADS, HEAD_DIM).permute(0, 2, 1, 3)
+    return t.reshape(b, s, HIDDEN // head_dim, head_dim).permute(0, 2, 1, 3)
 
 
 def _packed(t):
@@ -178,25 +201,27 @@ def _packed(t):
     return t.permute(0, 2, 1, 3).reshape(b, s, HIDDEN)
 
 
-@pytest.mark.parametrize("all_pad", [False, True])
-@pytest.mark.parametrize("seq", [48, 256])
-def test_tiled_model_matches_jax_bwd_kernel_and_plain_backward_f32(seq, all_pad):
-    (qkv, _, dattn, bias), dqkv_jax, (x_np, mask_np, g_np, layer) = _case(
-        seq, all_pad, "float32"
+@pytest.mark.parametrize("seq,all_pad,head_dim", CASES)
+def test_tiled_model_matches_jax_bwd_kernel_and_plain_backward_f32(seq, all_pad, head_dim):
+    (qkv, _, dattn, bias), dqkv_jax, (x_np, mask_np, g_np, layer), jax_in = _case(
+        seq, all_pad, "float32", head_dim
     )
-    q, k, v = (_heads(qkv[..., i * HIDDEN : (i + 1) * HIDDEN]) for i in range(3))
+    scale = _scale(head_dim)
+    q, k, v = (_heads(qkv[..., i * HIDDEN : (i + 1) * HIDDEN], head_dim) for i in range(3))
     mask = torch.from_numpy(mask_np)
     # A is the forward of these q, k, v (the port's plain attention, f32),
     # also on the all-pad row, where the JAX kernel's own forward differs.
-    attn = _packed(multi_head_attention_reference(q, k, v, mask, SCALE))
-    dqkv, (m, z, dz) = tiled_attention_backward(qkv, attn, dattn, bias, bf16=False)
+    attn = _packed(multi_head_attention_reference(q, k, v, mask, scale))
+    dqkv, (m, z, dz) = tiled_attention_backward(qkv, attn, dattn, bias, False, head_dim)
 
     # f32 throughout: only the summation order differs (64-row tiles here,
     # 128-lane head groups there, one softmax in the plain version), a few
     # f32 ulps of gradients below 4.
     rows = _rows_jax_agrees_on(seq, all_pad)
     np.testing.assert_allclose(dqkv[rows].numpy(), dqkv_jax[rows].numpy(), atol=1e-5)
-    plain = multi_head_attention_backward_reference(q, k, v, mask, _heads(dattn), SCALE)
+    plain = multi_head_attention_backward_reference(
+        q, k, v, mask, _heads(dattn, head_dim), scale
+    )
     np.testing.assert_allclose(dqkv.numpy(), torch.cat([_packed(t) for t in plain], -1).numpy(),
                                atol=1e-5)
     # The dQ pass's row statistics: z sums exp(x - m) over the row's S keys
@@ -214,20 +239,28 @@ def test_tiled_model_matches_jax_bwd_kernel_and_plain_backward_f32(seq, all_pad)
     xt = torch.from_numpy(x_np)[rows]
     _, grads = fused_encoder_layer_backward(
         xt, torch.from_numpy((1.0 - mask_np[rows].astype(np.float32)) * -1e9),
-        torch.from_numpy(g_np)[rows], None, w, num_heads=HEADS, scale=SCALE, eps=EPS,
+        torch.from_numpy(g_np)[rows], None, w, **jax_in[4],
     )
     flat = dqkv[rows].reshape(-1, 3 * HIDDEN)
-    torch.testing.assert_close(xt.reshape(-1, HIDDEN).T @ flat, grads["qkv_w"], atol=1e-4, rtol=0)
+    dw_qkv = xt.reshape(-1, HIDDEN).T @ flat
+    torch.testing.assert_close(dw_qkv, grads["qkv_w"], atol=1e-4, rtol=0)
     torch.testing.assert_close(flat.sum(0), grads["qkv_b"], atol=1e-4, rtol=0)
+    # And against the JAX kernel's wgrads form, which sums x^T dqkv inside.
+    x, jbias, g, weights, kw = jax_in
+    take = jnp.asarray(rows)
+    _, dw_jax = jax_fused._fused_backward(
+        x[take], jbias[take], (), weights, g[take], **kw, interpret=True, wgrads=True
+    )
+    np.testing.assert_allclose(dw_qkv.numpy(), np.asarray(dw_jax[0]), atol=1e-4)
+    np.testing.assert_allclose(flat.sum(0).numpy(), np.asarray(dw_jax[1]).reshape(-1), atol=1e-4)
 
 
-@pytest.mark.parametrize("all_pad", [False, True])
-@pytest.mark.parametrize("seq", [48, 256])
-def test_tiled_model_matches_jax_bwd_kernel_bf16(seq, all_pad):
-    (qkv, attn, dattn, bias), dqkv_jax, _ = _case(seq, all_pad, "bfloat16")
+@pytest.mark.parametrize("seq,all_pad,head_dim", CASES)
+def test_tiled_model_matches_jax_bwd_kernel_bf16(seq, all_pad, head_dim):
+    (qkv, attn, dattn, bias), dqkv_jax, _, _ = _case(seq, all_pad, "bfloat16", head_dim)
     rows = _rows_jax_agrees_on(seq, all_pad)
     ref = dqkv_jax[rows]
-    dqkv = tiled_attention_backward(qkv, attn, dattn, bias, bf16=True)[0][rows]
+    dqkv = tiled_attention_backward(qkv, attn, dattn, bias, True, head_dim)[0][rows]
     # The same bf16 cast points (dU, bf16(P) and dL before their products,
     # each gradient once). The f32 sums run in another order, which can flip
     # a rounding (one bf16 ulp, 2^-8 relative) of an operand or a result: on
@@ -236,5 +269,7 @@ def test_tiled_model_matches_jax_bwd_kernel_bf16(seq, all_pad):
     assert (dqkv != ref).float().mean().item() <= 0.01
     # dL's cast is one of them: left in f32, dQ and dK move on a tenth of
     # their elements or more.
-    no_cast = tiled_attention_backward(qkv, attn, dattn, bias, bf16=True, cast_dl=False)[0][rows]
+    no_cast = tiled_attention_backward(
+        qkv, attn, dattn, bias, True, head_dim, cast_dl=False
+    )[0][rows]
     assert (no_cast[..., : 2 * HIDDEN] != ref[..., : 2 * HIDDEN]).float().mean().item() > 0.1

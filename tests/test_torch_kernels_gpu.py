@@ -39,6 +39,12 @@ from instacart_next_order_recommendation_tpu_torch.ops.topk import (
 
 H, INTER, HEADS = 384, 1536, 12
 KW = dict(num_heads=HEADS, scale=1 / 32**0.5, eps=1e-12)
+# The fused kernels take head_dim 32 (MiniLM-class) and 64 (mpnet-base-class).
+HEAD_DIMS = (32, 64)
+
+
+def _kw(head_dim, hidden=H):
+    return dict(num_heads=hidden // head_dim, scale=1 / head_dim**0.5, eps=1e-12)
 
 
 @pytest.fixture
@@ -73,16 +79,18 @@ def _mask(batch, seq, dev, seed=1):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch,seq", [(1, 16), (3, 48), (8, 256)])
-def test_fused_layer_matches_plain(dev, batch, seq):
+def test_fused_layer_matches_plain(dev, batch, seq, head_dim):
     layer = _layer(dev)
+    kw = _kw(head_dim)
     g = torch.Generator().manual_seed(2)
     x = torch.randn((batch, seq, H), generator=g).to(dev, torch.bfloat16)
     mask = _mask(batch, seq, dev)
     before = fused_encoder_layer.launches
-    y = fused_encoder_layer(x, mask, layer, **KW)
+    y = fused_encoder_layer(x, mask, layer, **kw)
     assert fused_encoder_layer.launches == before + 1
-    y_ref = fused_encoder_layer_reference(x, mask, layer, **KW)
+    y_ref = fused_encoder_layer_reference(x, mask, layer, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(y.float()).all()
     # Two bf16 ulps at |y| < 8: another summation order flips roundings.
@@ -97,6 +105,12 @@ def test_fused_layer_rejects_shapes_it_does_not_take(dev):
         fused_encoder_layer(x, torch.ones((2, 40), device=dev), layer, **KW)
     with pytest.raises(ValueError):  # f32 has no kernel
         fused_encoder_layer(x[:, :32].float(), torch.ones((2, 32), device=dev), layer, **KW)
+    for head_dim in (16, 128):  # JAX's gate admits them; the port's kernels do not
+        with pytest.raises(ValueError):
+            fused_encoder_layer(x[:, :32], torch.ones((2, 32), device=dev), layer, **_kw(head_dim))
+    long = torch.zeros((1, 272, H), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # S > 256
+        fused_encoder_layer(long, torch.ones((1, 272), device=dev), layer, **KW)
 
 
 @pytest.mark.cuda
@@ -177,9 +191,11 @@ def _dropout(batch, seq, dev, seed=5, h=H):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch,seq", [(2, 48), (3, 256)])
-def test_train_form_matches_plain(dev, batch, seq):
+def test_train_form_matches_plain(dev, batch, seq, head_dim):
     layer = _layer(dev)
+    kw = _kw(head_dim)
     g = torch.Generator().manual_seed(7)
     x = torch.randn((batch, seq, H), generator=g).to(dev, torch.bfloat16)
     mask = _mask(batch, seq, dev)
@@ -187,9 +203,9 @@ def test_train_form_matches_plain(dev, batch, seq):
     keep = ((masks[0] != 0).float().mean().item(), (masks[1] != 0).float().mean().item())
     assert all(0.85 < k < 0.95 for k in keep)  # rate 0.1
     before = fused_encoder_layer_train.launches
-    y = fused_encoder_layer_train(x, mask, layer, masks=masks, dropout_rate=0.1, **KW)
+    y = fused_encoder_layer_train(x, mask, layer, masks=masks, dropout_rate=0.1, **kw)
     assert fused_encoder_layer_train.launches == before + 1
-    y_ref = fused_encoder_layer_train_reference(x, mask, layer, masks=masks, **KW)
+    y_ref = fused_encoder_layer_train_reference(x, mask, layer, masks=masks, **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(y.float()).all()
     # Two bf16 ulps at |y| < 8, as for the inference form.
@@ -204,9 +220,11 @@ GRAD_REL_TOL = 2e-2
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("batch,seq,dropout", [(2, 48, True), (4, 256, False)])
-def test_backward_matches_plain(dev, batch, seq, dropout):
+def test_backward_matches_plain(dev, batch, seq, dropout, head_dim):
     layer = _layer(dev)
+    kw = _kw(head_dim)
     g = torch.Generator().manual_seed(8)
     x = torch.randn((batch, seq, H), generator=g).to(dev, torch.bfloat16)
     up = torch.randn((batch, seq, H), generator=g).to(dev, torch.bfloat16)
@@ -214,9 +232,9 @@ def test_backward_matches_plain(dev, batch, seq, dropout):
     bias = ((1.0 - mask.float()) * -1e9).contiguous()
     masks = _dropout(batch, seq, dev) if dropout else None
     before = fused_encoder_layer_backward.launches
-    dx, dw = fused_encoder_layer_backward(x, bias, up, masks, layer, **KW)
+    dx, dw = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
     assert fused_encoder_layer_backward.launches == before + 1
-    dx_ref, dw_ref = fused_encoder_layer_backward_reference(x, bias, up, masks, layer, **KW)
+    dx_ref, dw_ref = fused_encoder_layer_backward_reference(x, bias, up, masks, layer, **kw)
     torch.cuda.synchronize()
     pairs = [("dx", dx, dx_ref)] + [(n, dw[n], dw_ref[n]) for n in WEIGHT_NAMES]
     for name, a, b in pairs:
@@ -227,29 +245,30 @@ def test_backward_matches_plain(dev, batch, seq, dropout):
 
 
 # Shapes where the tensor-core tiles of K1 and K5 meet their edges: hidden
-# 320 (10 heads; the products' N = 960 and 320 are not multiples of the
-# 128-column tile), hidden 1024 (32 heads), an intermediate size of 64 x 23,
-# S from one to four 64-key tiles with ragged last tiles (48, 240), and
-# B * S rows that are not a multiple of the 128-row tile (144, 240, 720).
-# Every batch holds an all-pad row.
+# 320 (10 heads of 32, 5 of 64; the products' N = 960 and 320 are not
+# multiples of the 128-column tile), hidden 1024, an intermediate size of
+# 64 x 23, S from one to four 64-key tiles with ragged last tiles (48,
+# 240), and B * S rows that are not a multiple of the 128-row tile (144,
+# 240, 720); and mpnet-base-class's widths (N = 2304, 768 and 3072) at a
+# ragged S. Every batch holds an all-pad row.
 FRAGILE = [
     (320, 1280, 3, 48), (320, 1472, 3, 240), (1024, 4096, 2, 16), (1024, 1472, 3, 256),
-    (384, 1472, 5, 48), (384, 1536, 3, 240),
+    (384, 1472, 5, 48), (384, 1536, 3, 240), (768, 3072, 3, 240),
 ]
 
 
-def _fragile_case(dev, hidden, inter, batch, seq, seed):
+def _fragile_case(dev, hidden, inter, batch, seq, seed, head_dim):
     layer = _layer(dev, seed, h=hidden, inter=inter)
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((batch, seq, hidden), generator=g).to(dev, torch.bfloat16)
-    kw = dict(num_heads=hidden // 32, scale=1 / 32**0.5, eps=1e-12)
-    return layer, x, _mask(batch, seq, dev), kw
+    return layer, x, _mask(batch, seq, dev), _kw(head_dim, hidden)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("hidden,inter,batch,seq", FRAGILE)
-def test_fused_layer_forms_match_plain_at_tile_edges(dev, hidden, inter, batch, seq):
-    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 20)
+def test_fused_layer_forms_match_plain_at_tile_edges(dev, hidden, inter, batch, seq, head_dim):
+    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 20, head_dim)
     masks = _dropout(batch, seq, dev, h=hidden)
     y = fused_encoder_layer(x, mask, layer, **kw)
     y_ref = fused_encoder_layer_reference(x, mask, layer, **kw)
@@ -263,9 +282,10 @@ def test_fused_layer_forms_match_plain_at_tile_edges(dev, hidden, inter, batch, 
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
 @pytest.mark.parametrize("hidden,inter,batch,seq", FRAGILE)
-def test_backward_matches_plain_at_tile_edges(dev, hidden, inter, batch, seq):
-    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 21)
+def test_backward_matches_plain_at_tile_edges(dev, hidden, inter, batch, seq, head_dim):
+    layer, x, mask, kw = _fragile_case(dev, hidden, inter, batch, seq, 21, head_dim)
     up = torch.randn(x.shape, generator=torch.Generator().manual_seed(22)).to(dev, torch.bfloat16)
     bias = ((1.0 - mask.float()) * -1e9).contiguous()
     masks = _dropout(batch, seq, dev, h=hidden)
@@ -279,18 +299,20 @@ def test_backward_matches_plain_at_tile_edges(dev, hidden, inter, batch, seq):
 
 
 @pytest.mark.cuda
-def test_backward_is_deterministic(dev):
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_backward_is_deterministic(dev, head_dim):
     # Every sum in a fixed order and no atomics: the same inputs give the
     # same bits in dx and in all twelve weight gradients, at the MiniLM
     # training shape.
     layer = _layer(dev)
+    kw = _kw(head_dim)
     g = torch.Generator().manual_seed(23)
     x, up = (torch.randn((64, 256, H), generator=g).to(dev, torch.bfloat16) for _ in range(2))
     mask = _mask(64, 256, dev)
     bias = ((1.0 - mask.float()) * -1e9).contiguous()
     masks = _dropout(64, 256, dev)
-    first = fused_encoder_layer_backward(x, bias, up, masks, layer, **KW)
-    second = fused_encoder_layer_backward(x, bias, up, masks, layer, **KW)
+    first = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
+    second = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
     torch.cuda.synchronize()
     assert torch.equal(first[0].view(torch.int16), second[0].view(torch.int16))
     for name in WEIGHT_NAMES:
@@ -336,8 +358,9 @@ def test_backward_rejects_what_it_does_not_take(dev):
         call(2, 32, torch.float32)
     with pytest.raises(ValueError):  # S > 256
         call(1, 272)
-    with pytest.raises(ValueError):  # head_dim 64
-        call(2, 32, num_heads=6)
+    for head_dim in (16, 128):  # JAX's gate admits them; the port's kernels do not
+        with pytest.raises(ValueError):
+            call(2, 32, **_kw(head_dim))
     x = torch.zeros((2, 32, H), device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):  # a mask of another shape
         fused_encoder_layer_backward(

@@ -1,9 +1,10 @@
-"""The unfused route of the port's tower on the CPU against the JAX package:
-the unfused layer, ``encode`` at head_dim 64 and at a sequence length the
-fused kernels do not take, one training step, remat, the remat policy, the
-``mpnet-base`` preset through ``TwoTowerTrainer`` (its ``final/`` read by
-JAX), mpnet-width checkpoints, and the packed top-k extraction through
-``Recommender``."""
+"""The port's tower at head_dim 64 (mpnet-base-class) on the CPU against the
+JAX package, on both routes: the unfused layer; ``encode`` through the fused
+layer where its kernels take the shape (S % 16 == 0, S <= 256) and through
+the unfused one at a length they do not take; one training step on either
+route, remat, the remat policy, the ``mpnet-base`` preset through
+``TwoTowerTrainer`` (its ``final/`` read by JAX), mpnet-width checkpoints,
+and the packed top-k extraction through ``Recommender``."""
 
 import dataclasses
 import json
@@ -56,7 +57,8 @@ from instacart_next_order_recommendation_tpu_torch.train.trainer import (
     warmup_cosine_schedule,
 )
 
-# head_dim 64, as mpnet-base-class: the fused kernels take only head_dim 32.
+# head_dim 64, as mpnet-base-class: the fused route at S % 16 == 0 (S <= 256),
+# the unfused one at S = 40.
 HD64 = dict(hidden_size=128, num_layers=2, num_heads=2, intermediate_size=256, max_position=64)
 # MiniLM-class (head_dim 32); the unfused route at S = 40 (S % 16 != 0).
 HD32 = dict(hidden_size=64, num_layers=2, num_heads=2, intermediate_size=128, max_position=64)
@@ -145,7 +147,7 @@ def test_unfused_layer_matches_jax(dtype, atol):
     )
 
 
-@pytest.mark.parametrize("arch,seq", [(HD64, 32), (HD32, 40)])
+@pytest.mark.parametrize("arch,seq", [(HD64, 40), (HD32, 40)])
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
 def test_encode_takes_the_unfused_route_and_matches_jax(monkeypatch, arch, seq, dtype, atol):
     host = _jax_params(arch, seed=2)
@@ -159,6 +161,27 @@ def test_encode_takes_the_unfused_route_and_matches_jax(monkeypatch, arch, seq, 
         TowerConfig.from_dict(jcfg.to_dict()),
     )
     assert (routes.unfused, routes.fused) == (arch["num_layers"], 0)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
+
+
+@pytest.mark.parametrize("seq", [32, 48])
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5), ("bfloat16", 3e-2)])
+def test_encode_takes_the_fused_route_at_head_dim_64_and_matches_jax(
+    monkeypatch, seq, dtype, atol
+):
+    # The tolerances of the unfused route: f32 sums in another order; in
+    # bf16 a flipped rounding of a stored activation, two bf16 ulps at |y| ~ 4.
+    host = _jax_params(HD64, seed=2)
+    rng = np.random.default_rng(3)
+    ids, mask = _ids_mask(rng, 4, seq, all_pad_row=True)
+    jcfg = JaxTowerConfig(vocab_size=120, compute_dtype=dtype, **HD64)
+    ref = jax_encode(jax.tree.map(jnp.asarray, host), jnp.asarray(ids), jnp.asarray(mask), jcfg)
+    routes = Routes(monkeypatch)
+    out = encode(
+        params_from_numpy(host), torch.from_numpy(ids), torch.from_numpy(mask),
+        TowerConfig.from_dict(jcfg.to_dict()),
+    )
+    assert (routes.unfused, routes.fused) == (0, HD64["num_layers"])
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
 
 
@@ -206,41 +229,49 @@ def _trainable(host):
 
 
 def test_train_step_at_head_dim_64_matches_jax(monkeypatch):
-    """One step at dropout 0, f32: loss and every gradient against
-    ``jax.value_and_grad`` of JAX ``encode`` + ``mnrl_loss``."""
+    """One step at dropout 0, f32, on each route (S = 32 fused, S = 40
+    unfused): loss and every gradient against ``jax.value_and_grad`` of JAX
+    ``encode`` + ``mnrl_loss``."""
     host = _jax_params(HD64, seed=6)
     jcfg = JaxTowerConfig(vocab_size=120, compute_dtype="float32", hidden_dropout=0.0, **HD64)
-    batch = _batch(np.random.default_rng(7))
 
     def loss_fn(p, a_ids, a_mask, p_ids, p_mask):
         return jax_mnrl_loss(
             jax_encode(p, a_ids, a_mask, jcfg), jax_encode(p, p_ids, p_mask, jcfg), scale=30.0
         )
 
-    loss_ref, grads_ref = jax.jit(jax.value_and_grad(loss_fn))(
-        jax.tree.map(jnp.asarray, host), *(jnp.asarray(b) for b in batch)
-    )
-    routes = Routes(monkeypatch)
-    params = _trainable(host)
-    step = TrainStep(
-        params, TowerConfig.from_dict(jcfg.to_dict()), build_optimizer(params, 0.0),
-        warmup_cosine_schedule(1e-3, 10), loss_scale=30.0, accum=2, device=torch.device("cpu"),
-    )
-    loss = step([torch.from_numpy(b) for b in batch], seed=0)  # accumulates only
-    assert (routes.unfused, routes.fused) == (2 * HD64["num_layers"], 0)
-    np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-5)
-    ours, theirs = _flat(params), _flat(jax.tree.map(np.asarray, grads_ref))
-    assert ours.keys() == theirs.keys()
-    for name, t in ours.items():
-        # The backward holds loss / accum; f32 sums in another order.
-        np.testing.assert_allclose(
-            2 * t.grad.numpy(), theirs[name], atol=2e-6, rtol=2e-4, err_msg=name
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn))
+    layers = 2 * HD64["num_layers"]  # two towers a step
+    for seq, (unfused, fused) in ((32, (0, layers)), (40, (layers, 0))):
+        batch = _batch(np.random.default_rng(7), seq=seq)
+        loss_ref, grads_ref = value_and_grad(
+            jax.tree.map(jnp.asarray, host), *(jnp.asarray(b) for b in batch)
         )
+        routes = Routes(monkeypatch)
+        params = _trainable(host)
+        step = TrainStep(
+            params, TowerConfig.from_dict(jcfg.to_dict()), build_optimizer(params, 0.0),
+            warmup_cosine_schedule(1e-3, 10), loss_scale=30.0, accum=2,
+            device=torch.device("cpu"),
+        )
+        loss = step([torch.from_numpy(b) for b in batch], seed=0)  # accumulates only
+        assert (routes.unfused, routes.fused) == (unfused, fused), seq
+        np.testing.assert_allclose(loss.item(), float(loss_ref), rtol=1e-5)
+        ours, theirs = _flat(params), _flat(jax.tree.map(np.asarray, grads_ref))
+        assert ours.keys() == theirs.keys()
+        for name, t in ours.items():
+            # The backward holds loss / accum; f32 sums in another order.
+            np.testing.assert_allclose(
+                2 * t.grad.numpy(), theirs[name], atol=2e-6, rtol=2e-4, err_msg=f"{name} S={seq}"
+            )
+        monkeypatch.undo()
 
 
 def test_remat_gives_identical_loss_and_gradients(monkeypatch):
+    # At S = 40, which the fused kernels do not take: remat checkpoints the
+    # unfused layers.
     host = _jax_params(HD64, seed=8)
-    batch = [torch.from_numpy(b) for b in _batch(np.random.default_rng(9))]
+    batch = [torch.from_numpy(b) for b in _batch(np.random.default_rng(9), seq=40)]
     results = {}
     for remat in (False, True):
         routes = Routes(monkeypatch)
@@ -277,9 +308,16 @@ def test_resolve_remat_matches_the_jax_policy(monkeypatch):
         for case in [
             (512, minilm, 256, True), (512, minilm, 256, False), (64, mpnet, 256, None),
             (255, mpnet, 128, None), (256, minilm, 128, None), (512, minilm, 256, None),
-            (256, mpnet, 256, None), (512, mpnet, 128, None), (512, odd, 128, None),
+            (512, odd, 128, None), (256, mpnet, 512, None), (512, mpnet, 200, None),
+            (256, mpnet, 256, False),
         ]:
             assert port(*case) == jax_policy(*case), case
+        # mpnet-base-class at B >= 256 and S <= 256: JAX's backward kernel
+        # does not fit a v5e's VMEM (bwd_supports), so it keeps remat on;
+        # the port's K5 takes the tower and keeps only the layer inputs.
+        for case in [(256, mpnet, 256, None), (512, mpnet, 128, None)]:
+            assert not jax_fused_layer.bwd_supports(mpnet[0], mpnet[2], case[2])
+            assert jax_policy(*case) is True and port(*case) is False, case
         # JAX tests its gate at seq rounded down to a multiple of 16, so at
         # max_seq_length 200 it leaves remat off, though a batch that fills
         # 200 takes its unfused layer (its own encode gate says no at 200).
@@ -328,7 +366,8 @@ def test_mpnet_base_trainer_final_read_by_jax(monkeypatch, tmp_path):
         "vocab_size": 400, "logging_steps": 2,
     })
     result = TwoTowerTrainer(cfg, device="cpu").train(data=_pairs())
-    assert routes.fused == 0 and routes.unfused > 0
+    # Batches pad to a multiple of 16 within max_seq_length 64: the fused route.
+    assert routes.fused > 0 and routes.unfused == 0
     hist = result["history"]
     assert len(hist) == 2 and all(0.0 <= h["ndcg_at_10"] <= 1.0 for h in hist)
 

@@ -38,6 +38,8 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
 HIDDEN, INTER, HEADS = 128, 256, 4
 SCALE = 1.0 / (HIDDEN // HEADS) ** 0.5
 EPS = 1e-12
+# head_dim 64, as mpnet-base-class: the port's fused kernels take it too.
+HEADS_64 = HIDDEN // 64
 
 
 def _layer_np(rng, hidden=HIDDEN, inter=INTER):
@@ -86,11 +88,15 @@ def _jax_layer_args(x_np, mask_np, layer, cdt):
     return x, bias, weights
 
 
-def _port_layer(x_np, mask_np, layer, dtype):
+def _heads_kw(heads=HEADS):
+    return dict(num_heads=heads, scale=1.0 / (HIDDEN // heads) ** 0.5, eps=EPS)
+
+
+def _port_layer(x_np, mask_np, layer, dtype, heads=HEADS):
     x = torch.from_numpy(x_np).to(dtype)
     mask = torch.from_numpy(mask_np)
     L = {k: torch.from_numpy(v) for k, v in layer.items()}
-    return fused_encoder_layer(x, mask, L, num_heads=HEADS, scale=SCALE, eps=EPS)
+    return fused_encoder_layer(x, mask, L, **_heads_kw(heads))
 
 
 def _as_np(a):
@@ -101,14 +107,23 @@ def _as_np(a):
 
 class TestFusedLayer:
     @pytest.mark.parametrize(
-        "dtype,atol,rtol,batch,seq,all_pad",
+        "dtype,atol,rtol,batch,seq,all_pad,heads",
         [
-            ("float32", 1e-4, 0.0, 2, 64, False),
-            ("float32", 1e-4, 0.0, 3, 32, True),
-            ("bfloat16", 2e-2, 1e-2, 3, 32, True),
+            pytest.param("float32", 1e-4, 0.0, 2, 64, False, HEADS,
+                         id="float32-0.0001-0.0-2-64-False"),
+            pytest.param("float32", 1e-4, 0.0, 3, 32, True, HEADS,
+                         id="float32-0.0001-0.0-3-32-True"),
+            pytest.param("bfloat16", 2e-2, 1e-2, 3, 32, True, HEADS,
+                         id="bfloat16-0.02-0.01-3-32-True"),
+            pytest.param("float32", 1e-4, 0.0, 2, 64, False, HEADS_64,
+                         id="head_dim_64-float32-2-64-False"),
+            pytest.param("float32", 1e-4, 0.0, 3, 48, True, HEADS_64,
+                         id="head_dim_64-float32-3-48-True"),
+            pytest.param("bfloat16", 2e-2, 1e-2, 3, 48, True, HEADS_64,
+                         id="head_dim_64-bfloat16-3-48-True"),
         ],
     )
-    def test_matches_jax_kernel_and_oracle(self, dtype, atol, rtol, batch, seq, all_pad):
+    def test_matches_jax_kernel_and_oracle(self, dtype, atol, rtol, batch, seq, all_pad, heads):
         # f32: the only systematic gap is the JAX kernel's A&S erf (< 2e-6)
         # against torch.erf. bf16: another summation order can flip the
         # rounding of a stored activation (x1 feeds both the FFN and the
@@ -121,13 +136,10 @@ class TestFusedLayer:
         cdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
         tdt = torch.float32 if dtype == "float32" else torch.bfloat16
         x, bias, weights = _jax_layer_args(x_np, mask_np, layer, cdt)
-        kernel = jax_fused._call(
-            x, bias, *weights, num_heads=HEADS, scale=SCALE, eps=EPS, interpret=True
-        )
-        oracle = jax_fused._oracle(
-            x, bias, None, None, *weights, num_heads=HEADS, scale=SCALE, eps=EPS
-        )
-        port = _port_layer(x_np, mask_np, layer, tdt)
+        kw = _heads_kw(heads)
+        kernel = jax_fused._call(x, bias, *weights, **kw, interpret=True)
+        oracle = jax_fused._oracle(x, bias, None, None, *weights, **kw)
+        port = _port_layer(x_np, mask_np, layer, tdt, heads)
         assert port.dtype == tdt and tuple(port.shape) == (batch, seq, HIDDEN)
         assert np.isfinite(_as_np(port)).all()
         np.testing.assert_allclose(_as_np(port), _as_np(oracle), atol=atol, rtol=rtol)
@@ -196,7 +208,7 @@ class TestFusedLayerTrain:
     ``jax.vjp`` of ``_oracle`` and the Pallas ``_bwd_kernel`` in interpret
     mode (``_fused_backward``, wgrads form), on the same numpy inputs."""
 
-    def _case(self, seq, dropout, dtype="float32", batch=2, seed=10):
+    def _case(self, seq, dropout, dtype="float32", batch=2, seed=10, heads=HEADS):
         rng = np.random.default_rng(seed)
         layer = _layer_np(rng)
         x_np = (0.3 * rng.standard_normal((batch, seq, HIDDEN))).astype(np.float32)
@@ -210,7 +222,7 @@ class TestFusedLayerTrain:
             j_masks, t_masks = _dropout_np(rng, x_np.shape, cdt)
             t_masks = tuple(m.to(tdt) for m in t_masks)
         m1, m2 = j_masks if dropout else (None, None)
-        kw = dict(num_heads=HEADS, scale=SCALE, eps=EPS)
+        kw = _heads_kw(heads)
         y_ref, vjp = jax.vjp(
             lambda x_, *w: jax_fused._oracle(x_, bias, m1, m2, *w, **kw), x, *weights
         )
@@ -229,7 +241,7 @@ class TestFusedLayerTrain:
             ),
         )
         jax_ref = dict(y=y_ref, dx=dx_ref, dw=dw_ref, x=x, bias=bias, g=g,
-                       masks=j_masks, weights=weights)
+                       masks=j_masks, weights=weights, kw=kw)
         return port, jax_ref
 
     @staticmethod
@@ -242,20 +254,37 @@ class TestFusedLayerTrain:
                 err_msg=f"grad mismatch for {name}",
             )
 
-    @pytest.mark.parametrize("seq,dropout", [(48, True), (48, False), (128, True), (128, False)])
-    def test_forward_and_plain_backward_match_oracle_vjp(self, seq, dropout):
-        port, ref = self._case(seq, dropout)
+    @pytest.mark.parametrize(
+        "seq,dropout,heads",
+        [
+            pytest.param(48, True, HEADS, id="48-True"),
+            pytest.param(48, False, HEADS, id="48-False"),
+            pytest.param(128, True, HEADS, id="128-True"),
+            pytest.param(128, False, HEADS, id="128-False"),
+            pytest.param(48, True, HEADS_64, id="head_dim_64-48-True"),
+        ],
+    )
+    def test_forward_and_plain_backward_match_oracle_vjp(self, seq, dropout, heads):
+        port, ref = self._case(seq, dropout, heads=heads)
         np.testing.assert_allclose(_as_np(port["y"]), _as_np(ref["y"]), atol=1e-4)
         # f32: the JAX oracle's A&S erf (< 2e-6) against torch.erf, and sums
         # in another order.
         self._assert_grads(port["grads"], ref["dx"], ref["dw"], atol=1e-4)
 
-    @pytest.mark.parametrize("seq,dropout", [(48, True), (128, False)])
-    def test_plain_backward_matches_jax_bwd_kernel(self, seq, dropout):
-        port, ref = self._case(seq, dropout)
+    @pytest.mark.parametrize(
+        "seq,dropout,heads",
+        [
+            pytest.param(48, True, HEADS, id="48-True"),
+            pytest.param(128, False, HEADS, id="128-False"),
+            pytest.param(48, True, HEADS_64, id="head_dim_64-48-True"),
+            pytest.param(128, False, HEADS_64, id="head_dim_64-128-False"),
+        ],
+    )
+    def test_plain_backward_matches_jax_bwd_kernel(self, seq, dropout, heads):
+        port, ref = self._case(seq, dropout, heads=heads)
         dx_k, dw_k = jax_fused._fused_backward(
             ref["x"], ref["bias"], tuple(ref["masks"]), ref["weights"], ref["g"],
-            num_heads=HEADS, scale=SCALE, eps=EPS, interpret=True, wgrads=True,
+            **ref["kw"], interpret=True, wgrads=True,
         )
         # The JAX package's own kernel-vs-oracle tolerance (tests/test_ops.py).
         self._assert_grads(port["grads"], dx_k, dw_k, atol=3e-4)
