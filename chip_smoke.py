@@ -7,9 +7,10 @@ Run from the repository root, with no arguments:
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
-   fails if ptxas spills in an attention kernel at head_dim 32 or 64 or in
-   any kernel of the fused layer (K1, K5), or if a head_dim 32 or 64
-   instance of the fused layer's attention kernels is missing.
+   fails if ptxas spills in an attention kernel at head_dim 32 or 64, in
+   any kernel of the fused layer (K1, K5) or in any top-k kernel (K3, K4),
+   or if a head_dim 32 or 64 instance of the fused layer's attention
+   kernels or an instance of the top-k kernel is missing.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
@@ -23,8 +24,12 @@ Run from the repository root, with no arguments:
    192, 256}, read in turns with their yardsticks at the serve shape
    (256, 192) and the train shape (64, 256); each K1 reading with the
    largest |y| and the worst error in bf16 ulps; the attention forward and
-   backward (K6, K7) at the shapes the unfused layer gives them; K4 against
-   K3 over a 1M-row catalog.
+   backward (K6, K7) at the shapes the unfused layer gives them; K3 timed
+   at B in {1, 256} over 50k unit rows at D=384 and 768 (and at k in {10,
+   100, 256}), K4 at B in {8, 256}, each split by the profiler into the
+   slice kernel and the merge and read beside torch.topk(torch.mm(q, C.T),
+   k) (two calls, for reference); K4 against K3 over a 1M-row catalog at B
+   in {8, 256}, read the same way.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
    seeded generator): a WordPiece vocab trained on a 50,000-product catalog,
    ``Recommender`` encoding the catalog through the kernels, a few
@@ -92,8 +97,10 @@ REPO = Path(__file__).resolve().parent
 PKG = "instacart_next_order_recommendation_tpu_torch"
 JAX_PKG = "instacart_next_order_recommendation_tpu"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, f32 FMA, HBM3.
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor cores,
+# f32 FMA, HBM3.
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
 
@@ -183,6 +190,11 @@ FUSED_LAYER_ATTENTION = {
         for d in (32, 64) for n in range(1, 5)
     ],
 }
+# The top-k kernel's instances (csrc/topk.cu): <query tile, list size>.
+TOPK_KERNELS = [
+    f"topk_slices_kernel<{tq},{kp}>"
+    for tq, kp in [(8, 32), (8, 64), (8, 128), (8, 256), (64, 32), (64, 64), (64, 128), (32, 256)]
+] + [f"topk_merge_kernel<{kp}>" for kp in (32, 64, 128, 256)]
 # (hidden, heads, intermediate) of MiniLM-L6 (12 heads of 32) and of
 # mpnet-base-class (12 heads of 64).
 MINILM_WIDTHS = (384, 12, 1536)
@@ -398,8 +410,84 @@ def k2_bound(b: int, s: int, h: int) -> tuple[float, str]:
 
 
 def k3_bound(b: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
+    """K3/K4 on the unit they run on: the catalog, the queries (and the
+    mask) read and the top k written once; three TF32 tensor-core products
+    per multiply-add (split TF32), 3 * 2 * B * N * D operations at the TF32
+    peak."""
+    n_bytes = n * d * 4 + b * d * 4 + b * k * 8 + (n * 4 if masked else 0)
+    return bound_ms(n_bytes, 3 * 2 * b * n * d, PEAK_TF32)
+
+
+def k3_fma_bound(b: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
+    """The same bytes against 2 * B * N * D f32 FMA operations: the bound
+    of the f32 function on CUDA cores, beside k3_bound."""
     n_bytes = n * d * 4 + b * d * 4 + b * k * 8 + (n * 4 if masked else 0)
     return bound_ms(n_bytes, 2 * b * n * d, PEAK_F32)
+
+
+def topk_split(fn) -> dict | None:
+    """Device microseconds of one top-k call from ``launch_breakdown``:
+    the slice kernel (an older checkout's block kernel), and the merge
+    (every other launch: the merge kernel, or an older checkout's sort and
+    gather). None when three traces in a row dropped records (PERF.md
+    section 6)."""
+    for _ in range(3):
+        try:
+            launches = launch_breakdown(fn)
+        except RuntimeError:
+            continue
+        kernel = sum(
+            x["us"] for x in launches
+            if x["name"].lstrip(":").startswith(("topk_slices_kernel", "topk_block_kernel"))
+        )
+        total = sum(x["us"] for x in launches)
+        return {
+            "kernel_us": kernel, "merge_us": total - kernel, "merge_share": 1 - kernel / total,
+            "launches": [x["name"] for x in launches],
+        }
+    return None
+
+
+def topk_reading(q, c, k: int, packed: bool, iters: int = 20) -> dict:
+    """One top-k shape on the card: K3 (or K4) against its plain version
+    (scores within 1e-5 and at least 99% of ids identical for K3; every
+    differing K4 id a 20-bit tie), its time with CUDA events, the
+    profiler's kernel and merge times, its bound on the tensor cores and on
+    f32 FMA, the plain version's time and, two calls and no library call
+    for the function, torch.topk(torch.mm(q, C.T), k) for reference."""
+    from instacart_next_order_recommendation_tpu_torch.ops import topk as topk_module
+    from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+        cosine_topk,
+        cosine_topk_packed_reference,
+        cosine_topk_reference,
+    )
+
+    b, d = q.shape
+    n = c.shape[0]
+    plain = cosine_topk_packed_reference if packed else cosine_topk_reference
+    s_k, i_k = cosine_topk(q, c, k, packed=packed)
+    s_r, i_r = plain(q, c, k)
+    # The plan's names, where the package read has them (an older
+    # checkout's, read by scripts/torch_topk_profile.py, may not).
+    plan = getattr(topk_module, "slice_plan", None)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    row = {
+        "B": b, "N": n, "D": d, "k": k, "packed": packed,
+        "query_tile": topk_module.query_tile(b, k) if plan else None,
+        "slices": plan(b, n, k, sms)[1] if plan else None,
+        "max_abs_err": (s_k - s_r).abs().max().item(),
+        "ids_identical": float((i_k == i_r).float().mean()),
+        "ok": packed_ties_ok(q, c, i_k, i_r) if packed else None,
+        "ms": cuda_ms(lambda: cosine_topk(q, c, k, packed=packed), iters),
+        "plain_ms": cuda_ms(lambda: plain(q, c, k), max(2, iters // 4)),
+        "two_calls_ms": cuda_ms(lambda: torch.topk(torch.mm(q, c.T), k), iters),
+    }
+    row["bound_ms"], row["bound_by"] = k3_bound(b, n, d, k, False)
+    row["f32_fma_bound_ms"] = k3_fma_bound(b, n, d, k, False)[0]
+    row["split"] = topk_split(lambda: cosine_topk(q, c, k, packed=packed))
+    if not packed:
+        row["ok"] = row["max_abs_err"] <= 1e-5 and row["ids_identical"] >= 0.99
+    return row
 
 
 def k5_bound(b: int, s: int, h: int, inter: int, masked: bool) -> tuple[float, str]:
@@ -1034,6 +1122,31 @@ class Smoke:
             del q, k, v, do
             torch.cuda.empty_cache()
 
+    def time_topk(self, dev) -> None:
+        """K3 at B in {1, 256} over a 50k-row catalog of unit rows at D=384
+        and 768, k=16 (the serve bucket), and at B=256 D=384 for k in {10,
+        100, 256} (each list size the k rule picks); K4 at B in {8, 256},
+        D=384, k=16. Each held against its plain version and read by
+        ``topk_reading``."""
+        g = torch.Generator(device=dev).manual_seed(9)
+        for d in (384, 768):
+            c = torch.randn((N_PRODUCTS, d), generator=g, device=dev)
+            c /= c.norm(dim=1, keepdim=True)
+            cases = [(False, 1, 16), (False, BATCH, 16)]
+            if d == 384:
+                cases += [(False, BATCH, k) for k in (10, 100, 256)]
+                cases += [(True, 8, 16), (True, BATCH, 16)]
+            for packed, b, k in cases:
+                q = torch.randn((b, d), generator=g, device=dev)
+                q /= q.norm(dim=1, keepdim=True)
+                row = topk_reading(q, c, k, packed)
+                log(f"{'K4' if packed else 'K3'} timed B={b} N={N_PRODUCTS} D={d} k={k}: "
+                    f"{json.dumps(row)} (two_calls_ms: torch.topk(torch.mm(q, C.T), k), "
+                    f"two calls, for reference)")
+                self.check(row["ok"], f"{'K4' if packed else 'K3'} B={b} D={d} k={k}")
+            del c
+            torch.cuda.empty_cache()
+
     def compare_packed_topk(self, dev) -> None:
         """K4 against K3 and against its plain version at the catalog size
         the JAX package names for the packed extraction: 1M x 384 unit rows,
@@ -1059,13 +1172,19 @@ class Smoke:
                 "ids_equal_to_plain": float((i4 == i_pr).float().mean()),
                 "max_abs_err_vs_plain": (s4 - s_pr).abs().max().item(),
                 "exact_ms": cuda_ms(lambda: cosine_topk(q, c, 10), 10),
+                "exact_split": topk_split(lambda: cosine_topk(q, c, 10)),
                 "packed_ms": cuda_ms(lambda: cosine_topk(q, c, 10, packed=True), 10),
+                "packed_split": topk_split(lambda: cosine_topk(q, c, 10, packed=True)),
                 "packed_plain_ms": cuda_ms(lambda: cosine_topk_packed_reference(q, c, 10), 2, 1),
+                "two_calls_ms": cuda_ms(lambda: torch.topk(torch.mm(q, c.T), 10), 10),
+                "bound_ms": k3_bound(b, PACKED_N, 384, 10, False)[0],
+                "f32_fma_bound_ms": k3_fma_bound(b, PACKED_N, 384, 10, False)[0],
             }
             ties = packed_ties_ok(q, c, i4, i3) and packed_ties_ok(q, c, i4, i_pr)
             self.packed_1m[b] = row
             log(f"K4 vs K3 at N={PACKED_N} D=384 B={b} k=10: {json.dumps(row)}; "
-                f"every differing id a 20-bit tie: {ties}")
+                f"every differing id a 20-bit tie: {ties} (two_calls_ms: "
+                f"torch.topk(torch.mm(q, C.T), k), two calls, for reference)")
             self.check(ties, f"K4 at 1M rows, B={b}: ids differ only at quantization ties")
         del c
         torch.cuda.empty_cache()
@@ -1369,7 +1488,9 @@ class Smoke:
             self.check(e3 <= 1e-5, "K3 scores at the batch shape")
             log(
                 f"kernels line measured at the batch's shapes: B={b} S={s} H={h} I={inter}, "
-                f"catalog N={N_PRODUCTS}, k={K_BATCH}"
+                f"catalog N={N_PRODUCTS}, k={K_BATCH}; K3's bound on TF32 tensor cores "
+                f"{bnd:.4g} ms ({by}), on f32 FMA "
+                f"{k3_fma_bound(b, N_PRODUCTS, h, K_BATCH, False)[0]:.4g}"
             )
         for name, row in self.kernel_rows.items():
             row["launches"] = counts[name]
@@ -2370,6 +2491,12 @@ def main() -> int:
         bool(on_path) and not any(on_path),
         "no ptxas spills in the attention kernels at head_dim 32 and 64",
     )
+    usage = _build.ptxas_usage(logs["topk"])
+    log(f"ptxas (registers, spill stores) of the topk kernels: {json.dumps(usage)}")
+    smoke.check(
+        set(TOPK_KERNELS) <= set(usage) and not any(spill for _, spill in usage.values()),
+        "every topk kernel (K3/K4, each query tile and list size) in ptxas's report, none spilling",
+    )
     for name in ("fused_layer", "fused_layer_bwd"):
         usage = _build.ptxas_usage(logs[name])
         log(f"ptxas (registers, spill stores) of the {name} kernels: {json.dumps(usage)}")
@@ -2398,6 +2525,7 @@ def main() -> int:
             timed={(64, 256)}, traced={(64, 256)},
         )
         smoke.compare_attention_kernels(dev)
+        smoke.time_topk(dev)
         smoke.compare_packed_topk(dev)
         log(f"phase 2 (kernels vs plain) {time.perf_counter() - t0:.1f}s")
         build_root = REPO / "build"

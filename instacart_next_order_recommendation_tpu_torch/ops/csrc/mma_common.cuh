@@ -1,7 +1,8 @@
 // Tensor-core building blocks shared by the attention kernels (attention.cu:
-// K6 and K7) and the fused encoder layer (fused_layer_common.cuh: K1 and K5)
-// on Hopper: PTX wrappers for cp.async, ldmatrix and mma.sync m16n8k16
-// (bf16 in, f32 accumulation), the tile helpers of 64-row tiles whose rows
+// K6 and K7), the fused encoder layer (fused_layer_common.cuh: K1 and K5)
+// and the cosine top-k (topk.cu: K3 and K4) on Hopper: PTX wrappers for
+// cp.async, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulation) and
+// m16n8k8 (TF32 in, f32 accumulation), the tile helpers of 64-row tiles whose rows
 // are padded by 16 bytes (every ldmatrix phase hits 32 distinct banks), and
 // the one-pass attention forward that K6 and K1 both run, each with its own
 // cast point for the probabilities.
@@ -90,6 +91,33 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint3
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b for one m16n8k8 tile in TF32: a 16 x 8 row-major, b 8 x 8
+// column-major. Lane (g = lane / 4, t = lane % 4) holds a[0] = (g, t),
+// a[1] = (g + 8, t), a[2] = (g, t + 4), a[3] = (g + 8, t + 4), b0 = (t, g),
+// b1 = (t + 4, g); c as in the m16n8k16 product.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits, to nearest, ties
+// away from zero: half a TF32 ulp added to the magnitude bits, the low 13
+// cleared; the value cvt.rna.tf32.f32 gives for every finite x), lo = x - hi
+// (exact in f32), passed on whole: the tensor core reads a TF32 operand's
+// top 19 bits, so it takes lo truncated to TF32. hi hi + hi lo + lo hi is
+// then the product of two such values to 1.25 * 2^-20 of its magnitude at
+// worst ("split TF32", three tensor-core products in place of one f32 FMA).
+// Three integer and float instructions: on the H100 each instruction
+// dispatched beside a product costs about a cycle, and cvt.rna.tf32.f32 and a
+// rounded lo made the top-k kernel slower.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & ~0x1FFFu;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {

@@ -8,14 +8,17 @@ ties go to the lowest catalog index. Packed results rank each score by the
 top 20 bits of its order-preserving bit pattern (the JAX kernel's packed
 key), ties again to the lowest index, and return the quantized scores.
 
-The kernels (``csrc/topk.cu``: K3 exact, K4 packed) take each 256-row
-catalog block's top-k; the merge over the ``[B, n_blocks * k]`` candidates,
-laid out block-major, is a stable descending sort, so a lower block wins a
-tie as a lower index does. A k above the block size takes the dense route
-instead, exact whether or not ``packed`` was asked for, chosen by k alone as
-the JAX package's dispatcher chooses (k > block_n goes to the exact dense
-scores + sort there): the scores product is left to ``torch.matmul``, as JAX
-leaves it to XLA, and a stable descending sort selects.
+The kernels (``csrc/topk.cu``: K3 exact, K4 packed) take the top k of
+each catalog slice (``slice_plan``: whole 128-row tiles, as many slices as
+fill the card) for a tile of queries (``query_tile``), as unique 64-bit
+keys (score order bits, then the inverted row), and a second kernel
+selects each query's top k of its ``n_slices * k`` candidates, so ties go
+to the lowest index across slices as within one. A k above ``BLOCK_N``
+takes the dense route instead, exact whether or not ``packed`` was asked
+for, chosen by k alone as the JAX package's dispatcher chooses (k >
+block_n goes to the exact dense scores + sort there): the scores product
+is left to ``torch.matmul``, as JAX leaves it to XLA, and a stable
+descending sort selects.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ import torch
 from instacart_next_order_recommendation_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-BLOCK_N = 256  # catalog rows per kernel block (csrc/topk.cu: BN); the kernel takes k <= BLOCK_N
+BLOCK_N = 256  # the kernel takes k <= BLOCK_N; above it, the dense route
+TILE_N = 128  # catalog rows per kernel tile (csrc/topk.cu: BM); slices are whole tiles
 _SIGN = -(2**31)  # 0x80000000 as an int32
 _LOW = 0xFFF  # the packed key's 12 column bits
 
@@ -95,8 +99,35 @@ def cosine_topk_packed_reference(
 
 
 _SIGNATURES = {
-    "topk_blocks": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    "topk_slices": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
 }
+
+
+def query_tile(b: int, k: int) -> int:
+    """Queries per kernel block: 8 for a batch of at most 8; else 64, or 32
+    for k > 128, whose per-query lists of 256 keys take the shared memory
+    (csrc/topk.cu: ``Shape``)."""
+    if b <= 8:
+        return 8
+    return 32 if k > 128 else 64
+
+
+def slice_plan(b: int, n: int, k: int, sm_count: int) -> tuple[int, int]:
+    """``(slice_rows, n_slices)``: the catalog cut into slices of whole
+    ``TILE_N``-row tiles, as few as fill the card with one wave of blocks
+    (two resident per SM at 8 queries a block, one above; csrc/topk.cu's
+    launch bounds): fewer slices mean fewer candidates to merge."""
+    blocks = sm_count * (2 if query_tile(b, k) == 8 else 1)
+    n_tiles = -(-n // TILE_N)
+    want = max(1, min(n_tiles, blocks // -(-b // query_tile(b, k))))
+    tiles = -(-n_tiles // want)
+    return tiles * TILE_N, -(-n_tiles // tiles)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel's cp.async copies)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def cosine_topk(
@@ -108,8 +139,8 @@ def cosine_topk(
     packed: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k, exact or (``packed=True``, k <= 256) on the packed keys. A CPU
-    tensor takes the plain version; a CUDA tensor launches the block kernel
-    (K3, or K4 when packed) and merges (1 <= k <= 256), or takes the exact
+    tensor takes the plain version; a CUDA tensor launches the slice and
+    merge kernels (K3, or K4 when packed; 1 <= k <= 256), or takes the exact
     dense route (k > 256), or raises on what it does not take (f32 only,
     D % 16 == 0)."""
     packed = packed and k <= BLOCK_N
@@ -139,8 +170,8 @@ def cosine_topk(
             f"cosine_topk takes D % 16 == 0 and 1 <= k <= N (the kernel k <= {BLOCK_N}) on "
             f"one device; got D={d}, k={k}, N={n}, B={b}"
         )
-    queries = queries.contiguous()
-    catalog = catalog.contiguous()
+    queries = _aligned(queries)
+    catalog = _aligned(catalog)
     mask = None
     if candidate_mask is not None:
         mask = candidate_mask.to(device=queries.device, dtype=torch.int32).contiguous()
@@ -150,25 +181,24 @@ def cosine_topk(
     if dense:
         cosine_topk.dense_calls += 1
         return cosine_topk_reference(queries, catalog, k, n_valid, mask)
-    n_blocks = -(-n // BLOCK_N)
-    cand_s = torch.empty((b, n_blocks * k), dtype=torch.float32, device=queries.device)
-    cand_i = torch.empty((b, n_blocks * k), dtype=torch.int32, device=queries.device)
+    sm_count = torch.cuda.get_device_properties(queries.device).multi_processor_count
+    slice_rows, n_slices = slice_plan(b, n, k, sm_count)
+    cand = torch.empty((b, n_slices * k), dtype=torch.int64, device=queries.device)
+    out_s = torch.empty((b, k), dtype=torch.float32, device=queries.device)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=queries.device)
     lib = _build.load("topk", _SIGNATURES)
-    err = lib.topk_blocks(
+    err = lib.topk_slices(
         _build.ptr(queries), _build.ptr(catalog),
         None if mask is None else _build.ptr(mask),
-        _build.ptr(cand_s), _build.ptr(cand_i), b, n, d, n_valid, k, int(packed),
-        _build.stream_of(queries),
+        _build.ptr(cand), _build.ptr(out_s), _build.ptr(out_i), b, n, d, n_valid, k,
+        int(packed), query_tile(b, k), slice_rows, n_slices, _build.stream_of(queries),
     )
-    _build.check(lib, err, "topk_blocks")
+    _build.check(lib, err, "topk_slices")
     if packed:
         cosine_topk.packed_launches += 1
     else:
         cosine_topk.launches += 1
-    if n_blocks == 1:
-        return cand_s, cand_i
-    vals, pos = torch.sort(cand_s, dim=1, descending=True, stable=True)
-    return vals[:, :k].contiguous(), torch.gather(cand_i, 1, pos[:, :k])
+    return out_s, out_i
 
 
 cosine_topk.launches = 0  # K3

@@ -32,9 +32,15 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
 from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
     masked_mean_pool_l2norm_reference,
 )
+from instacart_next_order_recommendation_tpu_torch.ops import _build
 from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+    _SIGNATURES as TOPK_SIGNATURES,
     cosine_topk_packed_reference,
     cosine_topk_reference,
+    quantized_keys,
+    quantized_scores,
+    query_tile,
+    slice_plan,
 )
 
 H, INTER, HEADS = 384, 1536, 12
@@ -183,6 +189,164 @@ def test_topk_dense_route_above_block(dev):
     launches = cosine_topk.launches
     cosine_topk(q, c, 256)  # the block size itself still launches K3
     assert cosine_topk.launches == launches + 1
+
+
+def _grid(g, rows, d=H):
+    """k / 16 with |k| <= 8: exact in TF32 and f32, so the split-TF32
+    scores are exact and ties are exact."""
+    return torch.randint(-8, 9, (rows, d), generator=g).float() / 16
+
+
+def _unit(g, rows, d):
+    x = torch.randn((rows, d), generator=g)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _topk_both(q, c, k, packed, **kw):
+    plain = cosine_topk_packed_reference if packed else cosine_topk_reference
+    return cosine_topk(q, c, k, packed=packed, **kw), plain(q, c, k, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("batch,masked", [(1, False), (256, True)])
+def test_topk_random_unit_rows_against_float64(dev, d, batch, masked):
+    # Split TF32 on tensor cores: each score within 1e-5 of float64, and an
+    # id differs from the float64 ranking's only where the two rows' float64
+    # scores lie within 2e-5.
+    g = torch.Generator().manual_seed(20 + d)
+    c, q = _unit(g, 20_000, d), _unit(g, batch, d)
+    mask = (torch.rand(20_000, generator=g) < 0.7).int() if masked else None
+    c, q = c.to(dev), q.to(dev)
+    mask = None if mask is None else mask.to(dev)
+    s, i = cosine_topk(q, c, 16, n_valid=19_990, candidate_mask=mask)
+    s_ref, i_ref = _f64_ranking(q, c, 16, n_valid=19_990, mask=mask)
+    assert np.abs(s.double().cpu().numpy() - s_ref).max() <= 1e-5
+    f64 = q.double().cpu().numpy() @ c.double().cpu().numpy().T
+    i, rows = i.cpu().numpy(), np.arange(batch)[:, None]
+    swapped = i != i_ref
+    assert swapped.mean() <= 0.01
+    assert (np.abs(f64[rows, i] - f64[rows, i_ref])[swapped] <= 2e-5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 768])
+def test_topk_scores_near_one_against_float64(dev, d):
+    # Unit rows clustered around one direction, as an untrained tower's
+    # embeddings are: scores near 0.97, where the tensor cores' truncating
+    # accumulation drifts furthest (4-9e-6 when one accumulator takes every
+    # product). Each 32 columns sum into a fresh partial: within 1e-6.
+    g = torch.Generator().manual_seed(25 + d)
+    base = torch.randn((1, d), generator=g)
+    c = base + 0.2 * torch.randn((20_000, d), generator=g)
+    q = base + 0.2 * torch.randn((64, d), generator=g)
+    c, q = (x / x.norm(dim=1, keepdim=True) for x in (c, q))
+    c, q = c.to(dev), q.to(dev)
+    s, i = cosine_topk(q, c, 16)
+    f64 = q.double().cpu().numpy() @ c.double().cpu().numpy().T
+    assert np.median(f64.max(axis=1)) > 0.95
+    got = np.take_along_axis(f64, i.long().cpu().numpy(), axis=1)
+    assert np.abs(s.double().cpu().numpy() - got).max() <= 1e-6
+    s_ref, i_ref = _f64_ranking(q, c, 16)
+    swapped = i.cpu().numpy() != i_ref
+    assert (np.abs(got - s_ref)[swapped] <= 2e-5).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+def test_topk_ties_across_slices_and_4096_rows(dev, packed):
+    # Ties inside a slice, at every slice boundary the plan gives this
+    # batch, and across 4096-row boundaries (the TPU kernel's packed key
+    # held 12 column bits): identical to the plain version, ties to the
+    # lowest index.
+    n, batch, k = 20_000, 20, 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, n_slices = slice_plan(batch, n, k, sms)
+    assert n_slices > 1
+    g = torch.Generator().manual_seed(21)
+    c, q = _grid(g, n), _grid(g, batch)
+    tied = sorted({7, 8, 4095, 4096, 8191, 8192, 12287, 12288, n - 1}
+                  | {r for b in range(rows, n, rows) for r in (b - 1, b)})
+    c[tied] = c[7].clone()
+    q[0] = c[7]
+    c, q = c.to(dev), q.to(dev)
+    (s, i), (s_ref, i_ref) = _topk_both(q, c, k, packed)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+    assert i[0, : min(k, len(tied))].tolist() == tied[:k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("batch", [1, 70])
+def test_topk_fewer_eligible_rows_than_k(dev, batch, packed):
+    g = torch.Generator().manual_seed(22)
+    c, q = _grid(g, 3000).to(dev), _grid(g, batch).to(dev)
+    mask = torch.zeros(3000, dtype=torch.int32, device=dev)
+    mask[[3, 77, 150, 299]] = 1
+    (s, i), (s_ref, i_ref) = _topk_both(q, c, 9, packed, candidate_mask=mask)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+    # The masked rows fill the tail in index order, at the -1e30 sentinel
+    # (K4: the score its quantized key stands for).
+    assert i[:, 4:].tolist() == [[0, 1, 2, 4, 5]] * batch
+    sentinel = torch.tensor([-1e30], device=dev)
+    if packed:
+        sentinel = quantized_scores(quantized_keys(sentinel))
+    assert (s[:, 4:] == sentinel).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("batch", [1, 9, 70])
+@pytest.mark.parametrize("k", [1, 10, 16, 32, 33, 64, 65, 100, 128, 129, 256])
+def test_topk_every_form_of_k(dev, k, batch, packed):
+    # Every (query tile, list size) form the k rule picks, on grid values
+    # with ties: identical to the plain version.
+    g = torch.Generator().manual_seed(23)
+    c, q = _grid(g, 5000), _grid(g, batch)
+    c[2500:2520] = c[11].clone()
+    q[0] = c[11]
+    mask = (torch.rand(5000, generator=g) < 0.6).int()
+    mask[[11, 2500, 2519]] = 1
+    c, q, mask = c.to(dev), q.to(dev), mask.to(dev)
+    (s, i), (s_ref, i_ref) = _topk_both(q, c, k, packed, n_valid=4990, candidate_mask=mask)
+    assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
+
+
+@pytest.mark.cuda
+def test_topk_kernel_takes_only_the_forms_the_k_rule_picks(dev):
+    # The rule: 8 queries a block for B <= 8, else 64, or 32 for k > 128,
+    # with lists of k rounded up to 32, 64, 128 or 256 keys. The entry
+    # point launches exactly those forms and refuses any other tile.
+    assert [query_tile(b, k) for b, k in [(8, 256), (9, 128), (9, 129)]] == [8, 64, 32]
+    lib = _build.load("topk", TOPK_SIGNATURES)
+    q, c = torch.zeros((70, 32), device=dev), torch.zeros((300, 32), device=dev)
+    cand = torch.empty((70, 3 * 256), dtype=torch.int64, device=dev)
+    out_s = torch.empty((70, 256), device=dev)
+    out_i = torch.empty((70, 256), dtype=torch.int32, device=dev)
+    for k in (16, 100, 200):
+        for tile in (8, 16, 32, 64, 128):
+            err = lib.topk_slices(
+                _build.ptr(q), _build.ptr(c), None, _build.ptr(cand), _build.ptr(out_s),
+                _build.ptr(out_i), 70, 300, 32, 300, k, 0, tile, 128, 3, _build.stream_of(q),
+            )
+            assert (err == 0) == (tile == 8 or tile == query_tile(70, k)), (k, tile, err)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 48, 400])
+def test_topk_widths_and_an_unaligned_catalog(dev, d):
+    # D % 32 != 0 leaves a zero-filled half stage; a catalog view that does
+    # not start on 16 bytes is copied to one that does.
+    g = torch.Generator().manual_seed(24)
+    c, q = _grid(g, 3000, d), _grid(g, 5, d)
+    base = torch.zeros(3000 * d + 1, device=dev)
+    base[1:] = c.flatten().to(dev)
+    c_view = base[1:].view(3000, d)
+    assert c_view.data_ptr() % 16 != 0
+    for packed in (False, True):
+        (s, i), (s_ref, i_ref) = _topk_both(q.to(dev), c_view, 16, packed)
+        assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
 
 
 def _dropout(batch, seq, dev, seed=5, h=H):
