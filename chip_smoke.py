@@ -8,9 +8,10 @@ Run from the repository root, with no arguments:
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
    fails if ptxas spills in an attention kernel at head_dim 32 or 64, in
-   any kernel of the fused layer (K1, K5) or in any top-k kernel (K3, K4),
-   or if a head_dim 32 or 64 instance of the fused layer's attention
-   kernels or an instance of the top-k kernel is missing.
+   any kernel of the fused layer (K1, K5), in any top-k kernel (K3, K4) or
+   in any pool kernel (K2), or if a head_dim 32 or 64 instance of the fused
+   layer's attention kernels or an instance of the top-k or pool kernel is
+   missing.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
@@ -38,7 +39,13 @@ Run from the repository root, with no arguments:
    256 queries through ``FusedServePipeline``, and single-query latency.
    The launch counts show the path ran through every kernel, and the
    batch's top-16 ids are held against the plain versions on the card; one
-   K1 call at the batch's shape is broken down launch by launch.
+   K1 call at the batch's shape is broken down launch by launch. K2 is
+   held against its plain version, two launches bitwise equal, and timed
+   cold (a 256 MB buffer written and read between launches) and warm, in
+   turns with a few PyTorch calls for the same function, at the batch's
+   shape and at one recommend's, a catalog batch's and a train step's
+   (B=64, S=256), with the form ``pool_plan`` picks; the same for the
+   mpnet-base-class tower.
    Then the same serve path for the mpnet-base-class tower at full width
    (head_dim 64 through the fused layer: 12 K1 per forward, no K6),
    MiniLM-L6 and mpnet-base-class at two lengths their fused kernels do not
@@ -103,6 +110,10 @@ PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+
+FLUSH_BYTES = 256 << 20
+SPIN_CYCLES = 200_000  # torch.cuda._sleep: about 0.1 ms at the H100's clock
+HOST_CALLS = 200
 
 N_PRODUCTS = 50_000
 BATCH = 256
@@ -195,6 +206,11 @@ TOPK_KERNELS = [
     f"topk_slices_kernel<{tq},{kp}>"
     for tq, kp in [(8, 32), (8, 64), (8, 128), (8, 256), (64, 32), (64, 64), (64, 128), (32, 256)]
 ] + [f"topk_merge_kernel<{kp}>" for kp in (32, 64, 128, 256)]
+# K2's instances (csrc/pool_norm.cu): <load width, rows in flight, cluster form>.
+POOL_KERNELS = [
+    f"pool_l2norm_kernel<{vec},{rows},{cluster}>"
+    for vec, rows in ((8, 2), (8, 4), (1, 8)) for cluster in (0, 1)
+]
 # (hidden, heads, intermediate) of MiniLM-L6 (12 heads of 32) and of
 # mpnet-base-class (12 heads of 64).
 MINILM_WIDTHS = (384, 12, 1536)
@@ -302,16 +318,55 @@ def cuda_ms_median(fn, iters: int, repeats: int = 5) -> float:
     return float(np.median([cuda_ms(fn, iters) for _ in range(repeats)]))
 
 
-def ms_in_turns(fns: dict, iters: int, turns: int = 2) -> dict[str, float]:
+def flush_l2() -> None:
+    """Leave nothing of a kernel's inputs in the L2: write a buffer of five
+    times the H100's 50 MB L2, then read it back, so that the cache holds
+    clean lines of the buffer only (dirty lines would be written back
+    inside the next timed launch)."""
+    torch.ones(FLUSH_BYTES // 4, dtype=torch.float32, device="cuda").sum()
+
+
+def _behind_ms(fn, iters: int, before, warmup: int = 2) -> float:
+    """Median milliseconds of one call, each timed call queued behind
+    ``before()``'s device work, outside its CUDA events: the host enqueues
+    the call while the card is busy, so its own overhead is not timed."""
+    for _ in range(warmup):
+        fn()
+    events = [
+        (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        for _ in range(iters)
+    ]
+    for start, end in events:
+        before()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([start.elapsed_time(end) for start, end in events]))
+
+
+def cold_ms(fn, iters: int) -> float:
+    """One call with the L2 cold: ``flush_l2`` before each timed call."""
+    return _behind_ms(fn, iters, flush_l2)
+
+
+def warm_ms(fn, iters: int) -> float:
+    """One call right after the same call (an input under the L2's 50 MB
+    is then read from it), each behind a spin of the card of about 0.1 ms."""
+    return _behind_ms(fn, iters, lambda: torch.cuda._sleep(SPIN_CYCLES))
+
+
+def ms_in_turns(fns: dict, iters: int, turns: int = 2, read=cuda_ms_median) -> dict[str, float]:
     """Each function's milliseconds, read in turns: in each of ``turns``
-    rounds every function takes a ``cuda_ms_median`` reading, the order
-    reversed every other round, so that a kernel and its yardstick see the
-    same state of the card; the median of the rounds."""
+    rounds every function takes a ``read`` reading (``cuda_ms_median``,
+    ``cold_ms`` or ``warm_ms``), the order reversed every other round, so
+    that a kernel and its yardstick see the same state of the card; the
+    median of the rounds."""
     names = list(fns)
     readings: dict[str, list[float]] = {n: [] for n in names}
     for turn in range(turns):
         for n in names if turn % 2 == 0 else names[::-1]:
-            readings[n].append(cuda_ms_median(fns[n], iters))
+            readings[n].append(read(fns[n], iters))
     return {n: float(np.median(r)) for n, r in readings.items()}
 
 
@@ -407,6 +462,76 @@ def k1_bound(b: int, s: int, h: int, inter: int, masked: bool = False) -> tuple[
 
 def k2_bound(b: int, s: int, h: int) -> tuple[float, str]:
     return bound_ms(b * s * h * 2 + b * s * 4 + b * h * 4, 2 * b * s * h, PEAK_F32)
+
+
+def pool_yardstick(h: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """K2's function in a few PyTorch calls (no single call computes it;
+    the port never calls this). ``m`` is the mask in f32."""
+    return torch.nn.functional.normalize(
+        (h.float() * m[..., None]).sum(1) / m.sum(1, keepdim=True).clamp_min(1e-9), dim=-1
+    )
+
+
+def pool_reading(y: torch.Tensor, m: torch.Tensor, iters: int = 30) -> dict:
+    """K2 at one shape on the card: against its plain version (K2_TOL), two
+    launches bitwise equal, the form ``pool_plan`` picks, and its time in
+    turns with ``pool_yardstick`` (N calls), cold (``cold_ms``: the
+    kernels line's ms) and warm (``warm_ms``); the wrapper's host time per
+    call, back to back without a sync (what a host-bound caller such as a
+    single query waits for); the plain version's time, the bytes bound and
+    the cold share of it."""
+    from instacart_next_order_recommendation_tpu_torch.ops import pool_norm
+
+    b, s, h = y.shape
+    out = pool_norm.masked_mean_pool_l2norm(y, m)
+    again = pool_norm.masked_mean_pool_l2norm(y, m)
+    ref = pool_norm.masked_mean_pool_l2norm_reference(y, m)
+    plan = getattr(pool_norm, "pool_plan", None)  # an older checkout has none
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    mf = m.float()
+    fns = {
+        "kernel": lambda: pool_norm.masked_mean_pool_l2norm(y, m),
+        "yardstick": lambda: pool_yardstick(y, mf),
+    }
+    cold = ms_in_turns(fns, iters, turns=4, read=cold_ms)
+    warm = ms_in_turns(fns, iters, turns=4, read=warm_ms)
+    fns["kernel"]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        fns["kernel"]()
+    host_us = (time.perf_counter() - t0) / HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    bnd, by = k2_bound(b, s, h)
+    return {
+        "shape": [b, s, h],
+        "form": plan(b, s, sms)._asdict() if plan else "one block per row",
+        "ms": cold["kernel"],
+        "warm_ms": warm["kernel"],
+        "yardstick_n_calls_ms": cold["yardstick"],
+        "yardstick_n_calls_warm_ms": warm["yardstick"],
+        "plain_ms": cuda_ms(lambda: pool_norm.masked_mean_pool_l2norm_reference(y, m), 10),
+        "library_ms": None,
+        "max_abs_err": (out - ref).abs().max().item(),
+        "finite": bool(torch.isfinite(out).all()),
+        "bitwise_equal": torch.equal(out.view(torch.int32), again.view(torch.int32)),
+        "host_us": host_us,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "bound_share_cold": bnd / cold["kernel"],
+    }
+
+
+K2_ROW_KEYS = ("ms", "plain_ms", "library_ms", "max_abs_err", "bound_ms", "bound_by")
+
+
+def most_common(values) -> int:
+    values = list(values)
+    return max(set(values), key=values.count)
+
+
+def pool_ok(row: dict) -> bool:
+    return row["finite"] and row["bitwise_equal"] and row["max_abs_err"] <= K2_TOL
 
 
 def k3_bound(b: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
@@ -968,6 +1093,7 @@ class Smoke:
     def __init__(self):
         self.failures: list[str] = []
         self.kernel_rows: dict[str, dict] = {}
+        self.pool_rows: dict[int, list[dict]] = {}  # K2 readings by hidden width
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1017,11 +1143,11 @@ class Smoke:
                 p = masked_mean_pool_l2norm(y, mask)
                 p_ref = masked_mean_pool_l2norm_reference(y, mask)
                 err2 = (p - p_ref).abs().max().item()
-                ms2 = cuda_ms(lambda: masked_mean_pool_l2norm(y, mask), 20)
+                ms2 = warm_ms(lambda: masked_mean_pool_l2norm(y, mask), 20)
                 plain2 = cuda_ms(lambda: masked_mean_pool_l2norm_reference(y, mask), 5)
                 log(
                     f"K2 masked_mean_pool_l2norm H={h} B={b} S={s}: max_abs_err={err2:.3g} "
-                    f"(tol {K2_TOL}) ms={ms2:.4f} plain_ms={plain2:.4f} "
+                    f"(tol {K2_TOL}) warm_ms={ms2:.4f} plain_ms={plain2:.4f} "
                     f"launches={masked_mean_pool_l2norm.launches}"
                 )
                 self.check(
@@ -1264,6 +1390,21 @@ class Smoke:
         del library
         torch.cuda.empty_cache()
 
+    def time_pool(self, dev, h: int, shapes, seed: int) -> list[dict]:
+        """K2 (``pool_reading``) at width ``h`` and the (B, S) pairs in
+        ``shapes``: random bf16 hidden states from a seeded generator, every
+        batch above 1 with an all-pad row."""
+        g = torch.Generator().manual_seed(seed)
+        rows = []
+        for b, s in shapes:
+            y = torch.randn((b, s, h), generator=g).to(dev, torch.bfloat16)
+            m = random_mask(b, s, g, dev)
+            row = pool_reading(y, m)
+            log(f"K2 masked_mean_pool_l2norm at B={b} S={s} H={h}: {json.dumps(row)}")
+            self.check(pool_ok(row), f"K2 at B={b} S={s} H={h}")
+            rows.append(row)
+        return rows
+
     # ------------------------------------------------------------ phase 3
 
     def serve(self, dev, workdir: Path) -> dict:
@@ -1278,9 +1419,6 @@ class Smoke:
             cosine_topk,
             fused_encoder_layer,
             masked_mean_pool_l2norm,
-        )
-        from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
-            masked_mean_pool_l2norm_reference,
         )
         from instacart_next_order_recommendation_tpu_torch.ops.topk import (
             cosine_topk_reference,
@@ -1459,15 +1597,21 @@ class Smoke:
                 lambda: fused_encoder_layer(x, m, layer, **kw),
             )
             self.check(row["max_abs_err"] <= K1_TOL, "K1 at the batch shape")
-            p = masked_mean_pool_l2norm(y, m)
-            e2 = (p - masked_mean_pool_l2norm_reference(y, m)).abs().max().item()
-            bnd, by = k2_bound(b, s, h)
-            self.kernel_rows["masked_mean_pool_l2norm"] = dict(
-                ms=cuda_ms(lambda: masked_mean_pool_l2norm(y, m), 50),
-                plain_ms=cuda_ms(lambda: masked_mean_pool_l2norm_reference(y, m), 20),
-                library_ms=None, max_abs_err=e2, bound_ms=bnd, bound_by=by,
+            k2 = pool_reading(y, m)
+            log(f"K2 masked_mean_pool_l2norm at the serve batch's shape B={b} S={s} H={h}: "
+                f"{json.dumps(k2)}")
+            self.check(pool_ok(k2), "K2 at the batch shape")
+            self.kernel_rows["masked_mean_pool_l2norm"] = {key: k2[key] for key in K2_ROW_KEYS}
+            # K2 at the main path's other shapes: one recommend, a catalog
+            # batch (their most common lengths in this run) and a train step.
+            s_single = most_common(
+                rec.encoder.tokenizer.encode_batch([q], max_seq_length=256)[0].shape[1]
+                for q in queries[BATCH:]
             )
-            self.check(e2 <= K2_TOL, "K2 at the batch shape")
+            pool_shapes = [(1, s_single), (512, most_common(c.shape[1] for c in cat_ids)),
+                           (64, 256)]
+            self.pool_rows[h] = [k2, *self.time_pool(dev, h, pool_shapes, seed=21)]
+            p = masked_mean_pool_l2norm(y, m)
             cat = rec.index.catalog
             s_k, i_k = cosine_topk(p, cat, K_BATCH, n_valid=N_PRODUCTS)
             s_r, i_r = cosine_topk_reference(p, cat, K_BATCH, n_valid=N_PRODUCTS)
@@ -1497,6 +1641,7 @@ class Smoke:
         self.serve_state = dict(
             model_dir=model_dir, corpus_path=corpus_path, queries=queries, tok=tok,
             batch_ids=ids, batch_idx=b_idx, catalog=rec.index.catalog, catalog_texts=catalog,
+            pool_shapes=pool_shapes,
         )
         return serve
 
@@ -1516,9 +1661,6 @@ class Smoke:
             fused_encoder_layer,
             masked_mean_pool_l2norm,
             multi_head_attention,
-        )
-        from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
-            masked_mean_pool_l2norm_reference,
         )
         from instacart_next_order_recommendation_tpu_torch.ops.topk import (
             cosine_topk_reference,
@@ -1608,12 +1750,10 @@ class Smoke:
         b, s, h = x.shape
         with torch.no_grad():
             p = masked_mean_pool_l2norm(y, m)
-            e2 = (p - masked_mean_pool_l2norm_reference(y, m)).abs().max().item()
-            k2 = dict(
-                ms=cuda_ms(lambda: masked_mean_pool_l2norm(y, m), 50),
-                plain_ms=cuda_ms(lambda: masked_mean_pool_l2norm_reference(y, m), 20),
-                max_abs_err=e2, bound_ms=k2_bound(b, s, h)[0],
-            )
+            k2 = pool_reading(y, m)
+            self.pool_rows[h] = [
+                k2, *self.time_pool(dev, h, self.serve_state["pool_shapes"], seed=22)
+            ]
             cat = rec.index.catalog
             s_k, i_k = cosine_topk(p, cat, K_BATCH, n_valid=N_PRODUCTS)
             s_r, i_r = cosine_topk_reference(p, cat, K_BATCH, n_valid=N_PRODUCTS)
@@ -1629,7 +1769,7 @@ class Smoke:
             f"{json.dumps(self.kernel_rows['fused_encoder_layer_hd64'])}; K2 {json.dumps(k2)}; "
             f"K3 N={N_PRODUCTS} D={h} {json.dumps(k3)}"
         )
-        self.check(e2 <= K2_TOL and k3["max_abs_err"] <= 1e-5 and k3["ids_identical"] >= 0.99,
+        self.check(pool_ok(k2) and k3["max_abs_err"] <= 1e-5 and k3["ids_identical"] >= 0.99,
                    "K2 and K3 at the mpnet shapes")
         out = {
             "model": "mpnet-base-class",
@@ -2497,6 +2637,13 @@ def main() -> int:
         set(TOPK_KERNELS) <= set(usage) and not any(spill for _, spill in usage.values()),
         "every topk kernel (K3/K4, each query tile and list size) in ptxas's report, none spilling",
     )
+    usage = _build.ptxas_usage(logs["pool_norm"])
+    log(f"ptxas (registers, spill stores) of the pool_norm kernels: {json.dumps(usage)}")
+    smoke.check(
+        set(POOL_KERNELS) <= set(usage) and not any(spill for _, spill in usage.values()),
+        "every pool_norm kernel (K2, each load width, rows in flight and form) in ptxas's "
+        "report, none spilling",
+    )
     for name in ("fused_layer", "fused_layer_bwd"):
         usage = _build.ptxas_usage(logs[name])
         log(f"ptxas (registers, spill stores) of the {name} kernels: {json.dumps(usage)}")
@@ -2554,6 +2701,13 @@ def main() -> int:
         traceback.print_exc()
         smoke.failures.append("exception")
 
+    for h, readings in smoke.pool_rows.items():
+        for r in readings:
+            log(f"K2 H={h} B,S={r['shape'][:2]}: form {r['form']}, cold {r['ms']:.5f} ms "
+                f"(bound share {r['bound_share_cold']:.3f}), warm {r['warm_ms']:.5f}, "
+                f"yardstick cold {r['yardstick_n_calls_ms']:.5f} / warm "
+                f"{r['yardstick_n_calls_warm_ms']:.5f}, plain {r['plain_ms']:.5f}, "
+                f"host {r['host_us']:.1f} us a call")
     if smoke.failures:
         log(f"FAILED: {smoke.failures}")
         return 1

@@ -30,6 +30,9 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     prepare_layer,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
+    _SIGNATURES as POOL_SIGNATURES,
+    PoolPlan,
+    _launch as pool_launch,
     masked_mean_pool_l2norm_reference,
 )
 from instacart_next_order_recommendation_tpu_torch.ops import _build
@@ -129,6 +132,146 @@ def test_pool_matches_plain(dev, batch, seq):
     ref = masked_mean_pool_l2norm_reference(hidden, mask)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= 1e-5
+
+
+# K2, absolute: f32 sums in another order than the plain version's, on a
+# unit-norm output.
+POOL_TOL = 1e-5
+
+
+def _pool_input(batch, seq, h, dev, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn((batch, seq, h), generator=g).to(dev, torch.bfloat16), _mask(batch, seq, dev)
+
+
+def _pool_err(out, hidden, mask):
+    return (out - masked_mean_pool_l2norm_reference(hidden, mask)).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [384, 768, 100])
+@pytest.mark.parametrize("batch", [1, 8, 131, 256, 1024])
+@pytest.mark.parametrize("seq", [32, 192])
+def test_pool_in_the_forms_the_plan_picks_matches_plain(dev, batch, seq, h):
+    hidden, mask = _pool_input(batch, seq, h, dev, seed=batch + seq + h)
+    before = masked_mean_pool_l2norm.launches
+    out = masked_mean_pool_l2norm(hidden, mask)
+    assert masked_mean_pool_l2norm.launches == before + 1
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and out.shape == (batch, h)
+    assert torch.isfinite(out).all()
+    assert _pool_err(out, hidden, mask) <= POOL_TOL
+    if batch > 1:
+        assert (out[-1] == 0).all()  # the all-pad row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [384, 100, 12288])
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("rows", [2, 4])
+def test_pool_every_form_matches_plain(dev, rows, cluster, h):
+    # Every instance (load width by H, rows in flight, cluster or not) at
+    # 4 and 16 warps; S = 2500 takes two mask tiles in one block, H = 12288
+    # several column passes.
+    for batch, seq in [(3, 192), (2, 2500)]:
+        hidden, mask = _pool_input(batch, seq, h, dev, seed=rows + cluster + h)
+        for warps in (4, 16):
+            plan = PoolPlan(cluster, warps, rows, -(-seq // cluster))
+            out = pool_launch(hidden, mask, plan)
+            torch.cuda.synchronize()
+            assert _pool_err(out, hidden, mask) <= POOL_TOL, (batch, seq, plan)
+
+
+@pytest.mark.cuda
+def test_pool_rows_not_16_byte_aligned(dev):
+    # A view one element in: the wrapper takes the 2-byte loads.
+    hidden, mask = _pool_input(4, 64, 392, dev, seed=21)
+    base = torch.empty(hidden.numel() + 1, dtype=torch.bfloat16, device=dev)
+    shifted = base[1:].view(hidden.shape)
+    shifted.copy_(hidden)
+    assert shifted.data_ptr() % 16 != 0
+    out = masked_mean_pool_l2norm(shifted, mask)
+    torch.cuda.synchronize()
+    assert _pool_err(out, hidden, mask) <= POOL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+@pytest.mark.parametrize("batch", [1, 256])
+def test_pool_nan_or_inf_at_a_masked_position_reaches_its_row(dev, batch, bad):
+    # Masked positions are read and weighted by 0, as in the plain version:
+    # NaN * 0 and Inf * 0 are NaN, in whichever form the plan picks.
+    seq = 64
+    hidden, _ = _pool_input(batch, seq, 384, dev, seed=22)
+    mask = torch.ones((batch, seq), dtype=torch.int32, device=dev)
+    mask[0, 40:] = 0
+    hidden[0, 50, 7] = bad
+    out = masked_mean_pool_l2norm(hidden, mask)
+    ref = masked_mean_pool_l2norm_reference(hidden, mask)
+    torch.cuda.synchronize()
+    assert torch.isnan(out[0]).all() and torch.isnan(ref[0]).all()
+    assert torch.isfinite(out[1:]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,seq,h", [(1, 64, 384), (8, 192, 768), (64, 256, 768), (256, 192, 384)])
+def test_pool_is_bitwise_deterministic(dev, batch, seq, h):
+    # A fixed summation order and no atomics, the cluster form included.
+    hidden, mask = _pool_input(batch, seq, h, dev, seed=23)
+    first = masked_mean_pool_l2norm(hidden, mask)
+    second = masked_mean_pool_l2norm(hidden, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_pool_refuses_what_it_does_not_take(dev):
+    hidden, mask = _pool_input(2, 16, 384, dev, seed=24)
+    with pytest.raises(ValueError):  # f32 has no kernel
+        masked_mean_pool_l2norm(hidden.float(), mask)
+    with pytest.raises(ValueError):  # a mask of another shape
+        masked_mean_pool_l2norm(hidden, mask[:, :8])
+    with pytest.raises(ValueError):  # a mask on another device
+        masked_mean_pool_l2norm(hidden, mask.cpu())
+    with pytest.raises(ValueError):  # not [B, S, H]
+        masked_mean_pool_l2norm(hidden[0], mask[0])
+    wide = torch.zeros((1, 4, 12296), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):  # H > 12288
+        masked_mean_pool_l2norm(wide, torch.ones((1, 4), dtype=torch.int32, device=dev))
+
+
+@pytest.mark.cuda
+def test_pool_entry_takes_only_its_forms(dev):
+    # Cluster sizes 1, 2, 4, 8; 1-16 warps; 2 or 4 rows in flight;
+    # 8-wide loads only where H % 8 == 0; chunks that cover S.
+    lib = _build.load("pool_norm", POOL_SIGNATURES)
+    hidden, mask = _pool_input(2, 64, 100, dev, seed=25)
+    out = torch.empty((2, 100), device=dev)
+
+    def call(vec=1, cluster=2, warps=4, rows=4, chunk=32):
+        return lib.pool_l2norm(
+            _build.ptr(hidden), _build.ptr(mask), _build.ptr(out), 2, 64, 100, vec, cluster,
+            warps, rows, chunk, _build.stream_of(hidden),
+        )
+
+    assert call() == 0
+    for bad in (dict(vec=8), dict(vec=2), dict(cluster=3), dict(cluster=16), dict(warps=0),
+                dict(warps=17), dict(rows=3), dict(rows=8), dict(chunk=31)):
+        assert call(**bad) != 0, bad
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_pool_counts_its_launches_forward_only(dev):
+    # The backward is the plain version's vjp: no launch.
+    hidden, mask = _pool_input(3, 32, 384, dev, seed=26)
+    hidden.requires_grad_(True)
+    before = masked_mean_pool_l2norm.launches
+    out = masked_mean_pool_l2norm(hidden, mask)
+    assert masked_mean_pool_l2norm.launches == before + 1
+    out.sum().backward()
+    assert masked_mean_pool_l2norm.launches == before + 1
+    assert hidden.grad is not None and torch.isfinite(hidden.grad.float()).all()
 
 
 @pytest.mark.cuda
