@@ -51,6 +51,21 @@ Run from the repository root, with no arguments:
    MiniLM-L6 and mpnet-base-class at two lengths their fused kernels do not
    take (S=512 and S=200, through K6), and
    ``Recommender(topk_extraction="packed")`` (K4) against the exact one.
+   K3 and K4 are read beside torch.topk(torch.mm(q, C.T), k) at the
+   batch's shapes.
+3c. The serving tier on phase 3's MiniLM-L6 tower, corpus and queries:
+   the native (C++) tokenizer's ids and masks held to its pure-Python
+   version on every catalog text and query, both timed;
+   ``MonitoredRecommender`` (catalog encode through the native tokenizer,
+   single queries against ``Recommender.recommend``, calibrated and
+   measured stage timings); ``warm_serve_shapes`` over the whole serve
+   lattice, with the first request's latency beside an unwarmed
+   recommender's; ``MicroBatcher`` (4 ms window, batches of up to 64) at
+   concurrency 1, 8 and 64, every request held to the direct recommend by
+   the near-tie rule, exclusions and filters held, every launch accounted
+   for; ``model_signature`` and the ``encoder=`` injection on a second
+   corpus; and the serve CLI as a subprocess. Launch counts are reset
+   before and read after.
 4. MNRL training of MiniLM-L6 at full width through
    ``TwoTowerTrainer.train(data=...)``: synthetic (user context, product)
    pairs in the data prep's p5_mp20 form (the last 5 prior orders, at most
@@ -86,8 +101,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1627,7 +1644,8 @@ class Smoke:
                 plain_ms=cuda_ms(
                     lambda: cosine_topk_reference(p, cat, K_BATCH, n_valid=N_PRODUCTS), 10
                 ),
-                library_ms=None, max_abs_err=e3, bound_ms=bnd, bound_by=by,
+                library_ms=cuda_ms(lambda: torch.topk(torch.mm(p, cat.T), K_BATCH), 20),
+                max_abs_err=e3, bound_ms=bnd, bound_by=by,
             )
             self.check(e3 <= 1e-5, "K3 scores at the batch shape")
             log(
@@ -1874,7 +1892,8 @@ class Smoke:
                 plain_ms=cuda_ms(
                     lambda: cosine_topk_packed_reference(q, cat, K_BATCH, n_valid=N_PRODUCTS), 10
                 ),
-                library_ms=None, max_abs_err=(s4 - s_r).abs().max().item(), bound_ms=bnd,
+                library_ms=cuda_ms(lambda: torch.topk(torch.mm(q, cat.T), K_BATCH), 20),
+                max_abs_err=(s4 - s_r).abs().max().item(), bound_ms=bnd,
                 bound_by=by, launches=counts["cosine_topk_packed"],
             )
             k4_same = float((i4 == i_r).float().mean())
@@ -1894,6 +1913,466 @@ class Smoke:
         self.check(same_catalog and ties, "packed top-16 differs from exact only at 20-bit ties")
         self.check(k4_same >= 0.99, "K4 ids at the batch shape")
         return out
+
+
+SERVE_WINDOW_MS = 4.0
+SERVE_MAX_BATCH = 64
+BATCHER_RUNS = ((1, 128), (8, 512), (64, 1024))  # (concurrency, requests)
+SECOND_CORPUS = 5_000
+API_MODULES = ("pydantic", "prometheus_client", "yaml")
+
+
+def serve_wrappers() -> tuple:
+    from instacart_next_order_recommendation_tpu_torch.ops import (
+        cosine_topk,
+        fused_encoder_layer,
+        masked_mean_pool_l2norm,
+    )
+
+    return fused_encoder_layer, masked_mean_pool_l2norm, cosine_topk
+
+
+def launch_counts() -> dict[str, int]:
+    return {w.__name__: w.launches for w in serve_wrappers()}
+
+
+def near_tie_ok(got: list, want: list, tol: float) -> bool:
+    """One request's results against the direct recommend's, by the serve
+    path's near-tie rule: the same length, and at every rank the two scores
+    within ``tol`` (the same id, or two ids whose scores tie that closely)."""
+    return len(got) == len(want) and all(
+        abs(sa - sb) <= tol for (_, sa), (_, sb) in zip(got, want)
+    )
+
+
+def percentile_ms(values: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(values), q))
+
+
+class ServingTierPhase:
+    """Phase 3c: the serving tier at MiniLM-L6's full width over phase 3's
+    50,000-product corpus and queries, through the entry points a user calls:
+    the native tokenizer held to its Python version, ``MonitoredRecommender``
+    (catalog encode, single queries, stage calibration), ``warm_serve_shapes``
+    over the whole serve lattice, ``MicroBatcher`` at concurrency 1, 8 and 64,
+    the ``encoder=`` injection with ``model_signature``, and the serve CLI
+    (``python -m instacart_next_order_recommendation_tpu_torch.serve``) as a
+    subprocess."""
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path):
+        self.smoke, self.dev, self.workdir = smoke, dev, workdir
+        self.st = smoke.serve_state
+
+    def run(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+        from instacart_next_order_recommendation_tpu_torch.serve.precompile import (
+            BATCH_BUCKETS,
+            K_BUCKETS,
+            warm_serve_shapes,
+        )
+        from instacart_next_order_recommendation_tpu_torch.tokenizer import LENGTH_BUCKETS
+
+        smoke, st = self.smoke, self.st
+        queries = st["queries"]
+        out: dict = {}
+
+        # ---- the main path, counted from zero
+        for w in serve_wrappers():
+            w.launches = 0
+        t0 = time.perf_counter()
+        rec = MonitoredRecommender(st["model_dir"], st["corpus_path"], use_index=False)
+        torch.cuda.synchronize()
+        out["recommender_construct_s"] = time.perf_counter() - t0
+        tokz = rec.encoder.tokenizer
+        n_batches = -(-N_PRODUCTS // 512)
+        smoke.check(
+            (tokz.native_batches, tokz.python_batches) == (n_batches, 0),
+            "the catalog encode tokenized through the native path, every batch",
+        )
+        t0 = time.perf_counter()
+        rec.encoder.encode_resident(rec.product_texts, batch_size=512)
+        torch.cuda.synchronize()
+        encode_s = time.perf_counter() - t0
+        out["catalog_encode_products_per_s"] = N_PRODUCTS / encode_s
+        out["tokenizer"] = self.tokenizer_check(tokz, rec.product_texts, queries)
+
+        fresh = MonitoredRecommender(
+            st["model_dir"], st["corpus_path"], use_index=False, encoder=rec.encoder
+        )
+        t0 = time.perf_counter()
+        fresh.recommend(queries[BATCH], top_k=10)
+        out["first_request_unwarmed_ms"] = (time.perf_counter() - t0) * 1e3
+
+        t0 = time.perf_counter()
+        n_shapes = warm_serve_shapes(rec, batch_buckets=BATCH_BUCKETS)
+        out["warm_s"] = time.perf_counter() - t0
+        seqs = [s for s in LENGTH_BUCKETS if s <= rec.encoder.max_seq_length]
+        k_effs = [min(k, N_PRODUCTS) for k in K_BUCKETS]
+        lattice = (len(BATCH_BUCKETS) * len(seqs) + len(BATCH_BUCKETS) * len(k_effs) * 2
+                   + len(seqs) * len(k_effs))
+        out["warm_shapes"] = n_shapes
+        smoke.check(n_shapes == lattice, f"warm_serve_shapes ran the {lattice}-shape lattice")
+        t0 = time.perf_counter()
+        rec.recommend(queries[BATCH], top_k=10)
+        out["first_request_warmed_ms"] = (time.perf_counter() - t0) * 1e3
+
+        out["monitored"] = self.monitored(rec, fresh, queries)
+        out["batcher"] = self.batcher(rec, queries)
+        out["signature"] = self.signature_and_injection(rec)
+        counts = launch_counts()
+        # ---- end of the main path
+        out["launches"] = counts
+        log(f"serving tier main-path launches: {counts}")
+        layers = rec.encoder.config.num_layers
+        smoke.check(
+            all(v > 0 for v in counts.values())
+            and counts["fused_encoder_layer"] == layers * counts["masked_mean_pool_l2norm"],
+            f"serving tier: K1, K2 and K3 launched, {layers} K1 per forward",
+        )
+        out["cli"] = self.cli()
+        out["api_modules"] = self.api_modules()
+        log("serving tier " + json.dumps(out))
+        return out
+
+    def tokenizer_check(self, tokz, catalog: list[str], queries: list[str]) -> dict:
+        """The native path's ids and masks against ``encode_batch_reference``
+        on every catalog text and query; both timed."""
+        smoke = self.smoke
+        chunks = [catalog[lo : lo + 512] for lo in range(0, len(catalog), 512)]
+        tokz.native_batches = tokz.python_batches = tokz.bailed_rows = 0
+        t0 = time.perf_counter()
+        native = [tokz.encode_batch(c, max_seq_length=256) for c in chunks]
+        native_s = time.perf_counter() - t0
+        catalog_route = (tokz.native_batches, tokz.python_batches)
+        t0 = time.perf_counter()
+        plain = [tokz.encode_batch_reference(c, max_seq_length=256) for c in chunks]
+        plain_s = time.perf_counter() - t0
+        same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(native, plain))
+        tokz.native_batches = tokz.python_batches = 0
+        t0 = time.perf_counter()
+        ids, mask = tokz.encode_batch(queries[:BATCH], max_seq_length=256)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        batch_route = (tokz.native_batches, tokz.python_batches)
+        t0 = time.perf_counter()
+        ref = tokz.encode_batch_reference(queries[:BATCH], max_seq_length=256)
+        batch_plain_ms = (time.perf_counter() - t0) * 1e3
+        same = same and np.array_equal(ids, ref[0]) and np.array_equal(mask, ref[1])
+        single_ms, single_plain_ms = [], []
+        for q in queries:
+            t0 = time.perf_counter()
+            a = tokz.encode_batch([q], max_seq_length=256)
+            t1 = time.perf_counter()
+            b = tokz.encode_batch_reference([q], max_seq_length=256)
+            single_plain_ms.append((time.perf_counter() - t1) * 1e3)
+            single_ms.append((t1 - t0) * 1e3)
+            same = same and np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        out = {
+            "catalog_native_products_per_s": len(catalog) / native_s,
+            "catalog_python_products_per_s": len(catalog) / plain_s,
+            "batch_tokenize_ms": batch_ms,
+            "batch_tokenize_python_ms": batch_plain_ms,
+            "single_query_tokenize_median_ms": float(np.median(single_ms)),
+            "single_query_tokenize_python_median_ms": float(np.median(single_plain_ms)),
+            "bailed_rows": tokz.bailed_rows,
+            "catalog_batches_native_python": catalog_route,
+            "serve_batch_native_python": batch_route,
+        }
+        log("native tokenizer " + json.dumps(out))
+        smoke.check(catalog_route[0] > 0 and catalog_route[1] == 0
+                    and batch_route[0] > 0 and batch_route[1] == 0,
+                    "the catalog and the serve batch tokenized through the native path")
+        smoke.check(same, "native token ids and masks equal encode_batch_reference's on all "
+                    f"{len(catalog)} catalog texts and {len(queries)} queries")
+        return out
+
+    def monitored(self, rec, fresh, queries: list[str]) -> dict:
+        """Single queries through MonitoredRecommender against
+        ``Recommender.recommend`` on a second recommender over the same
+        catalog; the calibrated and measured stage timings."""
+        from instacart_next_order_recommendation_tpu_torch.serve import Recommender
+
+        smoke = self.smoke
+        same_catalog = bool(torch.equal(rec.index.catalog, fresh.index.catalog))
+        latencies, worst, ids_equal, calibrated = [], 0.0, True, True
+        for q in queries[BATCH:]:
+            t0 = time.perf_counter()
+            got = rec.recommend(q, top_k=10, user_id="smoke")
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            m = rec.last_metrics
+            calibrated = calibrated and (
+                m is not None and m.stage_timing_source == "calibrated"
+                and m.num_recommendations == 10 and m.user_id == "smoke"
+                and m.query_embedding_time_ms > 0 and m.similarity_compute_time_ms > 0
+            )
+            want = Recommender.recommend(fresh, q, top_k=10)
+            ids_equal = ids_equal and [p for p, _ in got] == [p for p, _ in want]
+            worst = max([worst] + [abs(a - b) for (_, a), (_, b) in zip(got, want)])
+        filtered = rec.recommend(queries[0], top_k=10, filter_aisles=["milk"])
+        m = rec.last_metrics
+        out = {
+            "single_query_p50_ms": percentile_ms(latencies, 50),
+            "single_query_p95_ms": percentile_ms(latencies, 95),
+            "single_queries": len(latencies),
+            "max_score_diff_vs_recommender": worst,
+            "same_catalog": same_catalog,
+            "calibrated_stage_ms": {str(key): v[:2] for key, v in rec._stage_cal._cache.items()},
+            "filtered_stage_timing_source": m.stage_timing_source,
+        }
+        log("monitored recommender " + json.dumps(out))
+        smoke.check(ids_equal and worst <= 1e-6,
+                    "MonitoredRecommender equals Recommender.recommend (ids, scores within 1e-6)")
+        smoke.check(calibrated, "last_metrics filled, calibrated on the fused route")
+        smoke.check(
+            m.stage_timing_source == "measured" and len(filtered) == 10
+            and all("Aisle: milk." in rec.pid_to_text[p] for p, _ in filtered),
+            "a filtered request is served and measured",
+        )
+        return out
+
+    def batcher(self, rec, queries: list[str]) -> dict:
+        """MicroBatcher at each concurrency: every request against the direct
+        recommend by the near-tie rule, exclusions and filters held, and the
+        launches accounted for one by one."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from instacart_next_order_recommendation_tpu_torch.serve import MicroBatcher
+
+        smoke = self.smoke
+        direct, excluded_of = {}, {}
+        for q in queries:
+            direct[q, False] = rec.recommend(q, top_k=10)
+            excluded_of[q] = {direct[q, False][0][0], direct[q, False][1][0]}
+            direct[q, True] = rec.recommend(q, top_k=10, exclude_product_ids=excluded_of[q])
+        filtered_direct = {q: rec.recommend(q, top_k=10, filter_aisles=["milk"])
+                           for q in queries}
+
+        def request(i: int):
+            q = queries[i % len(queries)]
+            if i % 16 == 7:
+                return q, "filtered", {"filter_aisles": ["milk"]}
+            if i % 4 == 1:
+                return q, "excluded", {"exclude_product_ids": excluded_of[q]}
+            return q, "plain", {}
+
+        before, cal_before = launch_counts(), len(rec._stage_cal._cache)
+        runs, results, chunks, n_filtered = {}, [], 0, 0
+        for concurrency, n in BATCHER_RUNS:
+            batcher = MicroBatcher(rec, window_ms=SERVE_WINDOW_MS, max_batch=SERVE_MAX_BATCH)
+            reqs = [request(i) for i in range(n)]
+            k3_before = launch_counts()["cosine_topk"]
+
+            def serve(req, batcher=batcher):
+                q, _, kw = req
+                return batcher.recommend(q, top_k=10, **kw)
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(concurrency) as ex:
+                got = list(ex.map(serve, reqs, timeout=600))
+            wall = time.perf_counter() - t0
+            results += list(zip(reqs, got))
+            chunks += sum(-(-size // SERVE_MAX_BATCH) * c for size, c in batcher.drain_sizes.items())
+            n_filtered += sum(kind == "filtered" for _, kind, _ in reqs)
+            runs[concurrency] = {
+                "requests": n,
+                "queries_per_s": n / wall,
+                "k3_launches": launch_counts()["cosine_topk"] - k3_before,
+                "decision_counts": dict(batcher.decision_counts),
+                "drain_sizes": dict(sorted(batcher.drain_sizes.items())),
+            }
+            smoke.check(
+                sum(size * c for size, c in batcher.drain_sizes.items())
+                == sum(kind != "filtered" for _, kind, _ in reqs),
+                f"MicroBatcher at concurrency {concurrency}: every unfiltered request drained, "
+                "filtered ones bypassed",
+            )
+        after, cal_new = launch_counts(), len(rec._stage_cal._cache) - cal_before
+        diff = {k: after[k] - before[k] for k in after}
+        expected = chunks + n_filtered + cal_new
+        log(f"MicroBatcher launches {diff}: {chunks} drains, {n_filtered} filtered requests, "
+            f"{cal_new} stage calibrations")
+        smoke.check(
+            diff["cosine_topk"] == diff["masked_mean_pool_l2norm"] == expected
+            and diff["fused_encoder_layer"] == rec.encoder.config.num_layers * expected,
+            "MicroBatcher launch counts exact: one forward and one top-k per drain, "
+            "filtered request and calibration",
+        )
+        smoke.check(runs[64]["k3_launches"] < runs[64]["requests"],
+                    "MicroBatcher at concurrency 64: fewer K3 launches than requests")
+        runs["64_diagnostics"] = self.batcher_diagnostics(rec, [request(i) for i in range(1024)])
+
+        # The near-tie tolerance: how far a query's embedding inside a padded
+        # batch lies from its lone embedding (largest over every query in
+        # batches of 64 and of 8), twice, plus f32 rounding of a D-term dot.
+        with torch.inference_mode():
+            lone = torch.cat([rec.encoder.encode_device([q]) for q in queries])
+            delta = 0.0
+            for size in (SERVE_MAX_BATCH, 8):
+                for lo in range(0, len(queries), size):
+                    part = queries[lo : lo + size]
+                    emb = rec.encoder.encode_device(part, pad_batch_to=size, keep_padding=True)
+                    delta = max(delta, (emb[: len(part)] - lone[lo : lo + len(part)])
+                                .norm(dim=1).max().item())
+        tol = 2 * delta + lone.shape[1] * 2.0**-24
+        ok, identical, excl_ok = True, 0, True
+        for (q, kind, kw), got in results:
+            want = filtered_direct[q] if kind == "filtered" else direct[q, kind == "excluded"]
+            ok = ok and near_tie_ok(got, want, tol)
+            identical += [p for p, _ in got] == [p for p, _ in want]
+            if kind == "excluded":
+                excl_ok = excl_ok and excluded_of[q].isdisjoint(p for p, _ in got)
+            if kind == "filtered":
+                excl_ok = excl_ok and got == want
+        out = {"runs": runs, "requests": len(results), "ids_identical": identical / len(results),
+               "near_tie_tol": tol, "embedding_delta": delta, "launches": diff}
+        log("MicroBatcher " + json.dumps(out))
+        smoke.check(ok, "every batched request matches the direct recommend or a near-tie")
+        smoke.check(excl_ok, "excluded ids stay out; filtered requests equal the direct ones")
+        return out
+
+    @staticmethod
+    def batcher_diagnostics(rec, reqs: list) -> dict:
+        """Where concurrency 64 loses its time: the same requests once under
+        ``torch.profiler`` (device only), for the share of the wall time the
+        device is busy (the union of its kernel and copy intervals), and
+        once with the interpreter's thread switch interval cut from 5 ms to
+        0.5 ms, for how far the threads wait on the interpreter lock."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from instacart_next_order_recommendation_tpu_torch.serve import MicroBatcher
+
+        def run() -> float:
+            batcher = MicroBatcher(rec, window_ms=SERVE_WINDOW_MS, max_batch=SERVE_MAX_BATCH)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(64) as ex:
+                list(ex.map(lambda r: batcher.recommend(r[0], top_k=10, **r[2]), reqs,
+                            timeout=600))
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            wall = run()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(path))
+            events = json.loads(path.read_text())["traceEvents"]
+        spans = sorted(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+        )
+        busy_us, end = 0.0, -1.0
+        for a, b in spans:
+            if b > end:
+                busy_us += b - max(a, end)
+                end = b
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(5e-4)
+        try:
+            fast_switch = run()
+        finally:
+            sys.setswitchinterval(interval)
+        out = {
+            "profiled_queries_per_s": len(reqs) / wall,
+            "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if spans else "not measured",
+            "device_launches": len(spans),
+            "queries_per_s_switch_0.5ms": len(reqs) / fast_switch,
+        }
+        log("MicroBatcher at concurrency 64, diagnostics " + json.dumps(out))
+        return out
+
+    def signature_and_injection(self, rec) -> dict:
+        """``model_signature`` changes when a tower file is rewritten; a
+        Recommender built on a second corpus with ``encoder=`` loads no tower."""
+        import shutil
+
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.serve import Recommender
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import (
+            model_signature,
+        )
+
+        smoke, st = self.smoke, self.st
+        copy = self.workdir / "model_copy"
+        shutil.copytree(st["model_dir"], copy)
+        before = model_signature(copy)
+        config = copy / "model_config.json"
+        config.write_text(config.read_text() + "\n")
+        changed = model_signature(copy) != before
+        corpus2 = self.workdir / "second_corpus.json"
+        texts = st["catalog_texts"][:SECOND_CORPUS]
+        corpus2.write_text(json.dumps({f"s{i}": t for i, t in enumerate(texts)}))
+        with mock.patch.object(TextEncoder, "load", side_effect=AssertionError("reloaded")):
+            t0 = time.perf_counter()
+            swapped = Recommender(st["model_dir"], corpus2, use_index=False, encoder=rec.encoder)
+            swap_s = time.perf_counter() - t0
+            got = swapped.recommend(st["queries"][0], top_k=10)
+        out = {"signature_changed_on_rewrite": changed, "swap_s": swap_s,
+               "second_corpus": SECOND_CORPUS,
+               "signature_kept": swapped._model_signature == rec._model_signature}
+        log("model signature " + json.dumps(out))
+        smoke.check(changed, "model_signature changes when a tower file is rewritten")
+        smoke.check(
+            out["signature_kept"] and swapped.encoder is rec.encoder and len(got) == 10
+            and all(p.startswith("s") for p, _ in got),
+            "Recommender(encoder=...) on a second corpus serves with no tower reload",
+        )
+        return out
+
+    def cli(self) -> dict:
+        """The serve CLI in a subprocess on the card, from a YAML config; if
+        this machine has no PyYAML, InferenceConfig and main's body in this
+        process instead."""
+        import importlib.util
+
+        from instacart_next_order_recommendation_tpu_torch.serve import recommender as module
+
+        smoke, st = self.smoke, self.st
+        raw = {"model_dir": str(st["model_dir"]), "corpus": str(st["corpus_path"]),
+               "use_index": False, "query": st["queries"][1], "top_k": 10}
+        if importlib.util.find_spec("yaml") is not None:
+            config = self.workdir / "inference.yaml"
+            config.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in raw.items()))
+            env = {k: v for k, v in os.environ.items() if k != "INFERENCE_DEVICE"}
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"{PKG}.serve", "--config", str(config)],
+                cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+            )
+            route, text, rc = "subprocess", proc.stdout, proc.returncode
+            if rc != 0:
+                log(proc.stderr[-3000:])
+        else:
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with mock.patch.object(module, "load_yaml_config", lambda path, default: raw), \
+                    mock.patch.object(sys, "argv", ["serve"]), contextlib.redirect_stdout(buf):
+                module.main()
+            route, text, rc = "in-process (no PyYAML)", buf.getvalue(), 0
+        lines = [ln for ln in text.splitlines() if "product_id=" in ln]
+        out = {"route": route, "exit": rc, "seconds": time.perf_counter() - t0,
+               "top_lines": len(lines)}
+        log("serve CLI " + json.dumps(out) + "\n" + "\n".join(text.splitlines()[-12:]))
+        smoke.check(rc == 0 and "Top-10 recommendations:" in text and len(lines) == 10,
+                    "the serve CLI exits 0 and prints its top-10 lines")
+        return out
+
+    @staticmethod
+    def api_modules() -> dict:
+        """Which of the HTTP API's third-party modules this machine has."""
+        from importlib import metadata
+
+        found = {}
+        for name in API_MODULES:
+            dist = {"yaml": "PyYAML", "prometheus_client": "prometheus-client"}.get(name, name)
+            try:
+                found[name] = metadata.version(dist)
+            except metadata.PackageNotFoundError:
+                found[name] = None
+        log(f"HTTP API modules on this machine: {json.dumps(found)}")
+        return found
 
 
 def training_wrappers() -> tuple:
@@ -2617,7 +3096,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     smoke = Smoke()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build()  # nvcc's output, this build's or the one kept beside a library
     log(f"build in {time.perf_counter() - t0:.1f}s")
     for name, text in logs.items():
@@ -2683,6 +3162,9 @@ def main() -> int:
                 smoke.serve(dev, Path(tmp))
             log(f"phase 3 (serve path) {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
+            ServingTierPhase(smoke, dev, Path(tmp)).run()
+            log(f"phase 3c (serving tier) {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
             smoke.serve_mpnet(dev, Path(tmp))
             smoke.repaired_shapes(dev)
             smoke.serve_packed(dev)
@@ -2708,6 +3190,7 @@ def main() -> int:
                 f"yardstick cold {r['yardstick_n_calls_ms']:.5f} / warm "
                 f"{r['yardstick_n_calls_warm_ms']:.5f}, plain {r['plain_ms']:.5f}, "
                 f"host {r['host_us']:.1f} us a call")
+    log(f"total {time.perf_counter() - t_start:.1f}s")
     if smoke.failures:
         log(f"FAILED: {smoke.failures}")
         return 1

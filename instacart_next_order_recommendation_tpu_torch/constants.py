@@ -13,6 +13,7 @@ PROJECT_ROOT = Path(__file__).resolve().parents[1]
 # Config files (YAML)
 CONFIG_DIR = PROJECT_ROOT / "configs"
 DEFAULT_CONFIG_TRAIN = CONFIG_DIR / "train.yaml"
+DEFAULT_CONFIG_INFERENCE = CONFIG_DIR / "inference.yaml"
 
 # Processed data (written by the JAX package's data prep)
 DEFAULT_PROCESSED_DIR = PROJECT_ROOT / "processed"
@@ -26,6 +27,27 @@ EVAL_DATASET_SUBDIR = "eval_dataset"
 # Training outputs
 DEFAULT_OUTPUT_DIR = PROJECT_ROOT / "models_out" / "two_tower"
 FINAL_SUBDIR = "final"
+
+# Serving defaults
+DEFAULT_MODEL_DIR = DEFAULT_OUTPUT_DIR / FINAL_SUBDIR
+DEFAULT_CORPUS_PATH = DEFAULT_PROCESSED_DIR / "p5_mp20_ef0.1" / EVAL_CORPUS_FILENAME
+
+# Demo query used by the serve CLI when no query is configured
+DEMO_QUERY = "[+7d w4h14] Organic Milk, Whole Wheat Bread."
+
+# Hugging Face fallback for a corpus missing on disk (used only where the
+# local file is absent and the hub is reachable)
+ENV_CORPUS_HF_REPO = "CORPUS_HF_REPO"
+ENV_CORPUS_HF_REPO_TYPE = "CORPUS_HF_REPO_TYPE"
+DEFAULT_CORPUS_HF_REPO = "chenbowen184/product-artifacts"
+DEFAULT_CORPUS_HF_REPO_TYPE = "dataset"
+DEFAULT_CORPUS_HF_FILENAME = "product_catalog_corpus_p5_mp20_ef0.1.json"
+DEFAULT_QUERIES_HF_FILENAME = "product_queries_p5_mp20_ef0.1.json"
+
+# Serving environment: the device the serve CLI runs on ("cuda" or "cpu"),
+# and the micro-batching window in milliseconds (0/unset = off).
+ENV_INFERENCE_DEVICE = "INFERENCE_DEVICE"
+ENV_BATCH_WINDOW_MS = "BATCH_WINDOW_MS"
 
 # Embedding index cache (under the corpus's parent directory)
 INDEX_SUBDIR = ".embedding_index"

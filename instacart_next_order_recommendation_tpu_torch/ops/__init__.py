@@ -4,7 +4,8 @@ Each op has a plain PyTorch version (``*_reference``) and an entry point that
 dispatches on the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel from ``csrc/`` or raises. There is no switch
 and no fallback. Each entry point counts its kernel launches in a plain
-integer attribute, ``<entry>.launches``.
+integer attribute, ``<entry>.launches``, added to under a lock
+(``_build.count``) since several threads may launch at once.
 """
 
 from instacart_next_order_recommendation_tpu_torch.ops.attention import (

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -161,6 +162,15 @@ def load(name: str, signatures: dict[str, list]) -> ctypes.CDLL:
             lib.error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def count(fn, attr: str = "launches") -> None:
+    """Add one to the counter ``fn.<attr>``, under a lock: several host
+    threads launch at once (the micro-batcher's leaders, the stage
+    calibrator), and a bare ``+=`` on an attribute can lose an update
+    between its read and its write."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

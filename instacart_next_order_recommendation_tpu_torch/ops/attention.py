@@ -137,7 +137,7 @@ def _forward(q, k, v, mask, scale):
         _build.stream_of(q),
     )
     _build.check(lib, err, "attention_forward")
-    multi_head_attention.launches += 1
+    _build.count(multi_head_attention)
     return out
 
 
@@ -169,7 +169,7 @@ def multi_head_attention_backward(
         _strides(q, k, v, do, dq, dk, dv), b, h, s, d, scale, _build.stream_of(q),
     )
     _build.check(lib, err, "attention_backward")
-    multi_head_attention_backward.launches += 1
+    _build.count(multi_head_attention_backward)
     return dq, dk, dv
 
 

@@ -35,6 +35,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -230,12 +232,19 @@ cudaError_t launch(const void* hidden, const void* mask, void* out, int batch, i
   const int threads = warps * 32;
   const size_t smem = smem_bytes(lanes_of(h, VEC, threads));
   auto kernel = pool_l2norm_kernel<VEC, ROWS, CLUSTER>;
-  static size_t opted_in = 48 * 1024;  // this instance's dynamic shared memory limit so far
-  if (smem > opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
+  // This instance's dynamic shared memory limit so far. Several host threads
+  // may launch at once, so it is read and raised under a lock, which only a
+  // block above the default 48 KB takes.
+  static std::mutex opt_in_mu;
+  static size_t opted_in = 48 * 1024;
+  if (smem > 48 * 1024) {
+    std::lock_guard<std::mutex> hold(opt_in_mu);
+    if (smem > opted_in) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return err;
+      opted_in = smem;
+    }
   }
   const auto* x = static_cast<const __nv_bfloat16*>(hidden);
   const auto* m = static_cast<const int*>(mask);

@@ -292,7 +292,7 @@ def fused_encoder_layer(
         raise ValueError(f"fused_encoder_layer: no kernel for device {x.device}")
     _check_kernel_inputs(x, bias, w, num_heads)
     y = _launch(x, bias, w, num_heads=num_heads, scale=scale, eps=eps)
-    fused_encoder_layer.launches += 1
+    _build.count(fused_encoder_layer)
     return y
 
 
@@ -340,7 +340,7 @@ def fused_encoder_layer_backward(
         p(workspace), b, s, h, num_heads, inter, scale, eps, _build.stream_of(x),
     )
     _build.check(lib, err, "fused_layer_backward")
-    fused_encoder_layer_backward.launches += 1
+    _build.count(fused_encoder_layer_backward)
     return dx, {n: grads[n].to(weights[n].dtype) for n in WEIGHT_NAMES}
 
 
@@ -362,7 +362,7 @@ class _TrainLayer(torch.autograd.Function):
         elif x.device.type == "cuda":
             _check_kernel_inputs(x, bias, w, num_heads)
             y = _launch(x, bias, w, masks, num_heads=num_heads, scale=scale, eps=eps)
-            fused_encoder_layer_train.launches += 1
+            _build.count(fused_encoder_layer_train)
         else:
             raise ValueError(f"fused_encoder_layer_train: no kernel for device {x.device}")
         ctx.opts = opts

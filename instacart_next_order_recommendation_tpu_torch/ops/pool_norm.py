@@ -118,7 +118,7 @@ def _launch(hidden: torch.Tensor, mask: torch.Tensor, plan: PoolPlan | None = No
         _build.stream_of(hidden),
     )
     _build.check(lib, err, "pool_l2norm")
-    masked_mean_pool_l2norm.launches += 1
+    _build.count(masked_mean_pool_l2norm)
     return out
 
 

@@ -179,7 +179,7 @@ def cosine_topk(
             raise ValueError(f"cosine_topk: candidate_mask must be [{n}], got {tuple(mask.shape)}")
     n_valid = n if n_valid is None else min(int(n_valid), n)
     if dense:
-        cosine_topk.dense_calls += 1
+        _build.count(cosine_topk, "dense_calls")
         return cosine_topk_reference(queries, catalog, k, n_valid, mask)
     sm_count = torch.cuda.get_device_properties(queries.device).multi_processor_count
     slice_rows, n_slices = slice_plan(b, n, k, sm_count)
@@ -195,9 +195,9 @@ def cosine_topk(
     )
     _build.check(lib, err, "topk_slices")
     if packed:
-        cosine_topk.packed_launches += 1
+        _build.count(cosine_topk, "packed_launches")
     else:
-        cosine_topk.launches += 1
+        _build.count(cosine_topk)
     return out_s, out_i
 
 

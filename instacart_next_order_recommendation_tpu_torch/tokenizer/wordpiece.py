@@ -1,8 +1,11 @@
-"""BERT-compatible WordPiece tokenizer (pure Python).
+"""BERT-compatible WordPiece tokenizer, with a C++ batch path.
 
 The port's own copy of the JAX package's tokenizer: it loads a standard BERT
 ``vocab.txt`` or trains a domain vocab from the corpus, and its output is
 identical to the JAX package's tokenizer for the same vocab and text.
+Batches encode through ``native/wordpiece.cpp`` (``tokenizer/native.py``),
+built at first use; ``encode_batch_reference`` is the pure-Python batch
+encode, the native path's plain version.
 
 Outputs are fixed-shape int32 ``(input_ids, attention_mask)`` batches padded to
 bucketed lengths, so the kernels see a small set of sequence lengths.
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import json
+import threading
 import unicodedata
 from pathlib import Path
 from typing import Iterable, Sequence
@@ -140,6 +144,15 @@ class WordPieceTokenizer:
         # re-fills it almost immediately; amortized cost is negligible).
         self._cache: dict[str, list[int]] = {}
         self._cache_max = 262_144
+        # The C++ handle, made at the first batch; False where the native
+        # code cannot represent this vocab (the batch takes the Python path).
+        self._native = None
+        self._native_lock = threading.Lock()
+        # Which route each encode_batch took, and the rows the native path
+        # handed back to Python (context-sensitive codepoints).
+        self.native_batches = 0
+        self.python_batches = 0
+        self.bailed_rows = 0
 
     # ------------------------------------------------------------------ vocab IO
 
@@ -292,7 +305,61 @@ class WordPieceTokenizer:
         batch (recompile-free across batches); a fixed ``pad_to`` pins the
         shape entirely. ``pad_batch_to`` pads the batch dimension with empty
         rows (mask 0) to a fixed batch size.
+
+        The batch encodes through the C++ path; rows it flags as
+        context-sensitive are re-encoded here in Python. Where the native
+        code cannot take the vocab or the texts (ids not 0..n-1, text that
+        is not valid UTF-8) the whole batch takes ``encode_batch_reference``.
+        Either way the result equals ``encode_batch_reference``'s.
         """
+        if pad_batch_to is not None and pad_batch_to < len(texts):
+            # The C++ path writes len(texts) rows into buffers sized
+            # pad_batch_to: refuse before any pointer is passed.
+            raise ValueError(
+                f"pad_batch_to={pad_batch_to} is smaller than the batch ({len(texts)} texts)"
+            )
+        native = self._get_native()
+        if native is not None:
+            full_len = pad_to if pad_to is not None else max_seq_length
+            n_rows = pad_batch_to if pad_batch_to is not None else len(texts)
+            # NUL bytes would truncate the C string; Python drops them, so
+            # stripping first is output-identical.
+            clean = [t.replace("\x00", "") if "\x00" in t else t for t in texts]
+            result = native.encode_batch(clean, full_len, n_rows, self.pad_id)
+            if result is not None:
+                ids, mask, longest, bailed = result
+                rows = np.flatnonzero(bailed)
+                for i in rows:
+                    row = self.encode(texts[i], max_seq_length)
+                    if len(row) > full_len:
+                        row = row[:full_len]
+                        row[-1] = self.sep_id
+                    ids[i, : len(row)] = row
+                    mask[i, : len(row)] = 1
+                    longest = max(longest, len(row))
+                with self._native_lock:
+                    self.native_batches += 1
+                    self.bailed_rows += len(rows)
+                if pad_to is None:
+                    seq_len = bucket_length(longest, max_seq_length)
+                    if seq_len < full_len:
+                        return np.ascontiguousarray(ids[:, :seq_len]), np.ascontiguousarray(
+                            mask[:, :seq_len]
+                        )
+                return ids, mask
+        with self._native_lock:
+            self.python_batches += 1
+        return self.encode_batch_reference(texts, max_seq_length, pad_to, pad_batch_to)
+
+    def encode_batch_reference(
+        self,
+        texts: Sequence[str],
+        max_seq_length: int = 256,
+        pad_to: int | None = None,
+        pad_batch_to: int | None = None,
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """``encode_batch`` in pure Python, row by row: the native path's
+        plain version."""
         if pad_batch_to is not None and pad_batch_to < len(texts):
             raise ValueError(
                 f"pad_batch_to={pad_batch_to} is smaller than the batch ({len(texts)} texts)"
@@ -311,6 +378,30 @@ class WordPieceTokenizer:
             input_ids[i, : len(ids)] = ids
             attention_mask[i, : len(ids)] = 1
         return input_ids, attention_mask
+
+    def _get_native(self):
+        """The C++ handle, made at first use; None where this vocab takes
+        the Python path. A library that does not build or load raises."""
+        if self._native is None:
+            with self._native_lock:
+                if self._native is None:
+                    from instacart_next_order_recommendation_tpu_torch.tokenizer.native import (
+                        MAX_CHARS_PER_WORD,
+                        NativeWordPiece,
+                    )
+
+                    handle = None
+                    if self.max_chars_per_word == MAX_CHARS_PER_WORD:
+                        handle = NativeWordPiece.create(
+                            self.vocab,
+                            self.lowercase,
+                            self.pad_id,
+                            self.unk_id,
+                            self.cls_id,
+                            self.sep_id,
+                        )
+                    self._native = handle if handle is not None else False
+        return self._native or None
 
     @property
     def vocab_size(self) -> int:

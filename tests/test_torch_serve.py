@@ -170,9 +170,27 @@ def test_port_imports_no_jax(served):
         from instacart_next_order_recommendation_tpu_torch.ops.attention import multi_head_attention
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
         from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
+        from instacart_next_order_recommendation_tpu_torch.serve import (
+            InferenceConfig, MicroBatcher, MonitoredRecommender,
+        )
+        from instacart_next_order_recommendation_tpu_torch.serve.precompile import (
+            warm_serve_shapes,
+        )
+        from instacart_next_order_recommendation_tpu_torch.tokenizer import native, unicode_tables
+        from instacart_next_order_recommendation_tpu_torch.utils.dotenv import load_dotenv
+        sys.argv = ["serve", "--help"]  # the CLI module runs main(): help, then exit 0
+        try:
+            import instacart_next_order_recommendation_tpu_torch.serve.__main__
+        except SystemExit as exc:
+            assert exc.code == 0, exc.code
         rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
                           use_index=False, device="cpu", topk_extraction="packed")
         assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
+        mon = MonitoredRecommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
+                                   use_index=False, device="cpu", encoder=rec.encoder)
+        assert len(MicroBatcher(mon).recommend({QUERIES[1]!r}, top_k=4)) == 4
+        assert warm_serve_shapes(mon, k_buckets=(16,)) == 2 + 2 + 2
+        assert rec.encoder.tokenizer.native_batches > 0 and native.library_path().exists()
         q = torch.zeros((1, 2, 8, 64))
         multi_head_attention(q, q, q, torch.ones((1, 8)), 0.125)
         assert TrainConfig({{"model_name": "mpnet-base"}}).model_name == "mpnet-base"
