@@ -66,6 +66,21 @@ Run from the repository root, with no arguments:
    for; ``model_signature`` and the ``encoder=`` injection on a second
    corpus; and the serve CLI as a subprocess. Launch counts are reset
    before and read after.
+3d. The HTTP API (``api.create_app`` with its default factory on CUDA,
+   served by ``api.http.make_server`` on local sockets) on phase 3's tower,
+   corpus and queries: startup with the serve-lattice warm-up; /health,
+   /ready, /metrics; /recommend by user context, user id, query, with
+   exclusions, filtered, and on the dense route, each answer held to a
+   direct ``MonitoredRecommender.recommend`` by the near-tie rule;
+   /feedback single and batch and the request contexts read back from
+   SQLite; the API key and the rate limit; load from a client process at
+   concurrency 1, 8 and 64 without and with ``BATCH_WINDOW_MS`` (every
+   launch accounted for, the device idle share of a profiled run at 64);
+   /admin/corpus on the live encoder (alone, timed beside a fresh load,
+   and under load at concurrency 8) and /admin/model, with the peak device
+   memory; ``ITOR_TOPK_EXTRACTION=packed`` (K4); and the API CLI as a
+   subprocess, stopped with SIGINT. Launch counts are reset before and
+   read after.
 4. MNRL training of MiniLM-L6 at full width through
    ``TwoTowerTrainer.train(data=...)``: synthetic (user context, product)
    pairs in the data prep's p5_mp20 form (the last 5 prior orders, at most
@@ -1919,7 +1934,6 @@ SERVE_WINDOW_MS = 4.0
 SERVE_MAX_BATCH = 64
 BATCHER_RUNS = ((1, 128), (8, 512), (64, 1024))  # (concurrency, requests)
 SECOND_CORPUS = 5_000
-API_MODULES = ("pydantic", "prometheus_client", "yaml")
 
 
 def serve_wrappers() -> tuple:
@@ -1947,6 +1961,25 @@ def near_tie_ok(got: list, want: list, tol: float) -> bool:
 
 def percentile_ms(values: list[float], q: float) -> float:
     return float(np.percentile(np.asarray(values), q))
+
+
+def device_busy_us(prof) -> tuple[float, int]:
+    """The device's busy time in a ``torch.profiler`` trace (the union of
+    its kernel, copy and memset intervals, in us) and the number of them."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+    spans = sorted(
+        (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+    )
+    busy_us, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return busy_us, len(spans)
 
 
 class ServingTierPhase:
@@ -2030,7 +2063,6 @@ class ServingTierPhase:
             f"serving tier: K1, K2 and K3 launched, {layers} K1 per forward",
         )
         out["cli"] = self.cli()
-        out["api_modules"] = self.api_modules()
         log("serving tier " + json.dumps(out))
         return out
 
@@ -2254,19 +2286,7 @@ class ServingTierPhase:
 
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             wall = run()
-        with tempfile.TemporaryDirectory() as tmp:
-            path = Path(tmp) / "trace.json"
-            prof.export_chrome_trace(str(path))
-            events = json.loads(path.read_text())["traceEvents"]
-        spans = sorted(
-            (float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
-            if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
-        )
-        busy_us, end = 0.0, -1.0
-        for a, b in spans:
-            if b > end:
-                busy_us += b - max(a, end)
-                end = b
+        busy_us, n_spans = device_busy_us(prof)
         interval = sys.getswitchinterval()
         sys.setswitchinterval(5e-4)
         try:
@@ -2276,8 +2296,8 @@ class ServingTierPhase:
         out = {
             "profiled_queries_per_s": len(reqs) / wall,
             "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if spans else "not measured",
-            "device_launches": len(spans),
+            "device_idle_share": 1 - busy_us / 1e3 / (wall * 1e3) if n_spans else "not measured",
+            "device_launches": n_spans,
             "queries_per_s_switch_0.5ms": len(reqs) / fast_switch,
         }
         log("MicroBatcher at concurrency 64, diagnostics " + json.dumps(out))
@@ -2359,20 +2379,793 @@ class ServingTierPhase:
                     "the serve CLI exits 0 and prints its top-10 lines")
         return out
 
-    @staticmethod
-    def api_modules() -> dict:
-        """Which of the HTTP API's third-party modules this machine has."""
-        from importlib import metadata
 
-        found = {}
-        for name in API_MODULES:
-            dist = {"yaml": "PyYAML", "prometheus_client": "prometheus-client"}.get(name, name)
+API_MAX_CONCURRENCY = 256  # the smoke's servers: load at concurrency 64 never nears it
+API_SECOND_CORPUS = 10_000
+API_EVAL_USERS = 32
+API_METRICS = (
+    "recommendation_requests_total", "feedback_events_total", "recommendation_latency_seconds",
+    "recommendation_encode_seconds", "feedback_ingest_latency_seconds", "model_loaded",
+)
+# The load client: a process of its own (the stdlib only), so its threads
+# share no interpreter lock with the server's. Posts each body of a JSON
+# list to /recommend at the given concurrency over keep-alive connections
+# and prints the wall time and each (status, body, ms).
+LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+from concurrent.futures import ThreadPoolExecutor
+
+port, concurrency = int(sys.argv[1]), int(sys.argv[2])
+with open(sys.argv[3]) as f:
+    bodies = json.load(f)
+tls = threading.local()
+
+
+def one(body):
+    conn = getattr(tls, "conn", None)
+    if conn is None:
+        conn = tls.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    t0 = time.perf_counter()
+    conn.request("POST", "/recommend", body=json.dumps(body).encode(),
+                 headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    ms = (time.perf_counter() - t0) * 1e3
+    if (resp.getheader("Connection") or "").lower() == "close":
+        conn.close()
+        tls.conn = None
+    return resp.status, json.loads(data), ms
+
+
+t0 = time.perf_counter()
+with ThreadPoolExecutor(concurrency) as ex:
+    results = list(ex.map(one, bodies))
+json.dump({"wall_s": time.perf_counter() - t0, "results": results}, sys.stdout)
+"""
+
+
+class HttpClient:
+    """Keep-alive connections to one local server over ``http.client`` (the
+    stdlib: the card's machine has no HTTP client library to count on), one
+    per calling thread; ``close`` closes them all (a closed one reconnects
+    on its next request). A connection idle for ``IDLE_S`` is closed before
+    its next request: the server reaps it after its socket timeout."""
+
+    IDLE_S = 10.0
+
+    def __init__(self, port: int):
+        import threading
+
+        self.port = port
+        self._tls = threading.local()
+        self._conns: list = []
+        self._lock = threading.Lock()
+
+    def request(self, method: str, path: str, body=None, headers=None) -> tuple[int, dict, bytes]:
+        import http.client
+
+        conn = getattr(self._tls, "conn", None)
+        if conn is None:
+            conn = http.client.HTTPConnection("127.0.0.1", self.port, timeout=600)
+            self._tls.conn = conn
+            with self._lock:
+                self._conns.append(conn)
+        if time.monotonic() - getattr(self._tls, "used", 0.0) > self.IDLE_S:
+            conn.close()
+        payload = None if body is None else json.dumps(body).encode()
+        hdrs = {"Content-Type": "application/json"} if payload is not None else {}
+        conn.request(method, path, body=payload, headers={**hdrs, **(headers or {})})
+        resp = conn.getresponse()
+        data = resp.read()
+        self._tls.used = time.monotonic()
+        if (resp.getheader("Connection") or "").lower() == "close":
+            conn.close()
+        return resp.status, dict(resp.getheaders()), data
+
+    def post(self, path: str, body, headers=None) -> tuple[int, dict]:
+        status, _, data = self.request("POST", path, body, headers)
+        return status, json.loads(data)
+
+    def close(self) -> None:
+        with self._lock:
+            for conn in self._conns:
+                conn.close()
+
+
+class ServedApp:
+    """One ``create_app`` served by ``make_server`` on a free local port, in a
+    thread; ``stop`` shuts the server, then the app (which flushes the
+    request-context writer)."""
+
+    def __init__(self, app):
+        import threading
+
+        from instacart_next_order_recommendation_tpu_torch.api.http import make_server
+
+        self.app = app
+        t0 = time.perf_counter()
+        self.server = make_server(app, host="127.0.0.1", port=0,
+                                  max_concurrency=API_MAX_CONCURRENCY)
+        torch.cuda.synchronize()
+        self.startup_s = time.perf_counter() - t0
+        self.port = self.server.server_address[1]
+        self.thread = threading.Thread(target=self.server.serve_forever, daemon=True)
+        self.thread.start()
+        self.client = HttpClient(self.port)
+
+    def stop(self) -> None:
+        self.client.close()
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join(timeout=60)
+        self.app.shutdown()
+
+
+def ranked(body: dict) -> list[tuple[str, float]]:
+    return [(r["product_id"], r["score"]) for r in body["recommendations"]]
+
+
+class HttpApiPhase:
+    """Phase 3d: the HTTP API (``instacart_next_order_recommendation_tpu_torch.api``)
+    on phase 3's MiniLM-L6 tower, 50,000-product corpus and queries, over
+    local sockets: startup with the serve-lattice warm-up, the probes and
+    every route (each answer held to a direct ``MonitoredRecommender.recommend``
+    by the near-tie rule), feedback and request contexts read back from
+    SQLite, the API key and the rate limit, load at concurrency 1, 8 and 64
+    without and with ``BATCH_WINDOW_MS`` (launches accounted for one by
+    one), the corpus hot swap on the live encoder (alone and under load),
+    the model swap, the packed extraction, and the CLI
+    (``python -m instacart_next_order_recommendation_tpu_torch.api``) as a
+    subprocess. Launch counts are reset before and read after."""
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, serving: dict):
+        self.smoke, self.dev, self.serving = smoke, dev, serving
+        self.st = smoke.serve_state
+        self.root = workdir / "api"
+        # Phase 3c's near-tie tolerance: how far a query's embedding moves
+        # between a lone call and a padded batch, twice, plus f32 rounding.
+        self.tol = serving["batcher"]["near_tie_tol"]
+
+    def run(self) -> dict:
+        import shutil
+
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+
+        smoke, st, root = self.smoke, self.st, self.root
+        (root / "tmp").mkdir(parents=True)
+        self.corpus_path = root / "eval_corpus.json"
+        shutil.copyfile(st["corpus_path"], self.corpus_path)
+        queries = st["queries"]
+        self.users = {str(1000 + i): q for i, q in enumerate(queries[:API_EVAL_USERS])}
+        (root / "eval_queries.json").write_text(json.dumps(self.users))
+        self.db = root / "feedback.db"
+        env = {"FEEDBACK_DB_PATH": str(self.db), "PRECOMPILE_ON_STARTUP": "1",
+               "RATE_LIMIT": "1000000/minute"}
+        unset = ("INFERENCE_DEVICE", "BATCH_WINDOW_MS", "API_KEY", "ITOR_TOPK_EXTRACTION",
+                 "ITOR_MONITORED_SINGLE_DISPATCH", "MODEL_DIR", "CORPUS_PATH")
+        out: dict = {}
+        # Uploaded corpora (and a model swap's embedding cache beside them)
+        # go to the phase's own temporary directory.
+        with mock.patch.dict(os.environ, env), mock.patch.object(
+            tempfile, "tempdir", str(root / "tmp")
+        ):
+            for name in unset:
+                os.environ.pop(name, None)
+            # ---- the main path, counted from zero
+            for w in serve_wrappers():
+                w.launches = 0
+            cosine_topk.packed_launches = cosine_topk.dense_calls = 0
+            out.update(self.main_path())
+            counts = {**launch_counts(), "cosine_topk_packed": cosine_topk.packed_launches}
+            # ---- end of the main path
+            out["launches"] = counts
+            log(f"HTTP API main-path launches: {counts}")
+            smoke.check(
+                all(v > 0 for v in counts.values())
+                and counts["fused_encoder_layer"]
+                == self.layers * counts["masked_mean_pool_l2norm"],
+                f"HTTP API: K1, K2, K3 and K4 launched, {self.layers} K1 per forward",
+            )
+            out["cli"] = self.cli()
+        monitored, c1 = self.serving["monitored"], out["load_direct"]["runs"][1]
+        out["http_vs_direct_concurrency_1_ms"] = {
+            "http_p50": c1["p50_ms"], "http_p95": c1["p95_ms"],
+            "direct_monitored_p50": monitored["single_query_p50_ms"],
+            "direct_monitored_p95": monitored["single_query_p95_ms"],
+        }
+        log("HTTP API " + json.dumps(out))
+        return out
+
+    def main_path(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.api.app import create_app
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+        from instacart_next_order_recommendation_tpu_torch.serve.precompile import K_BUCKETS
+        from instacart_next_order_recommendation_tpu_torch.tokenizer import LENGTH_BUCKETS
+
+        smoke, st = self.smoke, self.st
+        out: dict = {}
+        direct_app = ServedApp(create_app(st["model_dir"], self.corpus_path))
+        try:
+            app, rec = direct_app.app, direct_app.app.state["recommender"]
+            self.layers = rec.encoder.config.num_layers
+            seqs = [s for s in LENGTH_BUCKETS if s <= rec.encoder.max_seq_length]
+            k_effs = [min(k, N_PRODUCTS) for k in K_BUCKETS]
+            lattice = len(seqs) + 2 * len(k_effs) + len(seqs) * len(k_effs)
+            out["startup"] = {"seconds": direct_app.startup_s,
+                              "warmed_shapes": app.state.get("warmed_shapes")}
+            log(f"HTTP API startup (CUDA, default factory, warm-up): "
+                f"{json.dumps(out['startup'])}")
+            smoke.check(
+                isinstance(rec, MonitoredRecommender) and rec.device.type == "cuda"
+                and app.state["device"].type == "cuda"
+                and app.state["warmed_shapes"] == lattice,
+                f"the API serves a MonitoredRecommender on CUDA, warmed over {lattice} shapes",
+            )
+            self.direct = self.direct_answers(rec)
+            out["routes"] = self.routes(direct_app, rec)
+            out["load_direct"] = self.load(direct_app, rec, batched=False)
+            out["corpus_swap"] = self.corpus_swap(direct_app)
+            out["model_swap"] = self.model_swap(direct_app)
+        finally:
+            direct_app.stop()
+        with mock.patch.dict(os.environ, {"BATCH_WINDOW_MS": str(SERVE_WINDOW_MS)}):
+            batched_app = ServedApp(create_app(st["model_dir"], self.corpus_path))
             try:
-                found[name] = metadata.version(dist)
-            except metadata.PackageNotFoundError:
-                found[name] = None
-        log(f"HTTP API modules on this machine: {json.dumps(found)}")
-        return found
+                batcher = batched_app.app.state["recommender"]
+                out["startup_batched"] = {
+                    "seconds": batched_app.startup_s,
+                    "warmed_shapes": batched_app.app.state.get("warmed_shapes"),
+                }
+                smoke.check(
+                    type(batcher).__name__ == "MicroBatcher"
+                    and bool(torch.equal(batcher._rec.index.catalog, rec.index.catalog)),
+                    "BATCH_WINDOW_MS serves through a MicroBatcher over the same catalog",
+                )
+                out["load_batched"] = self.load(batched_app, batcher._rec, batched=True)
+                out["swap_under_load"] = self.swap_under_load(batched_app)
+            finally:
+                batched_app.stop()
+        out["packed"] = self.packed()
+        return out
+
+    def direct_answers(self, rec) -> dict:
+        """Each query's answers from the served recommender itself, called
+        directly: plain, excluding its top two, filtered to an aisle."""
+        direct = {}
+        for q in self.st["queries"]:
+            direct[q, "plain"] = rec.recommend(q, top_k=10)
+            excluded = sorted({direct[q, "plain"][0][0], direct[q, "plain"][1][0]})
+            direct[q, "excluded"] = rec.recommend(q, top_k=10, exclude_product_ids=set(excluded))
+            direct[q, "filtered"] = rec.recommend(q, top_k=10, filter_aisles=["milk"])
+            direct[q, "exclude_ids"] = excluded
+        return direct
+
+    def request_body(self, i: int) -> tuple[str, str, dict]:
+        """Request i of a load run, as phase 3c sends them: top-10, 1 in 4
+        excluding two ids, 1 in 16 filtered to an aisle."""
+        q = self.st["queries"][i % len(self.st["queries"])]
+        body = {"user_context": q, "top_k": 10}
+        if i % 16 == 7:
+            return q, "filtered", {**body, "filter_aisles": ["milk"]}
+        if i % 4 == 1:
+            return q, "excluded", {**body, "exclude_product_ids": self.direct[q, "exclude_ids"]}
+        return q, "plain", body
+
+    def routes(self, served: ServedApp, rec) -> dict:
+        """The probes and every route over the socket."""
+        import sqlite3
+
+        from instacart_next_order_recommendation_tpu_torch.api import feedback_store
+        from instacart_next_order_recommendation_tpu_torch.api.app import create_app
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+
+        smoke, c, queries, d = self.smoke, served.client, self.st["queries"], self.direct
+        status_h, _, health = c.request("GET", "/health")
+        status_r, _, ready = c.request("GET", "/ready")
+        status_m, hdrs_m, metrics = c.request("GET", "/metrics")
+        smoke.check(
+            (status_h, json.loads(health), status_r, json.loads(ready), status_m)
+            == (200, {"status": "ok"}, 200, {"status": "ready"}, 200)
+            and hdrs_m["Content-Type"].startswith("text/plain")
+            and all(f"# TYPE {name} " in metrics.decode() for name in API_METRICS)
+            and "model_loaded 1.0" in metrics.decode(),
+            "/health, /ready and /metrics answer, the six metric families exported",
+        )
+        users = list(self.users)
+        big = {p for p, _ in rec.recommend(queries[5], top_k=200)}
+        dense_before, cal_before = cosine_topk.dense_calls, set(rec._stage_cal._cache)
+        dense_want = rec.recommend(queries[5], top_k=100, exclude_product_ids=big)
+        cases = {
+            "user_context": ({"user_context": queries[0], "top_k": 10}, d[queries[0], "plain"],
+                             queries[0], "calibrated"),
+            "user_id": ({"user_id": users[1], "top_k": 10}, d[queries[1], "plain"],
+                        queries[1], "calibrated"),
+            "query_and_user_id": (
+                {"query": "organic milk", "user_id": users[2], "top_k": 10},
+                rec.recommend(f"organic milk {queries[2]}", top_k=10), queries[2], "calibrated"),
+            "exclude_product_ids": (
+                {"user_context": queries[3], "top_k": 10,
+                 "exclude_product_ids": d[queries[3], "exclude_ids"]},
+                d[queries[3], "excluded"], queries[3], "calibrated"),
+            "filter_aisles": ({"user_context": queries[4], "top_k": 10, "filter_aisles": ["milk"]},
+                              d[queries[4], "filtered"], queries[4], "measured"),
+            "dense_top_k": ({"user_context": queries[5], "top_k": 100,
+                             "exclude_product_ids": sorted(big)},
+                            dense_want, queries[5], "calibrated"),
+        }
+        out, request_ids = {}, []
+        for name, (body, want, context, source) in cases.items():
+            status, got = c.post("/recommend", body)
+            ok = (
+                status == 200 and near_tie_ok(ranked(got), want, self.tol)
+                and got["purchase_history_used"] == context
+                and got["stats"]["num_recommendations"] == len(want)
+                and got["stats"]["stage_timing_source"] == source
+                and all(rec.pid_to_text[r["product_id"]] == r["product_text"]
+                        for r in got["recommendations"])
+                and not set(body.get("exclude_product_ids", ())) & {p for p, _ in ranked(got)}
+            )
+            if name == "filter_aisles":
+                ok = ok and all("Aisle: milk." in r["product_text"] for r in got["recommendations"])
+            out[name] = {"status": status, "n": len(got.get("recommendations", ())),
+                         "identical_ids": status == 200
+                         and [p for p, _ in ranked(got)] == [p for p, _ in want]}
+            smoke.check(ok, f"/recommend ({name}) over HTTP equals the direct recommend")
+            request_ids.append(got.get("request_id"))
+        # The fused route serves k = 300 through the dense top-k, and the
+        # calibrator's first measurement of that bucket does once more.
+        dense_cal = sum(key[2] > 256 for key in set(rec._stage_cal._cache) - cal_before)
+        smoke.check(cosine_topk.dense_calls - dense_before == 2 + dense_cal,
+                    "top_k + |excluded| > 256 took the dense route (direct and over HTTP)")
+        status_400, _ = c.post("/recommend", {"top_k": 5})
+        status_422, _ = c.post("/recommend", {"user_context": "x", "top_k": 101})
+        smoke.check((status_400, status_422) == (400, 422),
+                    "/recommend without a context: 400; with top_k 101: 422")
+
+        # Feedback, single and batch, read back from SQLite; the contexts.
+        click = (request_ids[0], "click", d[queries[0], "plain"][0][0])
+        events = [{"request_id": request_ids[1], "event_type": t, "product_id": p}
+                  for t, (p, _) in zip(("impression", "add_to_cart", "purchase"),
+                                       d[queries[1], "plain"])]
+        status_1, one = c.post("/feedback", dict(zip(("request_id", "event_type", "product_id"),
+                                                     click)))
+        status_b, batch = c.post("/feedback", {"events": events})
+        status_e, _ = c.post("/feedback", {"events": []})
+        feedback_store.flush_request_contexts()
+        conn = sqlite3.connect(self.db)
+        try:
+            rows = conn.execute(
+                "SELECT request_id, event_type, product_id FROM feedback_events").fetchall()
+            contexts = dict(conn.execute(
+                "SELECT request_id, user_context FROM request_contexts").fetchall())
+        finally:
+            conn.close()
+        want_rows = [click] + [(e["request_id"], e["event_type"], e["product_id"])
+                               for e in events]
+        joined = feedback_store.load_context_events(self.db)
+        smoke.check(
+            (status_1, one, status_b, batch, status_e)
+            == (202, {"status": "accepted", "count": 1}, 202,
+                {"status": "accepted", "count": 3}, 400)
+            and sorted(rows) == sorted(want_rows),
+            "/feedback single and batch accepted (202) and read back from SQLite; empty: 400",
+        )
+        smoke.check(
+            all(contexts.get(r) is not None for r in request_ids)
+            and contexts[request_ids[2]] == f"organic milk {queries[2]}"
+            and ("click", queries[0], click[2]) in joined,
+            "request_contexts rows for every served request after flush_request_contexts; "
+            "feedback joins back to its context",
+        )
+        out["feedback_rows"], out["context_rows"] = len(rows), len(contexts)
+
+        with mock.patch.dict(os.environ, {"API_KEY": "smoke-key"}):
+            body = {"user_context": queries[0], "top_k": 10}
+            codes = (c.post("/recommend", body)[0],
+                     c.post("/recommend", body, {"X-API-Key": "wrong"})[0],
+                     c.post("/recommend", body, {"X-API-Key": "smoke-key"})[0],
+                     c.post("/recommend", body, {"Authorization": "Bearer smoke-key"})[0],
+                     c.request("GET", "/health")[0])
+        smoke.check(codes == (401, 401, 200, 200, 200),
+                    "API_KEY set: 401 without or with a wrong key, 200 with it; probes open")
+        with mock.patch.dict(os.environ, {"RATE_LIMIT": "2/minute"}):
+            limited = ServedApp(create_app(load_model_on_startup=False))
+            try:
+                event = {"request_id": "rl", "event_type": "click", "product_id": "1"}
+                rl = [limited.client.post("/feedback", event)[0] for _ in range(3)]
+                rl.append(limited.client.request("GET", "/health")[0])
+            finally:
+                limited.stop()
+        smoke.check(rl == [202, 202, 429, 200], "RATE_LIMIT=2/minute: the third request 429")
+        out["auth_codes"], out["rate_limit_codes"] = codes, rl
+        log("HTTP API routes " + json.dumps(out))
+        return out
+
+    def client_run(self, port: int, concurrency: int, bodies: list[dict]) -> dict:
+        """``LOAD_CLIENT`` in a process of its own."""
+        path = self.root / f"bodies_{concurrency}.json"
+        path.write_text(json.dumps(bodies))
+        proc = subprocess.run(
+            [sys.executable, "-c", LOAD_CLIENT, str(port), str(concurrency), str(path)],
+            capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"load client failed: {proc.stderr[-3000:]}")
+        return json.loads(proc.stdout)
+
+    def load(self, served: ServedApp, rec, batched: bool) -> dict:
+        """Top-10 requests over HTTP at concurrency 1, 8 and 64 from a client
+        process, each held to the direct recommend by the near-tie rule;
+        every launch accounted for. Without batching each request is one
+        tower forward and one top-k; with it, each drain, filtered request
+        and calibration is."""
+        smoke = self.smoke
+        batcher = served.app.state["recommender"]
+        kind = "batched" if batched else "direct"
+        before, cal_before = launch_counts(), len(rec._stage_cal._cache)
+        runs, checked, chunks, n_filtered = {}, [], 0, 0
+        for concurrency, n in BATCHER_RUNS:
+            reqs = [self.request_body(i) for i in range(n)]
+            drains_before = dict(batcher.drain_sizes) if batched else {}
+            got = self.client_run(served.port, concurrency, [body for _, _, body in reqs])
+            ms = [r[2] for r in got["results"]]
+            checked += [(q, what, status, body)
+                        for (q, what, _), (status, body, _) in zip(reqs, got["results"])]
+            n_filtered += sum(what == "filtered" for _, what, _ in reqs)
+            run = {"requests": n, "queries_per_s": n / got["wall_s"],
+                   "p50_ms": percentile_ms(ms, 50), "p95_ms": percentile_ms(ms, 95)}
+            if batched:
+                drains = {size: cnt - drains_before.get(size, 0)
+                          for size, cnt in batcher.drain_sizes.items()
+                          if cnt != drains_before.get(size, 0)}
+                chunks += sum(-(-size // SERVE_MAX_BATCH) * cnt for size, cnt in drains.items())
+                run["drain_sizes"] = dict(sorted(drains.items()))
+            runs[concurrency] = run
+        after, cal_new = launch_counts(), len(rec._stage_cal._cache) - cal_before
+        diff = {k: after[k] - before[k] for k in after}
+        expected = (chunks + n_filtered if batched else len(checked)) + cal_new
+        ok = all(status == 200 and near_tie_ok(ranked(body), self.direct[q, what], self.tol)
+                 for q, what, status, body in checked)
+        identical = sum(status == 200 and [p for p, _ in ranked(body)]
+                        == [p for p, _ in self.direct[q, what]]
+                        for q, what, status, body in checked)
+        out = {"runs": runs, "statuses": sorted({status for _, _, status, _ in checked}),
+               "ids_identical": identical / len(checked), "launches": diff,
+               "calibrations": cal_new, "filtered": n_filtered}
+        if batched:
+            out["drains"] = chunks
+            out["profiled"] = self.profiled_run(served.port)
+        else:
+            out["without_http"] = self.without_http(served.app, rec)
+        log(f"HTTP API load ({kind}) " + json.dumps(out))
+        smoke.check(ok, f"every {kind} HTTP request answered 200 with the direct recommend's "
+                    "ids or a near-tie")
+        smoke.check(
+            diff["cosine_topk"] == diff["masked_mean_pool_l2norm"] == expected
+            and diff["fused_encoder_layer"] == rec.encoder.config.num_layers * expected,
+            f"HTTP API launch counts exact ({kind}): one forward and one top-k per "
+            + ("drain, filtered request and calibration" if batched
+               else "request and calibration"),
+        )
+        return out
+
+    def without_http(self, app, rec) -> dict:
+        """Where the HTTP layer's time goes: the concurrency-1 requests once
+        through ``App.handle`` in this process (routes and middleware, no
+        sockets) and once as direct ``recommend`` calls, each serially; and
+        the direct calls from 8 and 64 threads of this process."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        from instacart_next_order_recommendation_tpu_torch.api.http import TestClient
+
+        client = TestClient(app)
+        reqs = [self.request_body(i) for i in range(BATCHER_RUNS[0][1])]
+
+        def direct(req):
+            _, _, body = req
+            kw = {k: v for k, v in body.items() if k.startswith("filter")}
+            return rec.recommend(body["user_context"], top_k=10,
+                                 exclude_product_ids=set(body.get("exclude_product_ids", ())),
+                                 **kw)
+
+        def timed(fn) -> list[float]:
+            ms = []
+            for req in reqs:
+                t0 = time.perf_counter()
+                fn(req)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            return ms
+
+        import cProfile
+        import pstats
+
+        handle = lambda req: client.post("/recommend", json=req[2])  # noqa: E731
+        profiler = cProfile.Profile()
+        profiler.enable()
+        handle_ms = timed(handle)
+        profiler.disable()
+        text = io.StringIO()
+        pstats.Stats(profiler, stream=text).sort_stats("tottime").print_stats(12)
+        log("App.handle at concurrency 1 under cProfile (this thread only), by own time:\n"
+            + "\n".join(text.getvalue().splitlines()[6:22]))
+        handle_ms = timed(handle)
+        with mock.patch.dict(os.environ, {"STORE_REQUEST_CONTEXTS": "0"}):
+            no_contexts_ms = timed(handle)
+        direct_ms = timed(direct)
+        out = {"app_handle_p50_ms": percentile_ms(handle_ms, 50),
+               "app_handle_p95_ms": percentile_ms(handle_ms, 95),
+               "app_handle_no_contexts_p50_ms": percentile_ms(no_contexts_ms, 50),
+               "direct_p50_ms": percentile_ms(direct_ms, 50),
+               "direct_p95_ms": percentile_ms(direct_ms, 95)}
+        for concurrency, n in BATCHER_RUNS[1:]:
+            batch = [self.request_body(i) for i in range(n)]
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(concurrency) as ex:
+                list(ex.map(direct, batch, timeout=600))
+            out[f"direct_threads_{concurrency}_queries_per_s"] = n / (time.perf_counter() - t0)
+        return out
+
+    def profiled_run(self, port: int) -> dict:
+        """1,024 requests at concurrency 64 once under ``torch.profiler``
+        (device only): the share of the wall time the device is idle."""
+        from torch.profiler import ProfilerActivity, profile
+
+        bodies = [self.request_body(i)[2] for i in range(1024)]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = self.client_run(port, 64, bodies)
+            torch.cuda.synchronize()
+        busy_us, n_spans = device_busy_us(prof)
+        wall_ms = got["wall_s"] * 1e3
+        self.smoke.check(all(r[0] == 200 for r in got["results"]),
+                         "profiled HTTP run: every request 200")
+        return {"queries_per_s": 1024 / got["wall_s"], "device_busy_ms": busy_us / 1e3,
+                "device_idle_share": 1 - busy_us / 1e3 / wall_ms if n_spans
+                else "not measured", "device_launches": n_spans}
+
+    def second_corpus(self, prefix: str, lo: int) -> dict[str, str]:
+        texts = self.st["catalog_texts"][lo : lo + API_SECOND_CORPUS]
+        return {f"{prefix}{i}": t for i, t in enumerate(texts)}
+
+    def corpus_swap(self, served: ServedApp) -> dict:
+        """POST /admin/corpus with 10,000 products: the live encoder is
+        reused (``TextEncoder.load`` patched to raise), answers come from the
+        new corpus only and equal a fresh recommender's on it; the swap timed
+        beside that fresh load."""
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+
+        smoke, app, c, queries = self.smoke, served.app, served.client, self.st["queries"]
+        live = app.state["recommender"]
+        corpus = self.second_corpus("c", 20_000)
+        torch.cuda.reset_peak_memory_stats()
+        self.memory_before = torch.cuda.memory_allocated()
+        with mock.patch.object(TextEncoder, "load", side_effect=AssertionError("reloaded")):
+            t0 = time.perf_counter()
+            status, body = c.post("/admin/corpus", {"corpus": corpus})
+            swap_s = time.perf_counter() - t0
+        swapped = app.state["recommender"]
+        t0 = time.perf_counter()
+        fresh = MonitoredRecommender(self.st["model_dir"], app.state["corpus_path"],
+                                     use_index=False)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        ok = True
+        for q in queries[:16]:
+            code, got = c.post("/recommend", {"user_context": q, "top_k": 10})
+            ok = ok and code == 200 and all(p in corpus for p, _ in ranked(got)) and near_tie_ok(
+                ranked(got), fresh.recommend(q, top_k=10), self.tol)
+        out = {"status": status, "n_products": body.get("n_products"), "swap_s": swap_s,
+               "fresh_load_s": fresh_s}
+        log("HTTP API corpus swap " + json.dumps(out))
+        smoke.check(
+            status == 200 and body == {"status": "ok", "n_products": API_SECOND_CORPUS}
+            and swapped is not live and swapped.encoder is live.encoder
+            and swapped.device == live.device,
+            "/admin/corpus took the fast path: the live encoder, no tower reload",
+        )
+        smoke.check(ok, "after the corpus swap every answer comes from the new corpus and "
+                    "equals a fresh recommender's on it")
+        return out
+
+    def model_swap(self, served: ServedApp) -> dict:
+        """POST /admin/model to a second tower (other seeded weights): the
+        answers follow it; a missing dir is 400. Peak device memory from the
+        corpus swap to here."""
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import save_tower
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import init_params
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+
+        smoke, app, c, st = self.smoke, served.app, served.client, self.st
+        live = app.state["recommender"]
+        model2 = self.root / "model2"
+        save_tower(model2, init_params(live.encoder.config, torch.Generator().manual_seed(1)),
+                   live.encoder.config, st["tok"])
+        queries = st["queries"][:16]
+        before = [ranked(c.post("/recommend", {"user_context": q, "top_k": 10})[1])
+                  for q in queries]
+        t0 = time.perf_counter()
+        status, body = c.post("/admin/model", {"model_dir": str(model2)})
+        swap_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        want = MonitoredRecommender(model2, app.state["corpus_path"], use_index=False)
+        after = [ranked(c.post("/recommend", {"user_context": q, "top_k": 10})[1])
+                 for q in queries]
+        missing, _ = c.post("/admin/model", {"model_dir": str(self.root / "no_such_model")})
+        out = {"status": status, "swap_s": swap_s, "missing_dir_status": missing,
+               "memory_before_swaps_mib": self.memory_before / 2**20,
+               "peak_memory_around_swaps_mib": peak / 2**20}
+        log("HTTP API model swap " + json.dumps(out))
+        smoke.check(
+            status == 200 and body["model_dir"] == str(model2)
+            and app.state["recommender"].model_dir == model2.resolve(),
+            "/admin/model swapped to the second tower",
+        )
+        smoke.check(
+            all(near_tie_ok(a, want.recommend(q, top_k=10), self.tol)
+                for q, a in zip(queries, after)) and after != before,
+            "after the model swap the answers follow the new tower",
+        )
+        smoke.check(missing == 400, "/admin/model with a missing dir: 400")
+        return out
+
+    def swap_under_load(self, served: ServedApp) -> dict:
+        """A corpus swap under live traffic at concurrency 8 on the batched
+        app: no failed request, and each answer's ids from one corpus
+        generation only."""
+        import threading
+
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+
+        smoke, app, c, queries = self.smoke, served.app, served.client, self.st["queries"]
+        stop, errors, seen, served_n = threading.Event(), [], set(), [0]
+        lock = threading.Lock()
+
+        def requester(i: int) -> None:
+            j = i
+            while not stop.is_set():
+                code, got = c.post("/recommend", {"user_context": queries[j % len(queries)],
+                                                  "top_k": 10})
+                j += 8
+                gens = {p[0] for p, _ in ranked(got)} if code == 200 else set()
+                with lock:
+                    served_n[0] += 1
+                    if code != 200 or len(gens) != 1:
+                        errors.append((code, sorted(gens)))
+                        return
+                    seen.add(gens.pop())
+
+        with mock.patch.object(TextEncoder, "load", side_effect=AssertionError("reloaded")):
+            status_a, _ = c.post("/admin/corpus", {"corpus": self.second_corpus("a", 0)})
+            live = app.state["recommender"]
+            threads = [threading.Thread(target=requester, args=(i,)) for i in range(8)]
+            for t in threads:
+                t.start()
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            status_b, _ = c.post("/admin/corpus", {"corpus": self.second_corpus("b", 10_000)})
+            swap_s = time.perf_counter() - t0
+            time.sleep(0.5)
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        alive = any(t.is_alive() for t in threads)
+        final = ranked(c.post("/recommend", {"user_context": queries[0], "top_k": 10})[1])
+        out = {"requests": served_n[0], "generations_seen": sorted(seen), "swap_s": swap_s,
+               "errors": errors[:5]}
+        log("HTTP API swap under load " + json.dumps(out))
+        smoke.check(
+            (status_a, status_b) == (200, 200) and not alive and not errors
+            and seen == {"a", "b"} and {p[0] for p, _ in final} == {"b"}
+            and app.state["recommender"]._rec.encoder is live._rec.encoder,
+            "a corpus swap under load at concurrency 8: no failed request, every answer from "
+            "one corpus generation, the new one serving after",
+        )
+        return out
+
+    def packed(self) -> dict:
+        """An app started with ITOR_TOPK_EXTRACTION=packed: K4 serves, and its
+        ids differ from the exact app's only at 20-bit ties."""
+        from instacart_next_order_recommendation_tpu_torch.api.app import create_app
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+
+        smoke, st = self.smoke, self.st
+        queries = st["queries"][:8]
+        with mock.patch.dict(os.environ, {"ITOR_TOPK_EXTRACTION": "packed"}):
+            served = ServedApp(create_app(st["model_dir"], self.corpus_path))
+        try:
+            rec = served.app.state["recommender"]
+            k4_before = cosine_topk.packed_launches
+            got = [ranked(served.client.post("/recommend", {"user_context": q, "top_k": 10})[1])
+                   for q in queries]
+            k4 = cosine_topk.packed_launches - k4_before
+            with torch.inference_mode():
+                q_emb = rec.encoder.encode_device(queries)
+                row = {p: i for i, p in enumerate(rec.product_ids)}
+                i_packed = torch.tensor([[row[p] for p, _ in g] for g in got], device=self.dev)
+                i_exact = torch.tensor([[row[p] for p, _ in self.direct[q, "plain"]]
+                                        for q in queries], device=self.dev)
+                ties = packed_ties_ok(q_emb, rec.index.catalog, i_packed, i_exact)
+            share = float((i_packed == i_exact).float().mean())
+        finally:
+            served.stop()
+        out = {"k4_launches": k4, "ids_identical": share, "startup_s": served.startup_s}
+        log("HTTP API packed extraction " + json.dumps(out))
+        smoke.check(rec.index.packed and k4 >= len(queries),
+                    "ITOR_TOPK_EXTRACTION=packed: K4 served every request")
+        smoke.check(ties, "the packed app's ids equal the exact app's or are 20-bit ties")
+        return out
+
+    def cli(self) -> dict:
+        """``python -m instacart_next_order_recommendation_tpu_torch.api`` as a
+        subprocess: /ready polled, one /recommend, then SIGINT; it exits 0
+        and its request context is in the DB."""
+        import signal
+        import socket
+        import sqlite3
+        import urllib.error
+        import urllib.request
+
+        smoke, st = self.smoke, self.st
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        db = self.root / "cli_feedback.db"
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("INFERENCE_DEVICE", "BATCH_WINDOW_MS", "PRECOMPILE_ON_STARTUP")}
+        env.update(MODEL_DIR=str(st["model_dir"]), CORPUS_PATH=str(self.corpus_path),
+                   FEEDBACK_DB_PATH=str(db))
+        log_path = self.root / "cli.log"
+        url = f"http://127.0.0.1:{port}"
+        ready, body, rc = False, None, None
+        t0 = time.perf_counter()
+        with open(log_path, "w") as log_file:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", f"{PKG}.api", "--host", "127.0.0.1", "--port", str(port)],
+                cwd=REPO, env=env, stdout=log_file, stderr=subprocess.STDOUT,
+            )
+        try:
+            while proc.poll() is None and time.perf_counter() - t0 < 300:
+                try:
+                    with urllib.request.urlopen(f"{url}/ready", timeout=5) as r:
+                        ready = json.loads(r.read()) == {"status": "ready"}
+                except (urllib.error.URLError, ConnectionError):
+                    pass
+                if ready:
+                    break
+                time.sleep(0.25)
+            ready_s = time.perf_counter() - t0
+            if ready:
+                req = urllib.request.Request(
+                    f"{url}/recommend", method="POST",
+                    data=json.dumps({"user_context": st["queries"][1], "top_k": 10}).encode(),
+                    headers={"Content-Type": "application/json"},
+                )
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    body = json.loads(r.read())
+            proc.send_signal(signal.SIGINT)
+            rc = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        context = None
+        if body is not None and db.exists():
+            conn = sqlite3.connect(db)
+            try:
+                row = conn.execute("SELECT user_context FROM request_contexts WHERE request_id = ?",
+                                   (body["request_id"],)).fetchone()
+            finally:
+                conn.close()
+            context = row[0] if row else None
+        out = {"ready_s": ready_s, "exit": rc,
+               "recommendations": len(body["recommendations"]) if body else 0,
+               "context_stored": context == st["queries"][1]}
+        text = log_path.read_text()
+        log("HTTP API CLI " + json.dumps(out) + "\n" + "\n".join(text.splitlines()[-8:]))
+        smoke.check(ready and rc == 0 and out["context_stored"] and out["recommendations"] == 10,
+                    "the API CLI served /ready and /recommend, exited 0 on SIGINT, and its "
+                    "request context is in the DB")
+        return out
 
 
 def training_wrappers() -> tuple:
@@ -3162,8 +3955,11 @@ def main() -> int:
                 smoke.serve(dev, Path(tmp))
             log(f"phase 3 (serve path) {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
-            ServingTierPhase(smoke, dev, Path(tmp)).run()
+            serving = ServingTierPhase(smoke, dev, Path(tmp)).run()
             log(f"phase 3c (serving tier) {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            HttpApiPhase(smoke, dev, Path(tmp), serving).run()
+            log(f"phase 3d (HTTP API) {time.perf_counter() - t0:.1f}s")
             t0 = time.perf_counter()
             smoke.serve_mpnet(dev, Path(tmp))
             smoke.repaired_shapes(dev)

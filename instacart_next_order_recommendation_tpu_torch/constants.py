@@ -1,4 +1,5 @@
-"""Paths and filenames shared with the JAX package's on-disk formats.
+"""Paths, filenames and environment variable names shared with the JAX
+package.
 
 The port keeps its own copy of the names it needs, so a tower directory, an
 embedding cache or a processed dataset written by either package is read by
@@ -9,6 +10,26 @@ from pathlib import Path
 
 # Repository root (parent of the package directory)
 PROJECT_ROOT = Path(__file__).resolve().parents[1]
+
+# HTTP API environment (the JAX package's names): the feedback DB, the
+# model and corpus the server loads, the API key, the per-client rate limit
+# ("100/minute") and the largest corpus POST /admin/corpus takes.
+ENV_FEEDBACK_DB_PATH = "FEEDBACK_DB_PATH"
+ENV_MODEL_DIR = "MODEL_DIR"
+ENV_CORPUS_PATH = "CORPUS_PATH"
+ENV_API_KEY = "API_KEY"
+ENV_RATE_LIMIT = "RATE_LIMIT"
+ENV_MAX_CORPUS_UPLOAD_PRODUCTS = "MAX_CORPUS_UPLOAD_PRODUCTS"
+# HTTP server bounds: concurrently handled connections (the excess gets a
+# fast 503), per-connection socket timeout in seconds (a slow client cannot
+# pin a worker), and the largest request body in bytes (a larger one gets
+# 413 before it is read).
+ENV_HTTP_MAX_CONCURRENCY = "HTTP_MAX_CONCURRENCY"
+ENV_HTTP_SOCKET_TIMEOUT = "HTTP_SOCKET_TIMEOUT"
+ENV_HTTP_MAX_BODY_BYTES = "HTTP_MAX_BODY_BYTES"
+DEFAULT_HTTP_MAX_CONCURRENCY = 64
+DEFAULT_HTTP_SOCKET_TIMEOUT = 30.0
+DEFAULT_HTTP_MAX_BODY_BYTES = 64 * 1024 * 1024  # corpus uploads are tens of MB
 
 # Config files (YAML)
 CONFIG_DIR = PROJECT_ROOT / "configs"
@@ -31,6 +52,12 @@ FINAL_SUBDIR = "final"
 # Serving defaults
 DEFAULT_MODEL_DIR = DEFAULT_OUTPUT_DIR / FINAL_SUBDIR
 DEFAULT_CORPUS_PATH = DEFAULT_PROCESSED_DIR / "p5_mp20_ef0.1" / EVAL_CORPUS_FILENAME
+
+# Corpus upload limit for POST /admin/corpus
+MAX_CORPUS_UPLOAD_PRODUCTS = 100_000
+
+# Feedback store
+DEFAULT_FEEDBACK_DB_PATH = PROJECT_ROOT / "data" / "feedback.db"
 
 # Demo query used by the serve CLI when no query is configured
 DEMO_QUERY = "[+7d w4h14] Organic Milk, Whole Wheat Bread."

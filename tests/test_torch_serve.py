@@ -159,10 +159,11 @@ def test_no_silent_cpu(served, monkeypatch):
         TextEncoder(ours.encoder.params, ours.encoder.config, ours.encoder.tokenizer)
 
 
-def test_port_imports_no_jax(served):
+def test_port_imports_no_jax(served, tmp_path):
     ours, _ = served
     script = textwrap.dedent(
         f"""
+        import os
         import sys
         import torch
         from instacart_next_order_recommendation_tpu_torch.eval.evaluator import RetrievalEvaluator
@@ -178,11 +179,19 @@ def test_port_imports_no_jax(served):
         )
         from instacart_next_order_recommendation_tpu_torch.tokenizer import native, unicode_tables
         from instacart_next_order_recommendation_tpu_torch.utils.dotenv import load_dotenv
-        sys.argv = ["serve", "--help"]  # the CLI module runs main(): help, then exit 0
-        try:
-            import instacart_next_order_recommendation_tpu_torch.serve.__main__
-        except SystemExit as exc:
-            assert exc.code == 0, exc.code
+        from instacart_next_order_recommendation_tpu_torch.api import create_app
+        from instacart_next_order_recommendation_tpu_torch.api import (
+            app, auth, feedback_store, http, limiter, metrics, schemas, validation,
+        )
+        from instacart_next_order_recommendation_tpu_torch.api.routes import (
+            corpus, feedback, model, recommend,
+        )
+        for cli in ("serve", "api"):  # each CLI module runs main(): help, then exit 0
+            sys.argv = [cli, "--help"]
+            try:
+                __import__(f"instacart_next_order_recommendation_tpu_torch.{{cli}}.__main__")
+            except SystemExit as exc:
+                assert exc.code == 0, exc.code
         rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
                           use_index=False, device="cpu", topk_extraction="packed")
         assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
@@ -191,6 +200,11 @@ def test_port_imports_no_jax(served):
         assert len(MicroBatcher(mon).recommend({QUERIES[1]!r}, top_k=4)) == 4
         assert warm_serve_shapes(mon, k_buckets=(16,)) == 2 + 2 + 2
         assert rec.encoder.tokenizer.native_batches > 0 and native.library_path().exists()
+        os.environ["INFERENCE_DEVICE"] = "cpu"
+        os.environ["FEEDBACK_DB_PATH"] = {str(tmp_path / "feedback.db")!r}
+        with http.TestClient(create_app({str(ours.model_dir)!r}, {str(ours.corpus_path)!r})) as c:
+            r = c.post("/recommend", json={{"user_context": {QUERIES[0]!r}, "top_k": 3}})
+            assert r.status_code == 200 and len(r.json()["recommendations"]) == 3, r.json()
         q = torch.zeros((1, 2, 8, 64))
         multi_head_attention(q, q, q, torch.ones((1, 8)), 0.125)
         assert TrainConfig({{"model_name": "mpnet-base"}}).model_name == "mpnet-base"
