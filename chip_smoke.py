@@ -95,6 +95,31 @@ Run from the repository root, with no arguments:
    the flagship batch of 512 is timed. Last, where a training step's time
    goes at B=64 and B=512: host-clock step time, and the device time per
    kernel from ``torch.profiler`` over a few steps.
+4b. Hugging Face towers, training's tracing and the baselines, at
+   MiniLM-L6's full width, in two parts. Before phase 4's first ``train()``
+   (``torch.profiler`` has dropped kernel records in traces taken after
+   one): phase 3's seeded tower written as three Hugging Face directories
+   (``config.json`` with BertConfig's fields, the vocab and
+   ``tokenizer_config.json``; ``pytorch_model.bin`` bare and under
+   ``0.auto_model.``, ``model.safetensors`` under ``bert.``, by a writer in
+   this script: no transformers), each loaded by ``load_tower`` bitwise
+   equal to the source and encoding the 256 serve queries bitwise equal to
+   it; ``Recommender`` on one over phase 3's 50k catalog (the same catalog,
+   bitwise, and the same top-10 ids for 32 queries); ``/admin/model`` to
+   one on a live ``create_app``, its answers held to the direct recommend
+   by the near-tie rule; and ``TwoTowerTrainer`` warm-started from one
+   (``model_name:`` the directory) for one epoch at B=64 on phase 4's pairs
+   with ``ITOR_PROFILE_DIR`` and ``ITOR_LOOP_TIMING=1``: the loss falls, 12
+   K1-train and 12 K5 launches a step, a trace whose kernel records hold
+   the 60 K1-train and 60 K5 launches of dispatches 1-5 (read with each
+   kernel's launches per call, traced just before), the loop-timing lines
+   every 25 dispatches, and ``final/`` loads. After phase 4: phase 4's
+   users as Instacart CSVs and eval files, ``python -m
+   instacart_next_order_recommendation_tpu_torch.baselines`` as a
+   subprocess with the untrained tower and with phase 4's trained one (both
+   with CF; exit 0, both tables parse, NDCG@10 trained above untrained),
+   and CF's top-5 for 20 queries against a plain count of co-occurring
+   pairs. Launch counts are reset before and read after.
 5. The same training for the mpnet-base-class tower (``model_name:
    mpnet-base``) for one epoch through the fused layer: 24 K1-train and 24
    K5 launches per step, 12 K1 per eval forward, no K6 or K7; the 3-step
@@ -114,6 +139,7 @@ fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -1027,16 +1053,13 @@ def time_prefix(days: int | None, dow: int, hour: int) -> str:
     return f"w{dow}h{hour}" if days is None else f"+{days}d w{dow}h{hour}"
 
 
-def build_training_data(rng: np.random.Generator):
-    """(anchors, positives, eval_pairs, eval_queries, eval_corpus, relevant)
-    in the form the data prep writes for ``configs/data_prep.yaml``
-    (p5_mp20): an anchor is the user's context before the target order
-    (the last MAX_PRIOR_ORDERS prior orders, oldest first, at most
-    MAX_PRODUCT_NAMES names, then ``Next: <time>``), a positive one product
-    of that order. Products have real-length names; each user prefers three
-    aisles and reorders about 60% of each basket. The numerically last
-    EVAL_FRAC of target orders are held out; their queries drop the
-    ``Next:`` clause, as at serve time."""
+def synthetic_users(rng: np.random.Generator) -> dict:
+    """TRAIN_USERS synthetic Instacart users over TRAIN_PRODUCTS products
+    with real-length names: ``catalog`` (product i's text; its product id is
+    i + 1), ``names``, and each user's orders, oldest first, as (order id,
+    days since the prior order or None, day of week, hour, basket of
+    product indices). Each user prefers three aisles and reorders about 60%
+    of each basket."""
     n_aisles = len(AISLES)
     per_aisle = len(NOUNS) // n_aisles
     aisle = rng.integers(0, n_aisles, size=TRAIN_PRODUCTS)
@@ -1055,7 +1078,7 @@ def build_training_data(rng: np.random.Generator):
     ]
     by_aisle = [np.flatnonzero(aisle == a) for a in range(n_aisles)]
 
-    targets = []  # (order id, context, basket) of each user's last order
+    users = []
     order_id = 0
     for _ in range(TRAIN_USERS):
         pref = np.concatenate([by_aisle[a] for a in rng.choice(n_aisles, 3, replace=False)])
@@ -1064,7 +1087,7 @@ def build_training_data(rng: np.random.Generator):
         for o in range(int(rng.integers(4, 9))):
             order_id += 1
             days = None if o == 0 else int(rng.integers(1, 30))
-            prefix = time_prefix(days, int(rng.integers(0, 7)), int(rng.integers(0, 24)))
+            dow, hour = int(rng.integers(0, 7)), int(rng.integers(0, 24))
             n_items = int(rng.integers(3, 10))
             n_re = min(int(round(n_items * 0.6)), len(bought))
             basket = [int(p) for p in rng.choice(bought, size=n_re, replace=False)] if n_re else []
@@ -1073,19 +1096,42 @@ def build_training_data(rng: np.random.Generator):
             basket += [int(p) for p in rng.choice(pref, size=n_pref, replace=False)]
             basket += [int(p) for p in rng.choice(TRAIN_PRODUCTS, size=n_new - n_pref, replace=False)]
             basket = list(dict.fromkeys(basket))
-            orders.append((prefix, basket))
+            orders.append((order_id, days, dow, hour, basket))
             bought = list(dict.fromkeys(bought + basket))
+        users.append(orders)
+    return {"catalog": catalog, "names": names, "users": users}
+
+
+def held_out_users(users: list) -> int:
+    """How many users, the last ones, are held out for evaluation."""
+    return max(1, int(len(users) * EVAL_FRAC))
+
+
+def build_training_data(synthetic: dict):
+    """(anchors, positives, eval_pairs, eval_queries, eval_corpus, relevant)
+    in the form the data prep writes for ``configs/data_prep.yaml``
+    (p5_mp20), from ``synthetic_users``: an anchor is the user's context
+    before the target order (the last MAX_PRIOR_ORDERS prior orders, oldest
+    first, at most MAX_PRODUCT_NAMES names, then ``Next: <time>``), a
+    positive one product of that order. The numerically last EVAL_FRAC of
+    target orders are held out; their queries drop the ``Next:`` clause, as
+    at serve time."""
+    catalog, names = synthetic["catalog"], synthetic["names"]
+    targets = []  # (order id, context, basket) of each user's last order
+    for orders in synthetic["users"]:
         segments, total = [], 0
-        for prefix, basket in orders[-1 - MAX_PRIOR_ORDERS : -1]:
+        for _, days, dow, hour, basket in orders[-1 - MAX_PRIOR_ORDERS : -1]:
             take = basket[: MAX_PRODUCT_NAMES - total]
             if not take:
                 break
             total += len(take)
+            prefix = time_prefix(days, dow, hour)
             segments.append(f"[{prefix}] " + ", ".join(names[p] for p in take))
-        context = "; ".join(segments) + ". Next: " + orders[-1][0]
-        targets.append((order_id, context, orders[-1][1]))
+        last_id, days, dow, hour, basket = orders[-1]
+        context = "; ".join(segments) + ". Next: " + time_prefix(days, dow, hour)
+        targets.append((last_id, context, basket))
 
-    n_eval = max(1, int(len(targets) * EVAL_FRAC))
+    n_eval = held_out_users(targets)
     train, held = targets[:-n_eval], targets[-n_eval:]
     anchors = [c for _, c, basket in train for _ in basket]
     positives = [catalog[p] for _, _, basket in train for p in basket]
@@ -3196,7 +3242,9 @@ class TrainPhase:
         self.smoke = smoke
         self.dev = dev
         self.workdir = workdir / self.model_name
-        self.data = data if data is not None else build_training_data(np.random.default_rng(1))
+        self.data = data if data is not None else build_training_data(
+            synthetic_users(np.random.default_rng(1))
+        )
 
     def config(self, out: str, **kw):
         from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
@@ -3871,6 +3919,496 @@ class MpnetTrainPhase(TrainPhase):
         return out
 
 
+# Phase 4b: Hugging Face towers, the baselines CLI and training's tracing.
+# BERT's name of each tower parameter (under encoder.layer.{i}. for the
+# layers); the tower keeps a Linear weight as (in, out), BERT as (out, in).
+# The script writes HF directories from its own table, not the loader's, so
+# that loading them tests the loader's table too.
+BERT_EMBEDDING_NAMES = {
+    "word": "embeddings.word_embeddings.weight",
+    "position": "embeddings.position_embeddings.weight",
+    "token_type": "embeddings.token_type_embeddings.weight",
+    "ln_scale": "embeddings.LayerNorm.weight",
+    "ln_bias": "embeddings.LayerNorm.bias",
+}
+BERT_LAYER_NAMES = {
+    "q_w": "attention.self.query.weight", "q_b": "attention.self.query.bias",
+    "k_w": "attention.self.key.weight", "k_b": "attention.self.key.bias",
+    "v_w": "attention.self.value.weight", "v_b": "attention.self.value.bias",
+    "o_w": "attention.output.dense.weight", "o_b": "attention.output.dense.bias",
+    "attn_ln_scale": "attention.output.LayerNorm.weight",
+    "attn_ln_bias": "attention.output.LayerNorm.bias",
+    "ffn_w1": "intermediate.dense.weight", "ffn_b1": "intermediate.dense.bias",
+    "ffn_w2": "output.dense.weight", "ffn_b2": "output.dense.bias",
+    "ffn_ln_scale": "output.LayerNorm.weight", "ffn_ln_bias": "output.LayerNorm.bias",
+}
+LINEAR_WEIGHTS = {"q_w", "k_w", "v_w", "o_w", "ffn_w1", "ffn_w2"}
+# The three layouts phase 4b writes: (weights file, module prefix).
+HF_LAYOUTS = (
+    ("pytorch_model.bin", ""),
+    ("pytorch_model.bin", "0.auto_model."),
+    ("model.safetensors", "bert."),
+)
+HF_RECOMMEND_QUERIES = 32
+HF_API_QUERIES = 16
+WARM_START_TRACED = 5  # the trainer traces dispatches 1-5 of its first epoch
+CF_CHECKED_QUERIES = 20
+TRAINER_LOGGER = f"{PKG}.train.trainer"
+
+
+def bert_state_dict(params: dict, n_layers: int, prefix: str) -> dict[str, torch.Tensor]:
+    """The tower's params under BERT's names and layout, each name after
+    ``prefix``."""
+    sd = {prefix + hf: params["embeddings"][ours] for ours, hf in BERT_EMBEDDING_NAMES.items()}
+    for ours, hf in BERT_LAYER_NAMES.items():
+        for i in range(n_layers):
+            t = params["layers"][ours][i]
+            sd[f"{prefix}encoder.layer.{i}.{hf}"] = t.T if ours in LINEAR_WEIGHTS else t
+    return {k: v.detach().to("cpu", torch.float32).contiguous() for k, v in sd.items()}
+
+
+def bert_config_json(cfg) -> dict:
+    """BertConfig's fields for a tower config, written by hand (the card's
+    machine need not have transformers)."""
+    return {
+        "architectures": ["BertModel"], "model_type": "bert",
+        "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "num_hidden_layers": cfg.num_layers, "num_attention_heads": cfg.num_heads,
+        "intermediate_size": cfg.intermediate_size, "hidden_act": "gelu",
+        "hidden_dropout_prob": cfg.hidden_dropout, "attention_probs_dropout_prob": 0.1,
+        "max_position_embeddings": cfg.max_position, "type_vocab_size": cfg.type_vocab_size,
+        "initializer_range": 0.02, "layer_norm_eps": cfg.layer_norm_eps, "pad_token_id": 0,
+        "position_embedding_type": "absolute", "use_cache": True, "classifier_dropout": None,
+    }
+
+
+def write_safetensors(path: Path, tensors: dict[str, torch.Tensor]) -> None:
+    """A ``.safetensors`` file of f32 tensors: the header's length (8 bytes,
+    little-endian), the JSON header padded to 8 bytes, then the data."""
+    import struct
+
+    header, blobs, offset = {"__metadata__": {"format": "pt"}}, [], 0
+    for name, t in tensors.items():
+        blob = t.numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [offset, offset + len(blob)]}
+        blobs.append(blob)
+        offset += len(blob)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    path.write_bytes(struct.pack("<Q", len(head)) + head + b"".join(blobs))
+
+
+def write_hf_dir(path: Path, params: dict, cfg, tok, weights: str, prefix: str) -> Path:
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(bert_config_json(cfg), indent=2))
+    sd = bert_state_dict(params, cfg.num_layers, prefix)
+    if weights == "model.safetensors":
+        write_safetensors(path / weights, sd)
+    else:
+        torch.save(sd, path / weights)
+    tok.save(path)  # vocab.txt and tokenizer_config.json (do_lower_case)
+    return path
+
+
+def write_instacart_csvs(synthetic: dict, data_dir: Path) -> None:
+    """The synthetic users as Instacart's ``orders.csv`` (each user's last
+    order ``train``, the others ``prior``) and ``order_products__prior.csv``;
+    product i has id i + 1."""
+    import csv
+
+    data_dir.mkdir(parents=True)
+    with open(data_dir / "orders.csv", "w", newline="") as fo, \
+            open(data_dir / "order_products__prior.csv", "w", newline="") as fp:
+        orders, products = csv.writer(fo), csv.writer(fp)
+        orders.writerow(["order_id", "user_id", "eval_set", "order_number", "order_dow",
+                         "order_hour_of_day", "days_since_prior_order"])
+        products.writerow(["order_id", "product_id", "add_to_cart_order", "reordered"])
+        for uid, user in enumerate(synthetic["users"], 1):
+            seen: set[int] = set()
+            for n, (oid, days, dow, hour, basket) in enumerate(user, 1):
+                last = n == len(user)
+                orders.writerow([oid, uid, "train" if last else "prior", n, dow, hour,
+                                 "" if days is None else f"{days}.0"])
+                if not last:
+                    for pos, p in enumerate(basket, 1):
+                        products.writerow([oid, p + 1, pos, int(p in seen)])
+                seen.update(basket)
+
+
+def plain_cf_top(synthetic: dict, qids: list[str], k: int) -> dict[str, list[str]]:
+    """Item-item CF by a plain count of co-occurring pairs: over every prior
+    order of the held-out users, each pair of products in one order counts
+    once (a product with itself too); a query's score of a product is its
+    count summed over the products the user bought before, the user's
+    products are left out, and ties keep corpus order."""
+    users = synthetic["users"]
+    held = {str(orders[-1][0]): orders for orders in users[-held_out_users(users):]}
+    co: dict[int, dict[int, int]] = {}
+    for orders in held.values():
+        for _, _, _, _, basket in orders[:-1]:
+            for a in basket:
+                row = co.setdefault(a, {})
+                for b in basket:
+                    row[b] = row.get(b, 0) + 1
+    out = {}
+    for qid in qids:
+        history = {p for _, _, _, _, basket in held[qid][:-1] for p in basket}
+        scores = {c: sum(co.get(c, {}).get(h, 0) for h in history)
+                  for c in range(TRAIN_PRODUCTS) if c not in history}
+        ranked = sorted(scores, key=lambda c: (-scores[c], c))
+        out[qid] = [str(c + 1) for c in ranked[:k]]
+    return out
+
+
+def metric_tables(text: str) -> dict[str, dict[str, float]]:
+    """``format_metrics`` tables in a CLI's output: title -> label -> value."""
+    out: dict[str, dict[str, float]] = {}
+    title = None
+    for line in text.splitlines():
+        m = re.fullmatch(r"--- (.+) ---", line.strip())
+        if m:
+            title = m.group(1)
+            out[title] = {}
+        elif title is not None and re.fullmatch(r"\s+[\w@]+:\s+[-\d.]+", line):
+            label, value = line.split(":")
+            out[title][label.strip()] = float(value)
+    return {t: v for t, v in out.items() if v}
+
+
+def trace_steps(trace_dir: Path) -> tuple[list[Path], int, list[collections.Counter]]:
+    """The Chrome traces in ``trace_dir``; for the one there, its kernel
+    records and, for each training step it holds, that step's kernels by
+    name without template arguments. A step starts at its first word
+    embedding lookup (two a step: the anchor tower, then the positive one);
+    a kernel belongs to the step in which its launch was made on the host
+    (the CUDA API call its correlation id names; its own start where that
+    record is missing)."""
+    import bisect
+
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        return files, 0, []
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"] if e.get("ph") == "X"]
+    starts = sorted(float(e["ts"]) for e in events if e.get("name") == "aten::embedding")[::2]
+    launched = {
+        e["args"]["correlation"]: float(e["ts"]) for e in events
+        if str(e.get("cat")).startswith("cuda_") and "correlation" in e.get("args", {})
+    }
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    steps = [collections.Counter() for _ in starts]
+    for e in kernels:
+        t = launched.get(e.get("args", {}).get("correlation"), float(e["ts"]))
+        i = bisect.bisect_right(starts, t) - 1
+        if i >= 0:
+            steps[i][_kernel_name(e["name"]).split("<")[0].split("::")[-1]] += 1
+    return files, len(kernels), steps
+
+
+@contextlib.contextmanager
+def logged_messages(name: str):
+    """The messages logger ``name`` emits at INFO and above inside the block."""
+    import logging
+
+    logger, messages = logging.getLogger(name), []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = lambda record: messages.append(record.getMessage())
+    level = logger.level
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        yield messages
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+class HfBaselinesPhase:
+    """Phase 4b at MiniLM-L6's full width. ``towers`` (before phase 4's
+    first ``train()``): phase 3's seeded tower written as three Hugging Face
+    directories (``pytorch_model.bin`` bare and under ``0.auto_model.``,
+    ``model.safetensors`` under ``bert.``, with ``config.json``, the vocab
+    and ``tokenizer_config.json``; no transformers), each loaded by
+    ``load_tower`` bitwise equal to the source and encoding the serve batch
+    bitwise equal to it through ``TextEncoder``, ``Recommender`` on one of
+    them over phase 3's catalog, ``/admin/model`` to one on a live
+    ``create_app``, and a warm start (``model_name:`` the directory) for one
+    epoch with ``ITOR_PROFILE_DIR`` and ``ITOR_LOOP_TIMING=1``, its trace
+    read kernel by kernel. ``baselines`` (after phase 4): phase 4's users as
+    Instacart CSVs and eval files, ``python -m ...baselines`` twice (the
+    untrained tower, then phase 4's trained one) with CF, and CF's rankings
+    against a plain count of co-occurring pairs. Launch counts are reset
+    before and read after."""
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, serving: dict, synthetic: dict,
+                 data: tuple, smi: str):
+        self.smoke, self.dev, self.synthetic, self.data, self.smi = (
+            smoke, dev, synthetic, data, smi
+        )
+        self.st = smoke.serve_state
+        self.root = workdir / "hf"
+        self.tol = serving["batcher"]["near_tie_tol"]
+
+    def towers(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+
+        smoke, st = self.smoke, self.st
+        queries = st["queries"]
+        t0 = time.perf_counter()
+        src, src_cfg, tok = load_tower(st["model_dir"])
+        dirs = [
+            write_hf_dir(self.root / f"{weights.split('.')[0]}_{prefix.strip('.') or 'bare'}",
+                         src, src_cfg, tok, weights, prefix)
+            for weights, prefix in HF_LAYOUTS
+        ]
+        out: dict = {"dirs": [d.name for d in dirs], "write_s": time.perf_counter() - t0}
+
+        # ---- the main path, counted from zero
+        for w in serve_wrappers():
+            w.launches = 0
+        with torch.inference_mode():
+            want = TextEncoder.load(st["model_dir"]).encode_device(queries[:BATCH])
+            for d in dirs:
+                params, cfg, hf_tok = load_tower(d)
+                same = params.keys() == src.keys() and all(
+                    params[g].keys() == src[g].keys()
+                    and all(torch.equal(params[g][n], t) for n, t in src[g].items())
+                    for g in src
+                )
+                emb = TextEncoder.load(d).encode_device(queries[:BATCH])
+                smoke.check(
+                    same and cfg == src_cfg and hf_tok.vocab == tok.vocab,
+                    f"{d.name}: load_tower gives the source tower's params bitwise, its config "
+                    "and vocab",
+                )
+                smoke.check(bool(torch.equal(emb, want)),
+                            f"{d.name}: the serve batch encodes bitwise equal to the source tower")
+            rec_hf = Recommender(dirs[-1], st["corpus_path"], use_index=False)
+            rec_src = Recommender(st["model_dir"], st["corpus_path"], use_index=False)
+            qs = queries[BATCH : BATCH + HF_RECOMMEND_QUERIES]
+            got = [[p for p, _ in rec_hf.recommend(q, top_k=10)] for q in qs]
+            ref = [[p for p, _ in rec_src.recommend(q, top_k=10)] for q in qs]
+        counts = launch_counts()
+        # ---- end of the main path
+        out["launches"] = counts
+        out["load_encode_recommend_s"] = time.perf_counter() - t0 - out["write_s"]
+        smoke.check(bool(torch.equal(rec_hf.index.catalog, st["catalog"])),
+                    f"Recommender on {dirs[-1].name}: phase 3's 50k catalog, bitwise")
+        smoke.check(got == ref, f"Recommender on {dirs[-1].name}: top-10 ids identical to the "
+                                f"source tower's for {len(qs)} queries")
+        smoke.check(
+            all(v > 0 for v in counts.values())
+            and counts["fused_encoder_layer"] == src_cfg.num_layers
+            * counts["masked_mean_pool_l2norm"],
+            "HF towers: K1, K2 and K3 launched, 6 K1 per forward",
+        )
+        log(f"HF towers {json.dumps(out)} ({self.smi})")
+        del rec_hf, rec_src
+        t0 = time.perf_counter()
+        out["admin_model"] = self.admin_model(dirs[0])
+        out["admin_model_phase_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["warm_start"] = self.warm_start(dirs[1])
+        out["warm_start_phase_s"] = time.perf_counter() - t0
+        return out
+
+    def admin_model(self, hf_dir: Path) -> dict:
+        """``/admin/model`` to an HF directory on a live ``create_app``; the
+        answers afterwards against the direct recommend of that tower."""
+        import shutil
+
+        from instacart_next_order_recommendation_tpu_torch.api.app import create_app
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+
+        smoke, st = self.smoke, self.st
+        root = self.root / "api"
+        (root / "tmp").mkdir(parents=True)
+        corpus = root / "eval_corpus.json"
+        shutil.copyfile(st["corpus_path"], corpus)
+        env = {"FEEDBACK_DB_PATH": str(root / "feedback.db"), "RATE_LIMIT": "1000000/minute"}
+        unset = ("INFERENCE_DEVICE", "BATCH_WINDOW_MS", "API_KEY", "ITOR_TOPK_EXTRACTION",
+                 "PRECOMPILE_ON_STARTUP", "MODEL_DIR", "CORPUS_PATH")
+        with mock.patch.dict(os.environ, env), mock.patch.object(
+            tempfile, "tempdir", str(root / "tmp")
+        ):
+            for name in unset:
+                os.environ.pop(name, None)
+            served = ServedApp(create_app(st["model_dir"], corpus))
+            try:
+                c = served.client
+                t0 = time.perf_counter()
+                status, body = c.post("/admin/model", {"model_dir": str(hf_dir)})
+                swap_s = time.perf_counter() - t0
+                live = served.app.state["recommender"]
+                qs = st["queries"][:HF_API_QUERIES]
+                after = [ranked(c.post("/recommend", {"user_context": q, "top_k": 10})[1])
+                         for q in qs]
+                want = MonitoredRecommender(hf_dir, corpus, use_index=False)
+                ok = all(near_tie_ok(a, want.recommend(q, top_k=10), self.tol)
+                         for q, a in zip(qs, after))
+            finally:
+                served.stop()
+        out = {"status": status, "swap_s": swap_s, "requests": len(qs)}
+        log(f"/admin/model to {hf_dir.name}: {json.dumps(out)}")
+        smoke.check(
+            status == 200 and body["model_dir"] == str(hf_dir)
+            and live.model_dir == hf_dir.resolve(),
+            "/admin/model swapped to the HF directory",
+        )
+        smoke.check(ok, "after /admin/model to the HF directory, /recommend answers the direct "
+                        "recommend of that tower by the near-tie rule")
+        return out
+
+    def warm_start(self, hf_dir: Path) -> dict:
+        """``TwoTowerTrainer`` with ``model_name:`` the HF directory for one
+        epoch at B=64 on phase 4's pairs, with ``ITOR_PROFILE_DIR`` and
+        ``ITOR_LOOP_TIMING=1``."""
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
+        from instacart_next_order_recommendation_tpu_torch.train import (
+            TrainConfig,
+            TwoTowerTrainer,
+        )
+
+        smoke, h = self.smoke, MINILM_WIDTHS[0]
+        out_dir, trace_dir = self.root / "warm_start", self.root / "trace"
+        cfg = TrainConfig({
+            "processed_dir": str(self.root), "output_dir": str(out_dir),
+            "model_name": str(hf_dir), "max_seq_length": 256, "epochs": 1,
+            "train_batch_size": 64, "eval_batch_size": 64, "learning_rate": 2.0e-4,
+            "loss_scale": 30.0, "logging_steps": 10, "seed": 42,
+        })
+        wrappers = training_wrappers()
+        # ---- the main path, counted from zero
+        for w in wrappers:
+            w.launches = 0
+        env = {"ITOR_PROFILE_DIR": str(trace_dir), "ITOR_LOOP_TIMING": "1"}
+        with mock.patch.dict(os.environ, env), logged_messages(TRAINER_LOGGER) as messages:
+            trainer = TwoTowerTrainer(cfg)
+            t0 = time.perf_counter()
+            result = trainer.train(data=self.data)
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+        counts = {w.__name__: w.launches for w in wrappers}
+        # ---- end of the main path
+
+        losses = np.asarray(trainer.step_losses)
+        steps = len(losses)
+        entry = result["history"][0]
+        step_ms = entry["epoch_seconds"] / steps * 1e3
+        head, tail = losses[:10].mean(), losses[-10:].mean()
+        timing = [m.strip() for m in messages if "loop timing/dispatch" in m]
+        timing_ms = [[int(v) for v in re.findall(r"(\d+) ms", t)] for t in timing]
+        files, n_kernels, traced = trace_steps(trace_dir)
+        # Each K5 launch runs one dQ kernel and recomputes the forward's
+        # attention once; each K1-train launch runs that attention once
+        # (phase 2's launch-by-launch breakdowns at B=64 S=256 list them).
+        per_step = [(c["attn_fwd_one_pass_kernel"] - c["attn_bwd_dq_kernel"],
+                     c["attn_bwd_dq_kernel"]) for c in traced]
+        final, final_cfg, _ = load_tower(result["final_dir"])
+        out = {
+            "steps": steps, "seq": trainer.seq_len, "train_s": train_s, "step_ms": step_ms,
+            "loss_first10": float(head), "loss_last10": float(tail),
+            "ndcg_at_10": entry.get("ndcg_at_10"), "launches": counts,
+            "trace_files": [f.name for f in files], "trace_kernel_records": n_kernels,
+            "trace_k1_train_k5_launches_per_step": per_step,
+            "loop_timing_lines": len(timing),
+            # per 25 dispatches: assemble, fold_in, submit, wall (ms a dispatch)
+            "loop_timing_ms": timing_ms,
+        }
+        log(f"warm start from {hf_dir.name}: {json.dumps(out)} ({self.smi})")
+        log("warm start per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        log(f"warm start trace, kernels of step 1: {dict(traced[0]) if traced else None}")
+        for line in timing:
+            log(f"  {line}")
+        smoke.check(trainer.seq_len == 256 and bool(np.isfinite(losses).all()) and tail < head,
+                    f"warm start: loss falls (first 10 {head:.4f}, last 10 {tail:.4f})")
+        smoke.check(
+            counts["fused_encoder_layer_train"] == 12 * steps
+            and counts["fused_encoder_layer_backward"] == 12 * steps
+            and counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
+            "warm start: 12 K1-train and 12 K5 launches per step, no K6/K7",
+        )
+        smoke.check(
+            len(files) == 1 and len(per_step) == WARM_START_TRACED
+            and all(k1 > 0 and k5 > 0 for k1, k5 in per_step),
+            f"warm start: one trace, whose kernel records hold K1-train and K5 launches in each "
+            f"of dispatches 1-{WARM_START_TRACED}",
+        )
+        smoke.check(len(timing) == steps // 25 and all(
+            re.fullmatch(r"loop timing/dispatch: assemble \d+ ms, fold_in \d+ ms, "
+                         r"submit \d+ ms, wall \d+ ms", t) for t in timing),
+            "warm start: ITOR_LOOP_TIMING logs the JAX line every 25 dispatches")
+        smoke.check(
+            final_cfg.hidden_size == h and final_cfg.num_layers == 6
+            and all(bool(torch.isfinite(t).all()) for v in final.values() for t in v.values()),
+            "warm start: final/ loads",
+        )
+        return out
+
+    def baselines(self, trained_dir: str) -> dict:
+        """The baselines CLI as a subprocess on phase 4's users, with the
+        untrained tower and with phase 4's trained one; CF's rankings
+        against a plain count."""
+        from instacart_next_order_recommendation_tpu_torch.baselines import ItemItemCFBaseline
+
+        smoke = self.smoke
+        _, _, _, queries, corpus, relevant = self.data
+        data_dir, processed = self.root / "data", self.root / "processed"
+        write_instacart_csvs(self.synthetic, data_dir)
+        (processed / "train_dataset").mkdir(parents=True)  # resolve_processed_dir's marker
+        (processed / "eval_queries.json").write_text(json.dumps(queries))
+        (processed / "eval_corpus.json").write_text(json.dumps(corpus))
+        (processed / "eval_relevant_docs.json").write_text(
+            json.dumps({q: sorted(v) for q, v in relevant.items()}))
+        runs = {}
+        for label, model in (("untrained", None), ("trained", trained_dir)):
+            config = self.root / f"baselines_{label}.yaml"
+            raw = {"processed_dir": str(processed), "data_dir": str(data_dir), "model": model}
+            config.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in raw.items()))
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"{PKG}.baselines", "--config", str(config)],
+                cwd=REPO, capture_output=True, text=True, timeout=600,
+            )
+            tables = metric_tables(proc.stdout)
+            runs[label] = {"exit": proc.returncode, "seconds": time.perf_counter() - t0,
+                           "tables": tables}
+            log(f"baselines CLI ({label}): exit {proc.returncode}, "
+                f"{runs[label]['seconds']:.1f}s\n{proc.stdout[-1500:]}")
+            if proc.returncode != 0:
+                log(proc.stderr[-3000:])
+            smoke.check(
+                proc.returncode == 0 and set(tables) == {
+                    "Content-based (untrained tower)", "Collaborative filtering (item-item)"}
+                and all(len(t) == 8 for t in tables.values()),
+                f"baselines CLI ({label}) exits 0 and prints both metric tables",
+            )
+        ndcg = {
+            "untrained": runs["untrained"]["tables"].get(
+                "Content-based (untrained tower)", {}).get("NDCG@10"),
+            "cf": runs["untrained"]["tables"].get(
+                "Collaborative filtering (item-item)", {}).get("NDCG@10"),
+            "trained": runs["trained"]["tables"].get(
+                "Content-based (untrained tower)", {}).get("NDCG@10"),
+        }
+        log(f"NDCG@10 side by side: untrained {ndcg['untrained']}, CF {ndcg['cf']}, "
+            f"trained {ndcg['trained']} ({self.smi})")
+        smoke.check(None not in ndcg.values() and ndcg["trained"] > ndcg["untrained"],
+                    "NDCG@10 of the trained tower above the untrained one's")
+        qids = list(queries)[:CF_CHECKED_QUERIES]
+        cf = ItemItemCFBaseline(data_dir, processed).rank_all(eval_query_ids=qids)
+        plain = plain_cf_top(self.synthetic, qids, 5)
+        same = sum(cf[q][:5] == plain[q] for q in qids)
+        log(f"CF top-5 against a plain count of co-occurring pairs: {same} of {len(qids)} "
+            "identical")
+        smoke.check(same == len(qids), "CF top-5 lists equal the plain count's")
+        return {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "tables"}
+                         for k, v in runs.items()},
+                "ndcg_at_10": ndcg, "cf_top5_identical": same}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -3966,11 +4504,29 @@ def main() -> int:
             smoke.serve_packed(dev)
             log(f"phase 3b (mpnet serve, repaired shapes, packed serve) "
                 f"{time.perf_counter() - t0:.1f}s")
+            # Phase 4's users; phase 4b trains from an HF directory on their
+            # pairs before phase 4's first train() (torch.profiler has
+            # dropped kernel records in traces taken after one), and runs
+            # the baselines on them after it, with phase 4's trained tower.
+            synthetic = synthetic_users(np.random.default_rng(1))
+            data = build_training_data(synthetic)
             t0 = time.perf_counter()
-            minilm = TrainPhase(smoke, dev, Path(tmp))
+            hf_phase = HfBaselinesPhase(smoke, dev, Path(tmp), serving, synthetic, data, smi)
+            hf = hf_phase.towers()
+            t_hf = time.perf_counter() - t0
+            log(f"phase 4b (HF towers, /admin/model, warm start with tracing) {t_hf:.1f}s "
+                f"({smi})")
+            t0 = time.perf_counter()
+            minilm = TrainPhase(smoke, dev, Path(tmp), data=data)
             train = minilm.run()
             log("train " + json.dumps(train))
             log(f"phase 4 (training) {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            hf["baselines"] = hf_phase.baselines(str(minilm.workdir / "trained" / "final"))
+            t_hf += time.perf_counter() - t0
+            log("HF towers and baselines " + json.dumps(hf))
+            log(f"phase 4b (baselines) {time.perf_counter() - t0:.1f}s; phase 4b in all "
+                f"{t_hf:.1f}s ({smi})")
             t0 = time.perf_counter()
             train_mpnet = MpnetTrainPhase(smoke, dev, Path(tmp), data=minilm.data).run()
             log("mpnet train " + json.dumps(train_mpnet))

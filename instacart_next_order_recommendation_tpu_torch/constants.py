@@ -35,6 +35,19 @@ DEFAULT_HTTP_MAX_BODY_BYTES = 64 * 1024 * 1024  # corpus uploads are tens of MB
 CONFIG_DIR = PROJECT_ROOT / "configs"
 DEFAULT_CONFIG_TRAIN = CONFIG_DIR / "train.yaml"
 DEFAULT_CONFIG_INFERENCE = CONFIG_DIR / "inference.yaml"
+DEFAULT_CONFIG_BASELINES = CONFIG_DIR / "baselines.yaml"
+
+# Raw Instacart CSVs (the Kaggle layout) under data_dir, read by the
+# item-item CF baseline; order_products__prior.csv (~32M rows) is streamed
+# in chunks of ORDER_PRODUCTS_CHUNK_SIZE rows.
+DEFAULT_DATA_DIR = PROJECT_ROOT / "data"
+ORDERS_CSV = "orders.csv"
+ORDER_PRODUCTS_PRIOR_CSV = "order_products__prior.csv"
+ORDER_PRODUCTS_CHUNK_SIZE = 500_000
+
+# orders.csv eval_set column values
+EVAL_SET_TRAIN = "train"
+EVAL_SET_PRIOR = "prior"
 
 # Processed data (written by the JAX package's data prep)
 DEFAULT_PROCESSED_DIR = PROJECT_ROOT / "processed"

@@ -78,10 +78,21 @@ def save_tower(
 def load_tower(
     model_dir: Path | str,
 ) -> tuple[Params, TowerConfig, WordPieceTokenizer | None]:
+    """Load a tower checkpoint: the shared format, or else a Hugging Face
+    BERT/MiniLM directory (``config.json`` and its weights, through
+    ``models/hf_loader.py``), as the JAX package's ``load_tower`` falls back,
+    so a pretrained ``all-MiniLM-L6-v2`` folder warm-starts training and
+    serves as it is."""
     model_dir = Path(model_dir)
     cfg_path = model_dir / MODEL_CONFIG_FILENAME
     if not cfg_path.exists():
-        raise FileNotFoundError(f"No {MODEL_CONFIG_FILENAME} in {model_dir}")
+        if (model_dir / "config.json").exists():
+            from instacart_next_order_recommendation_tpu_torch.models.hf_loader import (
+                load_hf_tower,
+            )
+
+            return load_hf_tower(model_dir)
+        raise FileNotFoundError(f"No {MODEL_CONFIG_FILENAME} or config.json in {model_dir}")
     config = TowerConfig.from_dict(json.loads(cfg_path.read_text()))
     tree = msgpack.unpackb(
         (model_dir / PARAMS_FILENAME).read_bytes(), ext_hook=_ext_unpack, raw=False

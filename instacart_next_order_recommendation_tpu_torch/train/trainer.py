@@ -28,6 +28,7 @@ import itertools
 import json
 import logging
 import math
+import os
 import shutil
 import time
 from pathlib import Path
@@ -73,6 +74,10 @@ from instacart_next_order_recommendation_tpu_torch.utils.config import (
     resolve_project_path,
 )
 from instacart_next_order_recommendation_tpu_torch.utils.logging import setup_colored_logging
+from instacart_next_order_recommendation_tpu_torch.utils.profiling import (
+    ENV_PROFILE_DIR,
+    device_profiler,
+)
 from instacart_next_order_recommendation_tpu_torch.utils.resolve import resolve_processed_dir
 
 logger = logging.getLogger(__name__)
@@ -82,6 +87,7 @@ _PRESETS = {"minilm-l6": MINILM_L6, "mpnet-base": MPNET_BASE_CLASS}
 BEST_METRIC = "ndcg_at_10"
 OPT_STATE_FILENAME = "opt_state.pt"  # the port's own; the JAX trainer writes opt_state.msgpack
 TRAIN_STATE_FILENAME = "train_state.json"
+ENV_LOOP_TIMING = "ITOR_LOOP_TIMING"
 
 
 class TrainConfig:
@@ -469,6 +475,24 @@ class TwoTowerTrainer:
             return out
 
         n_group = max(1, cfg.steps_per_dispatch)
+        # ITOR_PROFILE_DIR: a torch.profiler trace of dispatches 1-5 of the
+        # first epoch, written into the directory. ITOR_LOOP_TIMING=1: every
+        # 25 dispatches, the mean host time per dispatch of each loop phase,
+        # in the JAX trainer's log line ("fold_in" is the dropout seed).
+        profile_dir = os.getenv(ENV_PROFILE_DIR)
+        profiler = None
+        loop_timing = os.getenv(ENV_LOOP_TIMING, "").strip() in ("1", "true")
+        lt_acc = [0.0, 0.0, 0.0, 0.0]
+        lt_n, lt_last = 0, 0.0
+
+        def stop_profiler() -> None:
+            nonlocal profiler
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            profiler.stop()
+            profiler = None
+            logger.info("  device trace of the first steps written to %s", profile_dir)
+
         for epoch in range(start_epoch, cfg.epochs + 1):
             epoch_start = time.time()
             losses = []
@@ -478,10 +502,38 @@ class TwoTowerTrainer:
                 group = list(itertools.islice(batch_iter, n_group))
                 if len(group) < n_group:
                     break  # drop the ragged trailing group (drop_last semantics)
-                for idx in group:
-                    loss = train_step(assemble(idx), dropout_seed(cfg.seed, epoch, len(losses)))
+                if profile_dir and epoch == start_epoch:
+                    if step == 1:
+                        if self.device.type == "cuda":  # no dispatch-0 work in the trace
+                            torch.cuda.synchronize(self.device)
+                        profiler = device_profiler(profile_dir, self.device.type == "cuda")
+                        profiler.start()
+                    elif step >= 6 and profiler is not None:
+                        stop_profiler()
+                t_a = time.perf_counter() if loop_timing else 0.0
+                batches = [assemble(idx) for idx in group]
+                t_b = time.perf_counter() if loop_timing else 0.0
+                seeds = [dropout_seed(cfg.seed, epoch, len(losses) + i) for i in range(n_group)]
+                t_c = time.perf_counter() if loop_timing else 0.0
+                for batch, seed in zip(batches, seeds):
+                    loss = train_step(batch, seed)
                     global_step += 1
                     losses.append(loss)
+                if loop_timing:
+                    t_d = time.perf_counter()
+                    lt_acc[0] += t_b - t_a  # assemble + transfers
+                    lt_acc[1] += t_c - t_b  # dropout seeds
+                    lt_acc[2] += t_d - t_c  # train step submission
+                    lt_acc[3] += t_d - lt_last if lt_last else 0.0
+                    lt_last = t_d
+                    lt_n += 1
+                    if lt_n >= 25:
+                        logger.info(
+                            "  loop timing/dispatch: assemble %.0f ms, fold_in"
+                            " %.0f ms, submit %.0f ms, wall %.0f ms",
+                            *(1e3 * a / lt_n for a in lt_acc),
+                        )
+                        lt_acc, lt_n = [0.0, 0.0, 0.0, 0.0], 0
                 if step % max(1, cfg.logging_steps // n_group) == 0:
                     logger.info(
                         "  epoch %d step %d loss %.4f lr %.2e",
@@ -489,6 +541,8 @@ class TwoTowerTrainer:
                         schedule(min(global_step // accum, total_steps - 1)),
                     )
                 step += 1
+            if profiler is not None:  # the epoch ended before dispatch 6
+                stop_profiler()
             if step == 0:
                 logger.warning(
                     "epoch %d yielded NO full batches: %d pairs cannot fill a "

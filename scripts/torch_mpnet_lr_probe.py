@@ -230,7 +230,7 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip())
-    data = chip_smoke.build_training_data(np.random.default_rng(1))
+    data = chip_smoke.build_training_data(chip_smoke.synthetic_users(np.random.default_rng(1)))
     build_root = REPO / "build"
     build_root.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lr_probe_", dir=build_root) as tmp:

@@ -186,7 +186,14 @@ def test_port_imports_no_jax(served, tmp_path):
         from instacart_next_order_recommendation_tpu_torch.api.routes import (
             corpus, feedback, model, recommend,
         )
-        for cli in ("serve", "api"):  # each CLI module runs main(): help, then exit 0
+        from instacart_next_order_recommendation_tpu_torch.baselines import (
+            ContentBasedBaseline, ItemItemCFBaseline, load_eval_data,
+        )
+        from instacart_next_order_recommendation_tpu_torch.models.hf_loader import load_hf_tower
+        from instacart_next_order_recommendation_tpu_torch.utils.profiling import (
+            annotate, maybe_trace,
+        )
+        for cli in ("serve", "api", "baselines"):  # each CLI runs main(): help, then exit 0
             sys.argv = [cli, "--help"]
             try:
                 __import__(f"instacart_next_order_recommendation_tpu_torch.{{cli}}.__main__")
