@@ -30,7 +30,11 @@ Run from the repository root, with no arguments:
    100, 256}), K4 at B in {8, 256}, each split by the profiler into the
    slice kernel and the merge and read beside torch.topk(torch.mm(q, C.T),
    k) (two calls, for reference); K4 against K3 over a 1M-row catalog at B
-   in {8, 256}, read the same way.
+   in {8, 256}, read the same way. K3 and K4 on bf16 rows against their
+   plain version over 50k and 1M unit rows at D=384 and 768, B in {1, 8,
+   256}, k in {10, 16, 100}, with and without a candidate mask, and timed
+   in turns beside the f32 K3 on the same rows and torch.topk(torch.mm(q,
+   C.T), k) on the bf16 operands.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
    seeded generator): a WordPiece vocab trained on a 50,000-product catalog,
    ``Recommender`` encoding the catalog through the kernels, a few
@@ -81,6 +85,17 @@ Run from the repository root, with no arguments:
    memory; ``ITOR_TOPK_EXTRACTION=packed`` (K4); and the API CLI as a
    subprocess, stopped with SIGINT. Launch counts are reset before and
    read after.
+3e. The IVF index and the bf16 catalog: phase 3's MiniLM-L6 tower, 50k
+   catalog and queries through ``Recommender(ann=True)`` at full probe
+   (top-10 equal to the exact recommender's by the near-tie rule, filtered
+   too) and at ``ann_nprobe=8`` (recall@10), under ``MonitoredRecommender``,
+   ``warm_serve_shapes`` and a ``MicroBatcher`` at concurrency 8, and the
+   serve CLI as a subprocess with ``ann: true`` (K1 and K2, no K3); then
+   the IVF bench's clustered 1M x 384 rows built with nlist 1024 in f32 and
+   bf16 buckets (seconds by stage, peak memory, every row in exactly one
+   bucket), recall@10 at nprobe 8 and 16 against the exact index on the
+   bf16 catalog (K3 and K4 on bf16 rows), and device ms at B=8 and B=256
+   beside the exact scans. Launch counts are reset before and read after.
 4. MNRL training of MiniLM-L6 at full width through
    ``TwoTowerTrainer.train(data=...)``: synthetic (user context, product)
    pairs in the data prep's p5_mp20 form (the last 5 prior orders, at most
@@ -259,9 +274,10 @@ FUSED_LAYER_ATTENTION = {
         for d in (32, 64) for n in range(1, 5)
     ],
 }
-# The top-k kernel's instances (csrc/topk.cu): <query tile, list size>.
+# The top-k kernel's instances (csrc/topk.cu): <query tile, list size>, on
+# f32 rows and on bf16 rows.
 TOPK_KERNELS = [
-    f"topk_slices_kernel<{tq},{kp}>"
+    f"{name}<{tq},{kp}>" for name in ("topk_slices_kernel", "topk_slices_bf16_kernel")
     for tq, kp in [(8, 32), (8, 64), (8, 128), (8, 256), (64, 32), (64, 64), (64, 128), (32, 256)]
 ] + [f"topk_merge_kernel<{kp}>" for kp in (32, 64, 128, 256)]
 # K2's instances (csrc/pool_norm.cu): <load width, rows in flight, cluster form>.
@@ -298,6 +314,23 @@ ATTN_REL_TOL = 1e-2
 # score across one step boundary).
 PACKED_TIE_REL = 2.0**-10
 PACKED_N = 1_000_000  # the catalog size the JAX package names for packed extraction
+# K3/K4 on bf16 rows against their plain version (which upcasts to f32):
+# scores within 1e-5 of the f32 products of the same bf16 values (a bf16
+# product is exact in f32; the tensor cores sum in another order), and an
+# id that differs from the plain version's at one rank is a near-tie: the
+# two rows' f32 scores within BF16_TIE (K4: within PACKED_TIE_REL).
+BF16_TOPK_TOL = 1e-5
+BF16_TIE = 2e-5
+# Phase 3e: the 50k serve through Recommender(ann=True), held to phase 3's
+# exact recommender by the near-tie rule (IVF's f32 scores against K3's
+# split-TF32 ones of the same embeddings), and the 1M-row build and search.
+IVF_QUERIES = 32
+IVF_NLIST_50K = 64
+IVF_BATCHER_REQUESTS = 128
+IVF_TIE_TOL = 1e-5
+IVF_1M_NLIST = 1024
+IVF_1M_NPROBES = (8, 16)
+IVF_KMEANS_ITERS = 4
 MPNET_EPOCHS = 1
 # This departs from the recipe: configs/train.yaml's 2e-4 (with 9 warmup
 # steps over this one epoch) collapsed the 12-layer post-LN tower from random
@@ -606,6 +639,23 @@ def k3_fma_bound(b: int, n: int, d: int, k: int, masked: bool) -> tuple[float, s
     of the f32 function on CUDA cores, beside k3_bound."""
     n_bytes = n * d * 4 + b * d * 4 + b * k * 8 + (n * 4 if masked else 0)
     return bound_ms(n_bytes, 2 * b * n * d, PEAK_F32)
+
+
+def k3_bf16_bound(b: int, n: int, d: int, k: int, masked: bool) -> tuple[float, str]:
+    """K3/K4 on bf16 rows: the catalog and the queries (2 bytes an element)
+    and the mask read and the top k written once; one bf16 tensor-core
+    product per multiply-add, 2 * B * N * D operations at the bf16 peak."""
+    n_bytes = n * d * 2 + b * d * 2 + b * k * 8 + (n * 4 if masked else 0)
+    return bound_ms(n_bytes, 2 * b * n * d, PEAK_BF16)
+
+
+def ids_near_tie(scores, got, want, rel: float, tol: float) -> bool:
+    """Every rank where the ids ``got`` differ from ``want`` holds two rows
+    whose ``scores`` (f32, [B, N]) lie within ``rel`` of the second's
+    magnitude plus ``tol``."""
+    a = scores.gather(1, got.long())
+    b = scores.gather(1, want.long())
+    return bool(((got == want) | ((a - b).abs() <= rel * b.abs() + tol)).all())
 
 
 def topk_split(fn) -> dict | None:
@@ -1392,6 +1442,85 @@ class Smoke:
             self.check(ties, f"K4 at 1M rows, B={b}: ids differ only at quantization ties")
         del c
         torch.cuda.empty_cache()
+
+    def compare_bf16_topk(self, dev) -> None:
+        """K3 and K4 on bf16 rows against their plain version over 50k and
+        1M unit rows at D=384 and 768, B in {1, 8, 256}, k in {10, 16, 100},
+        with and without a candidate mask (BF16_TOPK_TOL, BF16_TIE); then
+        each form timed in turns beside the f32 K3 on the same rows (upcast)
+        and beside torch.topk(torch.mm(q, C.T), k) on the bf16 operands
+        (timed only: its bf16 scores are not the contract), at the serve
+        batch's shape (50k, B=256, k=16) and at 1M rows, B in {8, 256}, k=10."""
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            _masked_scores,
+            quantized_keys,
+        )
+
+        g = torch.Generator(device=dev).manual_seed(10)
+        timed = {(N_PRODUCTS, 384, BATCH, K_BATCH), (PACKED_N, 384, 8, 10),
+                 (PACKED_N, 384, BATCH, 10)}
+        self.bf16_timed = []
+        for n, d in itertools.product((N_PRODUCTS, PACKED_N), (384, 768)):
+            c = torch.randn((n, d), generator=g, device=dev)
+            c = (c / c.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+            mask = (torch.rand(n, generator=g, device=dev) < 0.5).int()
+            worst = {"K3": 0.0, "K4": 0.0}
+            for b in (1, 8, BATCH):
+                q = torch.randn((b, d), generator=g, device=dev)
+                q = (q / q.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+                for m in (None, mask):
+                    scores = _masked_scores(q, c, n, m)
+                    ref_s, ref_i = torch.sort(scores, dim=1, descending=True, stable=True)
+                    _, ref_pi = torch.sort(quantized_keys(scores), dim=1, descending=True,
+                                           stable=True)
+                    for k in (10, 16, 100):
+                        s3, i3 = cosine_topk(q, c, k, candidate_mask=m)
+                        s4, i4 = cosine_topk(q, c, k, candidate_mask=m, packed=True)
+                        err = (s3 - ref_s[:, :k]).abs().max().item()
+                        ok3 = err <= BF16_TOPK_TOL and ids_near_tie(
+                            scores, i3, ref_i[:, :k], 0.0, BF16_TIE)
+                        ok4 = ids_near_tie(scores, i4, ref_pi[:, :k], PACKED_TIE_REL, 1e-6)
+                        worst["K3"] = max(worst["K3"], err)
+                        worst["K4"] = max(worst["K4"], float((i4 != ref_pi[:, :k]).float().mean()))
+                        what = f"N={n} D={d} B={b} k={k} mask={m is not None}"
+                        self.check(ok3, f"K3 bf16 {what}")
+                        self.check(ok4, f"K4 bf16 {what}")
+                    del scores, ref_s, ref_i, ref_pi
+                for k in (10, 16):
+                    if (n, d, b, k) in timed:
+                        self.bf16_timed.append(self.time_bf16_topk(q, c, k))
+            log(f"K3/K4 bf16 N={n} D={d} against the plain version: K3 max_abs_err "
+                f"{worst['K3']:.3g} (tol {BF16_TOPK_TOL}), K4 ids differing (20-bit ties) at most "
+                f"{worst['K4']:.4f}; launches K3 bf16 {cosine_topk.bf16_launches}, "
+                f"K4 bf16 {cosine_topk.packed_bf16_launches}")
+            del c, mask
+            torch.cuda.empty_cache()
+
+    def time_bf16_topk(self, q, c, k: int) -> dict:
+        """K3 and K4 on bf16 rows at one shape, in turns with the f32 K3 on
+        the same rows (upcast) and torch.topk(torch.mm(q, C.T), k) on the
+        bf16 operands; with the bf16 bound and the f32 K3's TF32 bound."""
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+
+        b, d = q.shape
+        n = c.shape[0]
+        q32, c32 = q.float(), c.float()
+        iters = 20 if b * n <= 8 * PACKED_N else 5
+        ms = ms_in_turns({
+            "k3_bf16": lambda: cosine_topk(q, c, k),
+            "k4_bf16": lambda: cosine_topk(q, c, k, packed=True),
+            "k3_f32": lambda: cosine_topk(q32, c32, k),
+            "library_bf16": lambda: torch.topk(torch.mm(q, c.T), k),
+        }, iters)
+        row = {"B": b, "N": n, "D": d, "k": k, **ms,
+               "bound_ms": k3_bf16_bound(b, n, d, k, False)[0],
+               "bound_by": k3_bf16_bound(b, n, d, k, False)[1],
+               "f32_bound_ms": k3_bound(b, n, d, k, False)[0]}
+        log(f"K3/K4 bf16 timed (ms in turns; library_bf16: torch.topk(torch.mm(q, C.T), k) on "
+            f"the bf16 operands, timed only): {json.dumps(row)}")
+        del q32, c32
+        return row
 
     # ----------------------------------------------------------- phase 2b
 
@@ -2424,6 +2553,306 @@ class ServingTierPhase:
         smoke.check(rc == 0 and "Top-10 recommendations:" in text and len(lines) == 10,
                     "the serve CLI exits 0 and prints its top-10 lines")
         return out
+
+
+def top_ids(results: list) -> list[str]:
+    return [pid for pid, _ in results]
+
+
+def recall_at(got: np.ndarray, want: np.ndarray) -> float:
+    """The mean share of each row of ``want`` that ``got``'s row holds."""
+    return float(np.mean([len(set(a) & set(b)) / len(b) for a, b in zip(got, want)]))
+
+
+def device_peak_bytes(fn) -> tuple[object, int]:
+    """``fn()``'s result and the device memory it took at its peak, above
+    what was allocated before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+class IvfPhase:
+    """Phase 3e: the IVF index and the bf16 catalog. ``serve_50k``: phase
+    3's MiniLM-L6 tower, catalog and queries through ``Recommender(ann=True)``
+    at full probe (held to phase 3's exact recommender by the near-tie rule,
+    filtered too), at ``ann_nprobe=8`` (recall@10 against it), under
+    ``MonitoredRecommender``, ``warm_serve_shapes`` and a ``MicroBatcher`` at
+    concurrency 8, and the serve CLI as a subprocess with ``ann: true``: K1
+    and K2 for the encodes, no K3. ``catalog_1m``: the IVF bench's clustered
+    1M x 384 rows (``scripts/torch_bench_ivf.py``), built with nlist 1024 in
+    f32 and bf16 buckets (seconds by stage, peak memory, every row in
+    exactly one bucket), recall@10 at nprobe 8 and 16 against the exact
+    index on the bf16 catalog (K3 on bf16 rows; K4 on them for the packed
+    index, its ids held to K3's by the 20-bit tie rule), device ms at B=8
+    and B=256 beside the exact scans, and the bf16 kernels' rows for the
+    kernels line. Launch counts are reset before and read after each part."""
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, smi: str):
+        self.smoke, self.dev, self.workdir, self.smi = smoke, dev, workdir, smi
+        self.st = smoke.serve_state
+
+    def run(self) -> dict:
+        out = {"serve_50k": self.serve_50k(), "catalog_1m": self.catalog_1m()}
+        log("IVF " + json.dumps(out))
+        return out
+
+    def serve_50k(self) -> dict:
+        from concurrent.futures import ThreadPoolExecutor
+
+        from instacart_next_order_recommendation_tpu_torch.index import IVFCatalogIndex
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.serve import (
+            MicroBatcher,
+            MonitoredRecommender,
+            Recommender,
+        )
+        from instacart_next_order_recommendation_tpu_torch.serve.precompile import (
+            BATCH_BUCKETS,
+            K_BUCKETS,
+            warm_serve_shapes,
+        )
+        from instacart_next_order_recommendation_tpu_torch.tokenizer import LENGTH_BUCKETS
+
+        smoke, st = self.smoke, self.st
+        queries = st["queries"][BATCH : BATCH + IVF_QUERIES]
+        paths = (st["model_dir"], st["corpus_path"])
+        exact = Recommender(*paths, use_index=False)
+        want = {q: exact.recommend(q, top_k=10) for q in queries}
+        want_milk = {q: exact.recommend(q, top_k=10, filter_aisles=["milk"]) for q in queries}
+        out: dict = {}
+
+        # ---- the main path, counted from zero
+        for w in serve_wrappers():
+            w.launches = 0
+        cosine_topk.packed_launches = 0
+        ann = dict(use_index=False, encoder=exact.encoder, ann=True, ann_nlist=IVF_NLIST_50K)
+        t0 = time.perf_counter()
+        full = Recommender(*paths, ann_nprobe=IVF_NLIST_50K, **ann)
+        torch.cuda.synchronize()
+        out["recommender_construct_s"] = time.perf_counter() - t0
+        out["build_s"] = full.index.build_s
+        got = {q: full.recommend(q, top_k=10) for q in queries}
+        got_milk = {q: full.recommend(q, top_k=10, filter_aisles=["milk"]) for q in queries}
+        part = Recommender(*paths, ann_nprobe=8, **ann)
+        got8 = [top_ids(part.recommend(q, top_k=10)) for q in queries]
+        mon = MonitoredRecommender(*paths, ann_nprobe=IVF_NLIST_50K, **ann)
+        t0 = time.perf_counter()
+        n_shapes = warm_serve_shapes(mon, batch_buckets=BATCH_BUCKETS)
+        out["warm_s"] = time.perf_counter() - t0
+        mon_got = {q: mon.recommend(q, top_k=10) for q in queries}
+        sources = {mon.last_metrics.stage_timing_source}
+        batcher = MicroBatcher(mon, window_ms=SERVE_WINDOW_MS, max_batch=SERVE_MAX_BATCH)
+        reqs = [queries[i % len(queries)] for i in range(IVF_BATCHER_REQUESTS)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            batched = list(pool.map(lambda q: batcher.recommend(q, top_k=10), reqs))
+        batcher_s = time.perf_counter() - t0
+        counts = launch_counts()
+        counts["cosine_topk_packed"] = cosine_topk.packed_launches
+        # ---- end of the main path
+
+        layers = exact.encoder.config.num_layers
+        seqs = [s for s in LENGTH_BUCKETS if s <= mon.encoder.max_seq_length]
+        k_effs = [min(k, N_PRODUCTS) for k in K_BUCKETS]
+        lattice = len(BATCH_BUCKETS) * (len(seqs) + 2 * len(k_effs))
+        out.update({
+            "catalog_bitwise_phase_3": bool(torch.equal(full.product_embeddings, st["catalog"])),
+            "full_probe_near_tie": all(near_tie_ok(got[q], want[q], IVF_TIE_TOL)
+                                       for q in queries),
+            "full_probe_ids_identical": float(np.mean(
+                [top_ids(got[q]) == top_ids(want[q]) for q in queries])),
+            "filtered_near_tie": all(near_tie_ok(got_milk[q], want_milk[q], IVF_TIE_TOL)
+                                     for q in queries),
+            "recall_at_10_nprobe_8": recall_at(got8, [top_ids(want[q]) for q in queries]),
+            "warm_shapes": n_shapes,
+            "monitored_near_tie": all(near_tie_ok(mon_got[q], want[q], IVF_TIE_TOL)
+                                      for q in queries),
+            "monitored_timing": sorted(sources),
+            "batcher_requests": len(reqs),
+            "batcher_queries_per_s": len(reqs) / batcher_s,
+            "batcher_drains": sum(batcher.drain_sizes.values()),
+            "batcher_near_tie": all(near_tie_ok(r, want[q], IVF_TIE_TOL)
+                                    for r, q in zip(batched, reqs)),
+            "launches": counts,
+        })
+        log(f"IVF serve at 50k: {json.dumps(out)}")
+        smoke.check(isinstance(full.index, IVFCatalogIndex) and full._fused is None,
+                    "Recommender(ann=True) serves from the IVF index")
+        smoke.check(out["full_probe_near_tie"] and out["filtered_near_tie"],
+                    "IVF at full probe: top-10 equal to the exact recommender by the near-tie "
+                    "rule, filtered too")
+        smoke.check(all(all("Aisle: milk." in full.pid_to_text[p] for p in top_ids(r))
+                        for r in got_milk.values()), "IVF aisle filter holds")
+        smoke.check(n_shapes == lattice, f"warm_serve_shapes on IVF ran its {lattice} index jobs")
+        smoke.check(out["monitored_near_tie"] and sources == {"measured"},
+                    "MonitoredRecommender(ann=True) takes the index route")
+        smoke.check(out["batcher_near_tie"], "MicroBatcher on IVF: every answer the direct one's")
+        smoke.check(
+            counts["fused_encoder_layer"] > 0 and counts["masked_mean_pool_l2norm"] > 0
+            and counts["fused_encoder_layer"] == layers * counts["masked_mean_pool_l2norm"]
+            and counts["cosine_topk"] == 0 and counts["cosine_topk_packed"] == 0,
+            "IVF serve: K1 and K2 for the encodes, no K3 or K4",
+        )
+        out["cli"] = self.cli(queries[0], top_ids(got[queries[0]]))
+        del exact, full, part, mon
+        torch.cuda.empty_cache()
+        return out
+
+    def cli(self, query: str, want: list[str]) -> dict:
+        """The serve CLI as a subprocess on the card with ``ann: true``: its
+        top-10 ids are the direct full-probe recommend's (the build and the
+        search are deterministic)."""
+        st = self.st
+        raw = {"model_dir": str(st["model_dir"]), "corpus": str(st["corpus_path"]),
+               "use_index": False, "query": query, "top_k": 10, "ann": True,
+               "ann_nlist": IVF_NLIST_50K, "ann_nprobe": IVF_NLIST_50K}
+        config = self.workdir / "inference_ann.yaml"
+        config.write_text("".join(f"{k}: {json.dumps(v)}\n" for k, v in raw.items()))
+        env = {k: v for k, v in os.environ.items() if k != "INFERENCE_DEVICE"}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"{PKG}.serve", "--config", str(config)],
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
+        )
+        if proc.returncode != 0:
+            log(proc.stderr[-3000:])
+        ids = [ln.split("product_id=")[1].split(" ")[0]
+               for ln in proc.stdout.splitlines() if "product_id=" in ln]
+        out = {"exit": proc.returncode, "seconds": time.perf_counter() - t0,
+               "ids_equal_direct": ids == want}
+        log("serve CLI with ann: true " + json.dumps(out))
+        self.smoke.check(proc.returncode == 0 and ids == want,
+                         "the serve CLI with ann: true exits 0 with the direct top-10")
+        return out
+
+    def catalog_1m(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.index import (
+            IVFCatalogIndex,
+            ShardedCatalogIndex,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import (
+            _masked_scores,
+            cosine_topk_packed_reference,
+            cosine_topk_reference,
+        )
+        from scripts import torch_bench_ivf as bench
+
+        smoke, dev = self.smoke, self.dev
+        t0 = time.perf_counter()
+        catalog, queries = bench.clustered_catalog()
+        out: dict = {"rows": len(catalog), "dim": catalog.shape[1], "queries": len(queries),
+                     "generate_s": time.perf_counter() - t0}
+        cat = torch.from_numpy(catalog).to(dev)
+        q_all = torch.from_numpy(queries).to(dev)
+        del catalog
+        k = bench.TOP_K
+
+        def batched_ids(index) -> torch.Tensor:
+            return torch.cat([index.topk_device(q_all[lo : lo + BATCH], k)[1]
+                              for lo in range(0, len(q_all), BATCH)])
+
+        # ---- the main path, counted from zero
+        cosine_topk.launches = cosine_topk.packed_launches = 0
+        cosine_topk.bf16_launches = cosine_topk.packed_bf16_launches = 0
+        ivfs, builds = {}, {}
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            ivf, peak = device_peak_bytes(lambda: IVFCatalogIndex(
+                cat, nlist=IVF_1M_NLIST, kmeans_iters=IVF_KMEANS_ITERS, dtype=dtype))
+            ids = ivf._bucket_ids[ivf._bucket_ids >= 0]
+            builds[dtype] = {
+                "seconds": time.perf_counter() - t0, "by_stage_s": ivf.build_s,
+                "bucket_len": ivf.bucket_len, "peak_device_bytes": peak,
+                "one_bucket_per_row": ids.numel() == len(cat)
+                and torch.unique(ids).numel() == len(cat),
+            }
+            smoke.check(builds[dtype]["one_bucket_per_row"],
+                        f"IVF at 1M ({dtype} buckets): every row in exactly one bucket")
+            ivfs[dtype] = ivf
+        exact = ShardedCatalogIndex(cat, dtype="bfloat16")
+        packed = ShardedCatalogIndex(cat, dtype="bfloat16", extraction="packed")
+        exact_ids = batched_ids(exact)
+        packed_ids = batched_ids(packed)
+        recalls = {}
+        for dtype, ivf in ivfs.items():
+            for nprobe in IVF_1M_NPROBES:
+                ivf.nprobe = nprobe
+                recalls[f"{dtype}_nprobe_{nprobe}"] = recall_at(
+                    batched_ids(ivf).cpu().numpy(), exact_ids.cpu().numpy())
+        counts = {"cosine_topk_bf16": cosine_topk.bf16_launches,
+                  "cosine_topk_packed_bf16": cosine_topk.packed_bf16_launches,
+                  "cosine_topk": cosine_topk.launches,
+                  "cosine_topk_packed": cosine_topk.packed_launches}
+        # ---- end of the main path
+        ties = all(
+            ids_near_tie(_masked_scores(q_all[lo : lo + BATCH], exact.catalog, None, None),
+                         packed_ids[lo : lo + BATCH], exact_ids[lo : lo + BATCH],
+                         PACKED_TIE_REL, 1e-6)
+            for lo in range(0, len(q_all), BATCH)
+        )
+        out.update({"builds": builds, "recall_at_10": recalls, "launches": counts,
+                    "packed_ids_equal_exact": float((packed_ids == exact_ids).float().mean())})
+        smoke.check(ties, "K4 on the bf16 catalog: ids differ from K3's only at 20-bit ties")
+        smoke.check(counts["cosine_topk_bf16"] > 0 and counts["cosine_topk_packed_bf16"] > 0
+                    and counts["cosine_topk_bf16"] == counts["cosine_topk"],
+                    "the bf16 catalog served through K3 and K4 on bf16 rows")
+        smoke.check(all(0 < r <= 1 for r in recalls.values())
+                    and all(recalls[f"{t}_nprobe_16"] >= recalls[f"{t}_nprobe_8"] for t in ivfs),
+                    "IVF recall at 1M: more probes, no less recall")
+
+        # Device ms at B=8 and B=256, the exact scans beside, and peak memory.
+        exact_f32 = ShardedCatalogIndex(cat)
+        timing = {}
+        for b in (8, BATCH):
+            q = q_all[:b]
+            fns = {"k3_f32": lambda: exact_f32.topk_device(q, k),
+                   "k3_bf16": lambda: exact.topk_device(q, k),
+                   "k4_bf16": lambda: packed.topk_device(q, k)}
+            for nprobe in IVF_1M_NPROBES:
+                for dtype, ivf in ivfs.items():
+                    fns[f"ivf_{dtype}_nprobe_{nprobe}"] = (
+                        lambda ivf=ivf, nprobe=nprobe: ivf_search(ivf, nprobe, q, k))
+            timing[f"B={b}"] = ms_in_turns(fns, 10 if b == 8 else 3)
+        _, timing["search_peak_device_bytes"] = device_peak_bytes(
+            lambda: ivf_search(ivfs["bfloat16"], max(IVF_1M_NPROBES), q_all[:BATCH], k))
+        out["device_ms"] = timing
+        log(f"IVF at 1M x 384 ({self.smi}): {json.dumps(out)}")
+
+        # The bf16 kernels' rows for the kernels line: B=8, N=1M, k=10.
+        q8 = q_all[:8].to(torch.bfloat16)
+        c16 = exact.catalog
+        for name, packed_form, plain in (
+            ("cosine_topk_bf16", False, cosine_topk_reference),
+            ("cosine_topk_packed_bf16", True, cosine_topk_packed_reference),
+        ):
+            s_k, _ = cosine_topk(q8, c16, k, packed=packed_form)
+            s_r, _ = plain(q8, c16, k)
+            bnd, by = k3_bf16_bound(8, len(cat), cat.shape[1], k, False)
+            smoke.kernel_rows[name] = {
+                "ms": cuda_ms(lambda: cosine_topk(q8, c16, k, packed=packed_form), 20),
+                "plain_ms": cuda_ms(lambda: plain(q8, c16, k), 5),
+                "library_ms": cuda_ms(lambda: torch.topk(torch.mm(q8, c16.T), k), 20),
+                "max_abs_err": (s_k - s_r).abs().max().item(),
+                "bound_ms": bnd, "bound_by": by, "launches": counts[name],
+            }
+        log(f"bf16 kernel rows at B=8 N={len(cat)} D={cat.shape[1]} k={k}: "
+            f"{json.dumps({n: smoke.kernel_rows[n] for n in ('cosine_topk_bf16', 'cosine_topk_packed_bf16')})}")
+        smoke.check(smoke.kernel_rows["cosine_topk_bf16"]["max_abs_err"] <= BF16_TOPK_TOL,
+                    "K3 bf16 at the 1M serve shape against its plain version")
+        del ivfs, exact, packed, exact_f32, cat, q_all
+        torch.cuda.empty_cache()
+        return out
+
+
+def ivf_search(ivf, nprobe: int, q, k: int):
+    """``ivf``'s top-k of ``q`` at ``nprobe`` probes."""
+    ivf.nprobe = nprobe
+    return ivf.topk_device(q, k)
 
 
 API_MAX_CONCURRENCY = 256  # the smoke's servers: load at concurrency 64 never nears it
@@ -4484,6 +4913,7 @@ def main() -> int:
         smoke.compare_attention_kernels(dev)
         smoke.time_topk(dev)
         smoke.compare_packed_topk(dev)
+        smoke.compare_bf16_topk(dev)
         log(f"phase 2 (kernels vs plain) {time.perf_counter() - t0:.1f}s")
         build_root = REPO / "build"
         build_root.mkdir(exist_ok=True)
@@ -4504,6 +4934,9 @@ def main() -> int:
             smoke.serve_packed(dev)
             log(f"phase 3b (mpnet serve, repaired shapes, packed serve) "
                 f"{time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            IvfPhase(smoke, dev, Path(tmp), smi).run()
+            log(f"phase 3e (IVF and the bf16 catalog) {time.perf_counter() - t0:.1f}s ({smi})")
             # Phase 4's users; phase 4b trains from an HF directory on their
             # pairs before phase 4's first train() (torch.profiler has
             # dropped kernel records in traces taken after one), and runs
@@ -4557,6 +4990,8 @@ def main() -> int:
         "fused_encoder_layer_train_hd64": ("fused_layer.cu", "ops/fused_layer.py:135"),
         "fused_encoder_layer_backward_hd64": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
         "cosine_topk_packed": ("topk.cu", "ops/topk.py:75"),
+        "cosine_topk_bf16": ("topk.cu", "ops/topk.py:154"),
+        "cosine_topk_packed_bf16": ("topk.cu", "ops/topk.py:75"),
         "multi_head_attention": ("attention.cu", "ops/attention.py:62"),
         "multi_head_attention_backward": ("attention.cu", "ops/attention.py:164"),
     }

@@ -41,7 +41,10 @@ class EmbeddingIndex:
         name = hashlib.sha256(canonical.encode()).hexdigest()[:16]
         return self.corpus_path.parent / INDEX_SUBDIR / name
 
-    def load(self, product_ids: list[str]) -> np.ndarray | None:
+    def load(self, product_ids: list[str], mmap: bool = False) -> np.ndarray | None:
+        """``mmap=True`` memory-maps embeddings.npy read-only instead of
+        reading it into memory: for catalogs larger than host memory, fed to
+        the IVF build (index/ivf.py) chunk by chunk."""
         manifest_path = self._dir / MANIFEST_FILENAME
         if not manifest_path.exists():
             return None
@@ -63,7 +66,7 @@ class EmbeddingIndex:
         if not emb_path.exists() or not ids_path.exists():
             return None
         try:
-            embeddings = np.load(emb_path)
+            embeddings = np.load(emb_path, mmap_mode="r" if mmap else None)
             cached_ids = json.loads(ids_path.read_text())
         except (OSError, ValueError, json.JSONDecodeError):
             return None

@@ -113,18 +113,21 @@ def _template_args(mangled: str) -> list[str] | None:
 
 
 def _kernel_key(mangled: str) -> str | None:
-    """``name`` or ``name<template args>`` of a mangled ``*_kernel``: the
-    name is the one its decimal length prefix spans, so a namespace hash
-    ending in digits is not taken for part of it."""
-    for m in re.finditer(r"(?=(\d+)[A-Za-z_])", mangled):
-        start = m.start() + len(m.group(1))
-        name = mangled[start : start + int(m.group(1))]
+    """``name`` or ``name<template args>`` of a mangled ``*_kernel``. The
+    (nested) name's components are read in order, each by its decimal
+    length prefix, so the digits inside one (nvcc's anonymous-namespace
+    hash, which depends on the source's path) are never taken for a
+    prefix."""
+    i = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else None
+    while i is not None and (m := re.match(r"\d+", mangled[i:])):
+        start = i + len(m.group(0))
+        i = start + int(m.group(0))
+        name = mangled[start:i]
         if not name.endswith("_kernel"):
             continue
-        rest = mangled[start + len(name) :]
-        if not rest.startswith("I"):
+        if not mangled[i:].startswith("I"):
             return name
-        args = _template_args(rest[1:])
+        args = _template_args(mangled[i + 1 :])
         return None if args is None else f"{name}<{','.join(args)}>"
     return None
 

@@ -1,11 +1,13 @@
-// Cosine top-k over catalog slices, f32, for Hopper: exact, or on packed
-// 20-bit keys.
+// Cosine top-k over catalog slices, f32 or bf16 rows, for Hopper: exact, or
+// on packed 20-bit keys.
 //
 // Replaces: the JAX package's ops/topk.py::_topk_block_kernel (K3) and
 // ::_topk_block_kernel_packed (K4), the Pallas TPU kernels behind
-// cosine_topk_pallas. Same function: dot products of f32 queries with f32
-// catalog rows, rows at or past n_valid and rows whose candidate mask is 0
-// set to -1e30, then the top k with ties broken to the lowest index. K4
+// cosine_topk_pallas. Same function: dot products of the queries with the
+// catalog rows (both f32, or both bf16 as the JAX index stores a bf16
+// catalog: index/sharded.py, dtype="bfloat16"), accumulated in f32, rows at
+// or past n_valid and rows whose candidate mask is 0 set to -1e30, then the
+// top k with ties broken to the lowest index. K4
 // ranks each score by the top 20 bits of its order-preserving bit pattern
 // instead (the JAX kernel's packed key, `quantized_keys` in ops/topk.py),
 // ties again to the lowest index, and returns the score the quantized key
@@ -16,7 +18,8 @@
 //
 // What bounds it on the H100: the products, 2*B*N*D multiply-adds (here
 // three TF32 tensor-core products each), at serve batches; at B=1 and B=8
-// the catalog read, N*D*4 bytes against 3.35 TB/s.
+// the catalog read, N*D*4 bytes against 3.35 TB/s. bf16 rows halve those
+// bytes, and each multiply-add is one bf16 tensor-core product.
 //
 // What the design does about it:
 // - Scores on tensor cores in split TF32: each f32 operand is hi + lo, two
@@ -37,6 +40,16 @@
 //   dispatch at one per 6 cycles per scheduler, and each split instruction
 //   beside them costs about one more, so the split is three instructions
 //   (mma_common.cuh: split_tf32).
+// - bf16 rows (topk_slices_bf16_kernel, the same body): queries and rows go
+//   straight into mma.sync m16n8k16 bf16 -> f32. A product of two bf16
+//   values is exact in f32, so there is one product where split TF32 takes
+//   three. The stage holds 128 columns (256 bytes a row, as the f32 stage's
+//   64); within each 64 columns lane t loads columns 16t..16t+15 of its rows
+//   as two 16-byte loads, and k-step s takes its logical columns (2t, 2t+1)
+//   from 16t + 4s + {0, 1} and (2t+8, 2t+9) from 16t + 4s + {2, 3}, for
+//   both operands, so each dot product sums the same terms. Each 64 columns
+//   sum into a fresh partial, as each 32 do in the f32 form. The selection,
+//   the keys and the merge are the f32 form's: they see f32 scores.
 // - A selection that costs what k costs: each query keeps a sorted list of
 //   its best KP keys (KP = k rounded up to a power of two, at least 32) and
 //   a threshold, its k-th key. A score passes with one comparison against
@@ -58,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "mma_common.cuh"
 
 namespace {
@@ -69,8 +84,6 @@ using mmac::FULL;
 typedef unsigned long long Key;
 
 constexpr int BM = 128;        // catalog rows per tile; slices are whole tiles
-constexpr int DK = 64;         // feature columns per ring stage
-constexpr int LDT = DK + 4;    // staged row stride in floats: conflict-free 16-byte loads
 constexpr int LDS = BM + 4;    // score tile row stride in floats
 constexpr int STAGES = 2;      // a third stage measured no faster
 constexpr int THREADS = 256;   // 8 warps
@@ -78,14 +91,30 @@ constexpr int WARPS = THREADS / 32;
 constexpr int PEND = 32;       // passing keys collected per query before a merge
 constexpr float NEG_INF = -1e30f;
 
-template <int TQ, int KP>
+// A ring stage's columns per operand type: 256 bytes of each row, staged at
+// a stride of 272 bytes (16 mod 128), so the 16-byte fragment loads of a
+// warp's quarter, two rows of four 32-byte lane spans, hit 32 distinct banks.
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  static constexpr int DK = 64;       // feature columns per ring stage
+  static constexpr int LDT = DK + 4;  // staged row stride in elements
+};
+template <>
+struct Elem<bf16> {
+  static constexpr int DK = 128;
+  static constexpr int LDT = DK + 8;
+};
+
+template <typename T, int TQ, int KP>
 struct Shape {
   static constexpr int WN = TQ >= 16 ? 2 : 1;  // warps along the queries
   static constexpr int WM = WARPS / WN;         // warps along the catalog rows
   static constexpr int MT = BM / 16 / WM;       // m16 tiles per warp
   static constexpr int NT = TQ / 8 / WN;        // n8 tiles per warp
-  static constexpr int STAGE = (BM + TQ) * LDT;  // floats
-  static constexpr size_t RING = (size_t)STAGES * STAGE * 4;
+  static constexpr int STAGE = (BM + TQ) * Elem<T>::LDT;  // elements
+  static constexpr size_t RING = (size_t)STAGES * STAGE * sizeof(T);
   static constexpr size_t SCORES = (size_t)TQ * LDS * 4;
   static constexpr size_t TOP = (size_t)TQ * KP * 8;
   static constexpr size_t PENDING = (size_t)TQ * PEND * 8;
@@ -200,9 +229,12 @@ __device__ __forceinline__ void take(Key key, unsigned m, Key* top, Key* pq, Key
 // alike. The tensor cores truncate as they accumulate, so each 32 columns'
 // products go into a fresh partial, added to acc in rounded f32.
 template <int TQ, int KP>
-__device__ __forceinline__ void mma_stage(float (&acc)[Shape<TQ, KP>::MT][Shape<TQ, KP>::NT][4],
-                                          const float* st, int wm, int wn, int g, int t) {
-  using S = Shape<TQ, KP>;
+__device__ __forceinline__ void mma_stage(
+    float (&acc)[Shape<float, TQ, KP>::MT][Shape<float, TQ, KP>::NT][4], const float* st, int wm,
+    int wn, int g, int t) {
+  using S = Shape<float, TQ, KP>;
+  constexpr int DK = Elem<float>::DK;
+  constexpr int LDT = Elem<float>::LDT;
   const float* Cs = st + (wm * S::MT * 16 + g) * LDT + 8 * t;
   const float* Qs = st + (BM + wn * S::NT * 8 + g) * LDT + 8 * t;
 #pragma unroll
@@ -268,14 +300,81 @@ __device__ __forceinline__ void mma_stage(float (&acc)[Shape<TQ, KP>::MT][Shape<
   }
 }
 
+// One ring stage of bf16 rows added to the warp's accumulators, tiles as in
+// the f32 stage. Within each 64 columns lane t holds columns 16t + [0, 16)
+// of its rows in eight registers, two columns each; k-step s takes
+// registers 2s (logical columns 2t, 2t + 1) and 2s + 1 (2t + 8, 2t + 9) of
+// A and B alike. Each 64 columns' products go into a fresh partial.
 template <int TQ, int KP>
-__global__ void __launch_bounds__(THREADS, TQ == 8 ? 2 : 1)
-topk_slices_kernel(const float* __restrict__ Q, const float* __restrict__ C,
-                   const int* __restrict__ mask, Key* __restrict__ cand, int B, int N, int D,
-                   int n_valid, int k, int packed, int slice_rows, int n_slices) {
-  using S = Shape<TQ, KP>;
+__device__ __forceinline__ void mma_stage(
+    float (&acc)[Shape<bf16, TQ, KP>::MT][Shape<bf16, TQ, KP>::NT][4], const bf16* st, int wm,
+    int wn, int g, int t) {
+  using S = Shape<bf16, TQ, KP>;
+  constexpr int LDT = Elem<bf16>::LDT;
+  const bf16* Cs = st + (wm * S::MT * 16 + g) * LDT + 16 * t;
+  const bf16* Qs = st + (BM + wn * S::NT * 8 + g) * LDT + 16 * t;
+#pragma unroll
+  for (int c64 = 0; c64 < Elem<bf16>::DK / 64; ++c64) {
+    // b[tile][register]; a[tile][half][register]: half 0 row g, 1 row g + 8.
+    uint32_t b[S::NT][8], a[S::MT][2][8];
+#pragma unroll
+    for (int nt = 0; nt < S::NT; ++nt) {
+      const uint4* p = reinterpret_cast<const uint4*>(Qs + nt * 8 * LDT + 64 * c64);
+      const uint4 v0 = p[0], v1 = p[1];
+      b[nt][0] = v0.x, b[nt][1] = v0.y, b[nt][2] = v0.z, b[nt][3] = v0.w;
+      b[nt][4] = v1.x, b[nt][5] = v1.y, b[nt][6] = v1.z, b[nt][7] = v1.w;
+    }
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const uint4* p =
+            reinterpret_cast<const uint4*>(Cs + (mt * 16 + half * 8) * LDT + 64 * c64);
+        const uint4 u0 = p[0], u1 = p[1];
+        uint32_t* r = a[mt][half];
+        r[0] = u0.x, r[1] = u0.y, r[2] = u0.z, r[3] = u0.w;
+        r[4] = u1.x, r[5] = u1.y, r[6] = u1.z, r[7] = u1.w;
+      }
+    }
+    float part[S::MT][S::NT][4];
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+#pragma unroll
+      for (int mt = 0; mt < S::MT; ++mt) {
+        const uint32_t frag[4] = {a[mt][0][2 * s], a[mt][1][2 * s], a[mt][0][2 * s + 1],
+                                  a[mt][1][2 * s + 1]};
+#pragma unroll
+        for (int nt = 0; nt < S::NT; ++nt)
+          mmac::mma(part[mt][nt], frag, b[nt][2 * s], b[nt][2 * s + 1]);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < S::MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < S::NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+  }
+}
+
+// The slice kernel's body over rows of type T (float or bf16).
+template <typename T, int TQ, int KP>
+__device__ __forceinline__ void slices_body(const T* __restrict__ Q, const T* __restrict__ C,
+                                            const int* __restrict__ mask, Key* __restrict__ cand,
+                                            int B, int N, int D, int n_valid, int k, int packed,
+                                            int slice_rows, int n_slices) {
+  using S = Shape<T, TQ, KP>;
+  constexpr int DK = Elem<T>::DK;
+  constexpr int LDT = Elem<T>::LDT;
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte copy
   extern __shared__ __align__(16) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);
+  T* ring = reinterpret_cast<T*>(smem);
   float* Sc = reinterpret_cast<float*>(smem + S::RING);  // [TQ][LDS], query-major
   Key* top = reinterpret_cast<Key*>(smem + S::RING + S::SCORES);  // [TQ][KP]
   Key* pend = top + TQ * KP;                                      // [TQ][PEND]
@@ -308,15 +407,15 @@ topk_slices_kernel(const float* __restrict__ Q, const float* __restrict__ C,
   // are zero.
   auto load_stage = [&](int step) {
     if (step < steps) {
-      float* st = ring + (step % STAGES) * S::STAGE;
+      T* st = ring + (step % STAGES) * S::STAGE;
       const int row0 = r_begin + (step / n_chunks) * BM;
       const int d0 = (step % n_chunks) * DK;
-      for (int i = tid; i < (BM + TQ) * (DK / 4); i += THREADS) {
-        const int r = i / (DK / 4);
-        const int c = d0 + (i % (DK / 4)) * 4;
+      for (int i = tid; i < (BM + TQ) * (DK / VEC); i += THREADS) {
+        const int r = i / (DK / VEC);
+        const int c = d0 + (i % (DK / VEC)) * VEC;
         const int row = r < BM ? row0 + r : q0 + r - BM;
         const bool ok = c < D && (r < BM ? row < r_end : row < B);
-        const float* src = (r < BM ? C : Q) + (ok ? (size_t)row * D + c : 0);
+        const T* src = (r < BM ? C : Q) + (ok ? (size_t)row * D + c : 0);
         cp_async16(st + r * LDT + c - d0, src, ok);
       }
     }
@@ -420,6 +519,22 @@ topk_slices_kernel(const float* __restrict__ Q, const float* __restrict__ C,
   }
 }
 
+template <int TQ, int KP>
+__global__ void __launch_bounds__(THREADS, TQ == 8 ? 2 : 1)
+topk_slices_kernel(const float* __restrict__ Q, const float* __restrict__ C,
+                   const int* __restrict__ mask, Key* __restrict__ cand, int B, int N, int D,
+                   int n_valid, int k, int packed, int slice_rows, int n_slices) {
+  slices_body<float, TQ, KP>(Q, C, mask, cand, B, N, D, n_valid, k, packed, slice_rows, n_slices);
+}
+
+template <int TQ, int KP>
+__global__ void __launch_bounds__(THREADS, TQ == 8 ? 2 : 1)
+topk_slices_bf16_kernel(const bf16* __restrict__ Q, const bf16* __restrict__ C,
+                        const int* __restrict__ mask, Key* __restrict__ cand, int B, int N, int D,
+                        int n_valid, int k, int packed, int slice_rows, int n_slices) {
+  slices_body<bf16, TQ, KP>(Q, C, mask, cand, B, N, D, n_valid, k, packed, slice_rows, n_slices);
+}
+
 // Each query's top k of its n_cand candidate keys, one warp per query, by
 // the slice kernel's selection: scores and rows, in key order.
 template <int KP>
@@ -461,22 +576,54 @@ topk_merge_kernel(const Key* __restrict__ cand, float* __restrict__ out_s,
   }
 }
 
-template <int TQ, int KP>
+template <typename T, int TQ, int KP>
 cudaError_t launch(const void* Q, const void* C, const void* mask, void* cand, void* out_s,
                    void* out_i, int B, int N, int D, int n_valid, int k, int packed,
                    int slice_rows, int n_slices, cudaStream_t stream) {
-  using S = Shape<TQ, KP>;
-  cudaError_t e = cudaFuncSetAttribute(topk_slices_kernel<TQ, KP>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
+  using S = Shape<T, TQ, KP>;
+  void (*kernel)(const T*, const T*, const int*, Key*, int, int, int, int, int, int, int, int);
+  if constexpr (std::is_same<T, float>::value)
+    kernel = topk_slices_kernel<TQ, KP>;
+  else
+    kernel = topk_slices_bf16_kernel<TQ, KP>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::SMEM);
   if (e != cudaSuccess) return e;
-  topk_slices_kernel<TQ, KP><<<dim3((B + TQ - 1) / TQ, n_slices), THREADS, S::SMEM, stream>>>(
-      (const float*)Q, (const float*)C, (const int*)mask, (Key*)cand, B, N, D, n_valid, k, packed,
+  kernel<<<dim3((B + TQ - 1) / TQ, n_slices), THREADS, S::SMEM, stream>>>(
+      (const T*)Q, (const T*)C, (const int*)mask, (Key*)cand, B, N, D, n_valid, k, packed,
       slice_rows, n_slices);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   topk_merge_kernel<KP><<<(B + WARPS - 1) / WARPS, THREADS, 0, stream>>>(
       (const Key*)cand, (float*)out_s, (int*)out_i, B, n_slices * k, k);
   return cudaGetLastError();
+}
+
+// The entry points' checks and the forms the k rule picks, for rows of type T.
+template <typename T>
+int topk_entry(const void* queries, const void* catalog, const void* mask, void* cand,
+               void* out_s, void* out_i, int batch, int n_rows, int dim, int n_valid, int k,
+               int packed, int query_tile, int slice_rows, int n_slices, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  constexpr int VEC = 16 / sizeof(T);
+  if (batch < 1 || n_rows < 1 || dim < VEC || dim % VEC || k < 1 || k > 256 ||
+      slice_rows < BM || slice_rows % BM || n_slices != (n_rows + slice_rows - 1) / slice_rows)
+    return (int)cudaErrorInvalidValue;
+  const int kp = k <= 32 ? 32 : k <= 64 ? 64 : k <= 128 ? 128 : 256;
+#define TOPK_LAUNCH(TQ_, KP_)                                                                  \
+  if (query_tile == TQ_ && kp == KP_)                                                         \
+    return (int)launch<T, TQ_, KP_>(queries, catalog, mask, cand, out_s, out_i, batch, n_rows, \
+                                    dim, n_valid, k, packed, slice_rows, n_slices, stream);
+  TOPK_LAUNCH(8, 32)
+  TOPK_LAUNCH(8, 64)
+  TOPK_LAUNCH(8, 128)
+  TOPK_LAUNCH(8, 256)
+  TOPK_LAUNCH(64, 32)
+  TOPK_LAUNCH(64, 64)
+  TOPK_LAUNCH(64, 128)
+  TOPK_LAUNCH(32, 256)
+#undef TOPK_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -494,25 +641,16 @@ const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err);
 int topk_slices(const void* queries, const void* catalog, const void* mask, void* cand,
                 void* out_s, void* out_i, int batch, int n_rows, int dim, int n_valid, int k,
                 int packed, int query_tile, int slice_rows, int n_slices, void* stream_ptr) {
-  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
-  if (batch < 1 || n_rows < 1 || dim < 4 || dim % 4 || k < 1 || k > 256 || slice_rows < BM ||
-      slice_rows % BM || n_slices != (n_rows + slice_rows - 1) / slice_rows)
-    return (int)cudaErrorInvalidValue;
-  const int kp = k <= 32 ? 32 : k <= 64 ? 64 : k <= 128 ? 128 : 256;
-#define TOPK_LAUNCH(TQ_, KP_)                                                                  \
-  if (query_tile == TQ_ && kp == KP_)                                                         \
-    return (int)launch<TQ_, KP_>(queries, catalog, mask, cand, out_s, out_i, batch, n_rows,  \
-                                 dim, n_valid, k, packed, slice_rows, n_slices, stream);
-  TOPK_LAUNCH(8, 32)
-  TOPK_LAUNCH(8, 64)
-  TOPK_LAUNCH(8, 128)
-  TOPK_LAUNCH(8, 256)
-  TOPK_LAUNCH(64, 32)
-  TOPK_LAUNCH(64, 64)
-  TOPK_LAUNCH(64, 128)
-  TOPK_LAUNCH(32, 256)
-#undef TOPK_LAUNCH
-  return (int)cudaErrorInvalidValue;
+  return topk_entry<float>(queries, catalog, mask, cand, out_s, out_i, batch, n_rows, dim,
+                           n_valid, k, packed, query_tile, slice_rows, n_slices, stream_ptr);
+}
+
+// The same on bf16 queries and catalog rows (D % 8 == 0); scores are f32.
+int topk_slices_bf16(const void* queries, const void* catalog, const void* mask, void* cand,
+                     void* out_s, void* out_i, int batch, int n_rows, int dim, int n_valid, int k,
+                     int packed, int query_tile, int slice_rows, int n_slices, void* stream_ptr) {
+  return topk_entry<bf16>(queries, catalog, mask, cand, out_s, out_i, batch, n_rows, dim,
+                          n_valid, k, packed, query_tile, slice_rows, n_slices, stream_ptr);
 }
 
 }  // extern "C"

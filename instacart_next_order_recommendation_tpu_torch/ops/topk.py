@@ -8,7 +8,8 @@ ties go to the lowest catalog index. Packed results rank each score by the
 top 20 bits of its order-preserving bit pattern (the JAX kernel's packed
 key), ties again to the lowest index, and return the quantized scores.
 
-The kernels (``csrc/topk.cu``: K3 exact, K4 packed) take the top k of
+The kernels (``csrc/topk.cu``: K3 exact, K4 packed, each on f32 rows or,
+as the JAX index stores a bf16 catalog, on bf16 rows) take the top k of
 each catalog slice (``slice_plan``: whole 128-row tiles, as many slices as
 fill the card) for a tile of queries (``query_tile``), as unique 64-bit
 keys (score order bits, then the inverted row), and a second kernel
@@ -99,8 +100,11 @@ def cosine_topk_packed_reference(
 
 
 _SIGNATURES = {
-    "topk_slices": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    for name in ("topk_slices", "topk_slices_bf16")
 }
+# The entry point for each operand dtype the kernels take.
+_ENTRY = {torch.float32: "topk_slices", torch.bfloat16: "topk_slices_bf16"}
 
 
 def query_tile(b: int, k: int) -> int:
@@ -116,7 +120,8 @@ def slice_plan(b: int, n: int, k: int, sm_count: int) -> tuple[int, int]:
     """``(slice_rows, n_slices)``: the catalog cut into slices of whole
     ``TILE_N``-row tiles, as few as fill the card with one wave of blocks
     (two resident per SM at 8 queries a block, one above; csrc/topk.cu's
-    launch bounds): fewer slices mean fewer candidates to merge."""
+    launch bounds): fewer slices mean fewer candidates to merge. Measured on
+    f32 rows; bf16 rows (half the bytes a tile) take the same plan."""
     blocks = sm_count * (2 if query_tile(b, k) == 8 else 1)
     n_tiles = -(-n // TILE_N)
     want = max(1, min(n_tiles, blocks // -(-b // query_tile(b, k))))
@@ -141,17 +146,20 @@ def cosine_topk(
     """Top-k, exact or (``packed=True``, k <= 256) on the packed keys. A CPU
     tensor takes the plain version; a CUDA tensor launches the slice and
     merge kernels (K3, or K4 when packed; 1 <= k <= 256), or takes the exact
-    dense route (k > 256), or raises on what it does not take (f32 only,
-    D % 16 == 0)."""
+    dense route (k > 256), or raises on what it does not take (queries and
+    catalog both f32 or both bf16, D % 16 == 0). Scores are f32 either way;
+    bf16 operands are not upcast on the card."""
     packed = packed and k <= BLOCK_N
     if queries.device.type == "cpu":
         plain = cosine_topk_packed_reference if packed else cosine_topk_reference
         return plain(queries, catalog, k, n_valid, candidate_mask)
     if queries.device.type != "cuda":
         raise ValueError(f"cosine_topk: no kernel for device {queries.device}")
-    if queries.dtype != torch.float32 or catalog.dtype != torch.float32:
+    entry = _ENTRY.get(queries.dtype)
+    if entry is None or catalog.dtype != queries.dtype:
         raise ValueError(
-            f"cosine_topk kernel takes float32, got {queries.dtype} and {catalog.dtype}"
+            "cosine_topk kernel takes float32 or bfloat16 queries and catalog of one dtype, "
+            f"got {queries.dtype} and {catalog.dtype}"
         )
     if queries.dim() != 2 or catalog.dim() != 2 or queries.shape[1] != catalog.shape[1]:
         raise ValueError(
@@ -187,20 +195,27 @@ def cosine_topk(
     out_s = torch.empty((b, k), dtype=torch.float32, device=queries.device)
     out_i = torch.empty((b, k), dtype=torch.int32, device=queries.device)
     lib = _build.load("topk", _SIGNATURES)
-    err = lib.topk_slices(
+    err = getattr(lib, entry)(
         _build.ptr(queries), _build.ptr(catalog),
         None if mask is None else _build.ptr(mask),
         _build.ptr(cand), _build.ptr(out_s), _build.ptr(out_i), b, n, d, n_valid, k,
         int(packed), query_tile(b, k), slice_rows, n_slices, _build.stream_of(queries),
     )
-    _build.check(lib, err, "topk_slices")
+    _build.check(lib, err, entry)
+    bf16 = queries.dtype == torch.bfloat16
     if packed:
         _build.count(cosine_topk, "packed_launches")
+        if bf16:
+            _build.count(cosine_topk, "packed_bf16_launches")
     else:
         _build.count(cosine_topk)
+        if bf16:
+            _build.count(cosine_topk, "bf16_launches")
     return out_s, out_i
 
 
-cosine_topk.launches = 0  # K3
-cosine_topk.packed_launches = 0  # K4
+cosine_topk.launches = 0  # K3, on f32 or bf16 rows
+cosine_topk.packed_launches = 0  # K4, on f32 or bf16 rows
+cosine_topk.bf16_launches = 0  # of them, K3 on bf16 rows
+cosine_topk.packed_bf16_launches = 0  # K4 on bf16 rows
 cosine_topk.dense_calls = 0

@@ -154,6 +154,9 @@ def main() -> None:
         use_index=cfg.use_index,
         topk_extraction=cfg.topk_extraction,
         device=device,
+        ann=cfg.ann,
+        ann_nlist=cfg.ann_nlist,
+        ann_nprobe=cfg.ann_nprobe,
     )
     batches = BATCH_BUCKETS if args.batching else (1,)
     n = warm_serve_shapes(rec, batch_buckets=batches)

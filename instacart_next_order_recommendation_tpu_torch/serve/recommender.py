@@ -8,6 +8,8 @@ Counterpart of the JAX package's ``serve/recommender.py``:
 - ``recommend(query, top_k, exclude_product_ids)`` returns ``[(pid, score)]``
   with exclusion applied after ranking (fetch top-(k + |excluded|)),
 - aisle/department filters become a row mask applied on the device,
+- ``ann=True`` serves from the IVF approximate index (``index/ivf.py``)
+  instead of the exact scan, through the index route alone,
 - ``MonitoredRecommender`` adds per-stage timings and a structured metrics
   log; ``StageCalibrator`` supplies the stage timings of the fused route,
 - ``InferenceConfig`` and ``main`` are the serve CLI
@@ -42,6 +44,7 @@ from instacart_next_order_recommendation_tpu_torch.constants import (
 )
 from instacart_next_order_recommendation_tpu_torch.device import resolve_device
 from instacart_next_order_recommendation_tpu_torch.index.embedding_index import EmbeddingIndex
+from instacart_next_order_recommendation_tpu_torch.index.ivf import IVFCatalogIndex
 from instacart_next_order_recommendation_tpu_torch.index.sharded import ShardedCatalogIndex
 from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
 from instacart_next_order_recommendation_tpu_torch.serve.pipeline import FusedServePipeline
@@ -257,8 +260,16 @@ class Recommender:
         device: str | torch.device | None = None,
         topk_extraction: str | None = None,
         encoder: TextEncoder | None = None,
+        ann: bool = False,
+        ann_nlist: int | None = None,
+        ann_nprobe: int = 8,
     ):
         """``device=None`` means the GPU and raises where there is none.
+
+        ``ann=True`` swaps the exact scan for the IVF approximate index
+        (``IVFCatalogIndex(nlist=ann_nlist, nprobe=ann_nprobe)``), for
+        catalogs too large for the full scan; every request then takes the
+        index route (``_fused`` is None). The exact scan is the default.
 
         ``topk_extraction``: "exact" (default) or "packed", the packed
         score + index kernel (scores quantized to about 3 decimal digits;
@@ -295,6 +306,12 @@ class Recommender:
         # serves a new shape bucket).
         self._stage_cal = StageCalibrator(self)
         self.product_embeddings = self._load_or_build_embeddings(batch_size, use_index)
+        self._fused: FusedServePipeline | None = None
+        if ann:
+            self.index = IVFCatalogIndex(
+                self.product_embeddings, nlist=ann_nlist, nprobe=ann_nprobe, device=self.device
+            )
+            return
         self.index = ShardedCatalogIndex(
             self.product_embeddings, device=self.device, extraction=topk_extraction
         )
@@ -405,7 +422,7 @@ class Recommender:
         self, query: str, fetch_k: int, candidate_mask: np.ndarray | None = None
     ) -> tuple[np.ndarray, np.ndarray]:
         k_bucket = self._k_bucket(fetch_k)
-        if candidate_mask is None:
+        if self._fused is not None and candidate_mask is None:
             ids, mask = self.encoder.tokenizer.encode_batch(
                 [query], max_seq_length=self.encoder.max_seq_length
             )
@@ -487,7 +504,7 @@ class MonitoredRecommender(Recommender):
         k_bucket = self._k_bucket(fetch_k)
         timing_source = "measured"
 
-        if mask is None and _single_dispatch_on():
+        if self._fused is not None and mask is None and _single_dispatch_on():
             # One call: encode + top-k through the fused pipeline; the
             # per-stage stats come from the calibration table instead of
             # per-request clocks (StageCalibrator).
@@ -546,11 +563,6 @@ class InferenceConfig:
     """Serve CLI configuration (the keys of ``configs/inference.yaml``)."""
 
     def __init__(self, raw: dict):
-        if raw.get("ann"):
-            raise NotImplementedError(
-                "ann: true needs the IVF index (index/ivf.py), which the PyTorch package "
-                "does not have yet (ROADMAP.md, queue 1 item 12)"
-            )
         self.model_dir = resolve_project_path(raw.get("model_dir"), DEFAULT_MODEL_DIR)
         corpus_path = resolve_project_path(raw.get("corpus"), DEFAULT_CORPUS_PATH)
         self.corpus = resolve_corpus_with_hf_fallback(
@@ -562,6 +574,10 @@ class InferenceConfig:
         self.query = raw.get("query")
         self.eval_query_id = raw.get("eval_query_id")
         self.top_k = int(raw.get("top_k", 10))
+        # The IVF index for very large catalogs; the exact scan is the default.
+        self.ann = bool(raw.get("ann", False))
+        self.ann_nlist = int(raw["ann_nlist"]) if raw.get("ann_nlist") else None
+        self.ann_nprobe = int(raw.get("ann_nprobe", 8))
         # "exact" | "packed"; None defers to the ITOR_TOPK_EXTRACTION env.
         self.topk_extraction = raw.get("topk_extraction")
 
@@ -599,6 +615,9 @@ def main() -> None:
         use_index=cfg.use_index,
         topk_extraction=cfg.topk_extraction,
         device=device,
+        ann=cfg.ann,
+        ann_nlist=cfg.ann_nlist,
+        ann_nprobe=cfg.ann_nprobe,
     )
 
     if cfg.eval_query_id:

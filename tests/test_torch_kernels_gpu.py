@@ -492,6 +492,144 @@ def test_topk_widths_and_an_unaligned_catalog(dev, d):
         assert torch.equal(i, i_ref) and torch.equal(s, s_ref)
 
 
+
+# ------------------------------------------------ K3/K4 on bf16 rows, and IVF
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("batch", [1, 9, 70])
+@pytest.mark.parametrize("k", [1, 10, 16, 33, 64, 100, 129, 256])
+def test_topk_bf16_every_form_of_k(dev, k, batch, packed):
+    # Grid values k / 16 are exact in bf16, their products exact in f32 and
+    # their sums too: the bf16 kernels' ids and scores equal the plain
+    # version's (which upcasts to f32), ties to the lowest index.
+    g = torch.Generator().manual_seed(30)
+    c, q = _grid(g, 5000), _grid(g, batch)
+    c[2500:2520] = c[11].clone()
+    q[0] = c[11]
+    mask = (torch.rand(5000, generator=g) < 0.6).int()
+    mask[[11, 2500, 2519]] = 1
+    c, q, mask = c.to(dev, torch.bfloat16), q.to(dev, torch.bfloat16), mask.to(dev)
+    counts = cosine_topk.bf16_launches, cosine_topk.packed_bf16_launches
+    (s, i), (s_ref, i_ref) = _topk_both(q, c, k, packed, n_valid=4990, candidate_mask=mask)
+    assert (cosine_topk.bf16_launches, cosine_topk.packed_bf16_launches) == (
+        counts[0] + (not packed), counts[1] + packed
+    )
+    assert s.dtype == torch.float32 and torch.equal(i, i_ref) and torch.equal(s, s_ref)
+    tied = [r for r in [11, *range(2500, 2520)] if mask[r]]  # row 0's best, in row order
+    assert i[0, : min(k, len(tied))].tolist() == tied[:k]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [384, 768])
+@pytest.mark.parametrize("batch,k,masked", [(1, 10, False), (8, 16, True), (256, 100, False)])
+def test_topk_bf16_random_unit_rows(dev, d, batch, k, masked):
+    # Unit rows rounded to bf16: each score within 1e-5 of the f32 product
+    # of the same bf16 values (the plain version), and an id differs from
+    # the plain version's only where the two rows' float64 scores of those
+    # values lie within 2e-5.
+    g = torch.Generator().manual_seed(31 + d)
+    c = _unit(g, 50_000, d).to(dev, torch.bfloat16)
+    q = _unit(g, batch, d).to(dev, torch.bfloat16)
+    mask = (torch.rand(50_000, generator=g) < 0.7).int().to(dev) if masked else None
+    for packed in (False, True):
+        (s, i), (s_ref, i_ref) = _topk_both(q, c, k, packed, candidate_mask=mask)
+        f64 = q.double().cpu().numpy() @ c.double().cpu().numpy().T
+        i, i_ref = i.long().cpu().numpy(), i_ref.long().cpu().numpy()
+        rows = np.arange(batch)[:, None]
+        swapped = i != i_ref
+        assert swapped.mean() <= (0.05 if packed else 0.01)
+        tol = 2.0**-10 if packed else 2e-5  # K4: ties within the 20-bit key
+        assert (np.abs(f64[rows, i] - f64[rows, i_ref])[swapped] <= tol).all()
+        if not packed:
+            assert (s - s_ref).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+def test_topk_refuses_mixed_and_other_dtypes(dev):
+    c = torch.zeros((300, 32), device=dev)
+    q = torch.zeros((2, 32), device=dev)
+    launches = cosine_topk.launches
+    for qq, cc in ((q, c.bfloat16()), (q.bfloat16(), c), (q.half(), c.half()),
+                   (q.double(), c.double())):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            cosine_topk(qq, cc, 5)
+    assert cosine_topk.launches == launches
+    cosine_topk(q.bfloat16(), c.bfloat16(), 5)
+    assert cosine_topk.launches == launches + 1
+    with pytest.raises(ValueError, match="D % 16"):
+        cosine_topk(torch.zeros((2, 24), device=dev, dtype=torch.bfloat16),
+                    torch.zeros((300, 24), device=dev, dtype=torch.bfloat16), 5)
+
+
+@pytest.mark.cuda
+def test_bf16_catalog_index_serves_through_the_bf16_kernel(dev):
+    from instacart_next_order_recommendation_tpu_torch.index import ShardedCatalogIndex
+
+    g = torch.Generator().manual_seed(32)
+    c, q = _unit(g, 20_000, H), _unit(g, 8, H)
+    for extraction, counter in (("exact", "bf16_launches"), ("packed", "packed_bf16_launches")):
+        idx = ShardedCatalogIndex(c.numpy(), device=dev, dtype="bfloat16", extraction=extraction)
+        assert idx.catalog.dtype == torch.bfloat16 and idx.catalog.is_cuda
+        before = getattr(cosine_topk, counter)
+        s, i = idx.topk(q.numpy(), 10)
+        assert getattr(cosine_topk, counter) == before + 1
+        plain = cosine_topk_packed_reference if extraction == "packed" else cosine_topk_reference
+        s_ref, i_ref = plain(q.to(torch.bfloat16), c.to(torch.bfloat16), 10)
+        assert (i == i_ref.numpy()).mean() >= 0.95
+
+
+def _clustered_rows(seed, n=20_000, d=H, n_clusters=200, b=64):
+    """Unit rows around random unit centers, and queries near them."""
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((n_clusters, d)).astype(np.float32)
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, n_clusters, n + b)]
+    x = x + rng.standard_normal(x.shape).astype(np.float32) * (0.5 / np.sqrt(d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x[n:], x[:n]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ivf_on_the_card_against_its_plain_path(dev, dtype):
+    # The same build searched on the card and on the CPU (stable sorts
+    # there): the same ids up to near-ties, scores within 1e-5; at full
+    # probe the exact scan's ranking of the same rows. The card's build is
+    # the same twice over (no atomics), and equal to the CPU's build on
+    # these tie-free rows.
+    import copy
+
+    from instacart_next_order_recommendation_tpu_torch.index import IVFCatalogIndex
+
+    q, emb = _clustered_rows(33)
+    kw = dict(nlist=128, nprobe=8, seed=0, dtype=dtype, kmeans_iters=4)
+    ivf = IVFCatalogIndex(torch.from_numpy(emb).to(dev), device=dev, **kw)
+    again = IVFCatalogIndex(emb, device=dev, **kw)
+    on_cpu = IVFCatalogIndex(emb, device="cpu", **kw)
+    assert torch.equal(ivf._bucket_ids, again._bucket_ids)
+    assert torch.equal(ivf._buckets, again._buckets)
+    assert torch.equal(ivf._bucket_ids.cpu(), on_cpu._bucket_ids)
+    plain = copy.copy(ivf)
+    plain.device = torch.device("cpu")
+    plain._centroids, plain._buckets, plain._bucket_ids = (
+        t.cpu() for t in (ivf._centroids, ivf._buckets, ivf._bucket_ids)
+    )
+    mask = (np.random.default_rng(34).random(len(emb)) < 0.5).astype(np.int32)
+    for nprobe in (8, 128):
+        ivf.nprobe = plain.nprobe = nprobe
+        for m in (None, mask):
+            s, i = ivf.topk(q, 16, candidate_mask=m)
+            s_ref, i_ref = plain.topk(q, 16, candidate_mask=m)
+            assert np.abs(s - s_ref).max() <= 1e-5
+            assert ((i == i_ref) | (np.abs(s - s_ref) <= 1e-5)).all()
+            if m is not None:
+                assert (m[i] == 1).all()
+    rows = torch.from_numpy(emb).to(getattr(torch, dtype)).float()
+    s_ex, _ = cosine_topk_reference(torch.from_numpy(q), rows, 16)
+    assert np.abs(ivf.topk(q, 16)[0] - s_ex.numpy()).max() <= 1e-5
+
 def _dropout(batch, seq, dev, seed=5, h=H):
     g = torch.Generator(device=dev).manual_seed(seed)
     return draw_dropout_masks((batch, seq, h), 0.1, g, dev, torch.bfloat16)

@@ -426,3 +426,28 @@ class TestTopK:
         )
         np.testing.assert_allclose(s, np.asarray(pal_s), atol=1e-6)
         np.testing.assert_array_equal(i[:, :4], np.asarray(pal_i)[:, :4])
+
+
+def test_ptxas_usage_reads_kernel_names_past_a_namespace_hash():
+    # nvcc names kernels in an anonymous namespace after a hash of the
+    # source's path; digits inside that hash are no length prefix, whatever
+    # the path (here a run that spans exactly to "_kernel").
+    from instacart_next_order_recommendation_tpu_torch.ops import _build
+
+    tail = "de4a_12_pool_norm_cu_0898312c18pool_l2norm_kernel"
+    ns = f"_GLOBAL__N__9b{len(tail)}de4a_12_pool_norm_cu_0898312c"
+    pool = f"_ZN{len(ns)}{ns}18pool_l2norm_kernelILi8ELi4ELi1EEEvPK13__nv_bfloat16PKiPfiiiii"
+    bf16 = f"_ZN{len(ns)}{ns}23topk_slices_bf16_kernelILi8ELi32EEEvPK13__nv_bfloat16S2_PKiPy"
+    merge = "_Z17topk_merge_kernelILi32EEvPKyPfPiiii"
+    log = "".join(
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for name, regs, spill in ((pool, 94, 0), (bf16, 95, 8), (merge, 46, 0),
+                                  (f"_ZN{len(ns)}{ns}6helperEv", 10, 0))
+    )
+    assert _build.ptxas_usage(log) == {
+        "pool_l2norm_kernel<8,4,1>": (94, 0),
+        "topk_slices_bf16_kernel<8,32>": (95, 8),
+        "topk_merge_kernel<32>": (46, 0),
+    }

@@ -167,6 +167,7 @@ def test_port_imports_no_jax(served, tmp_path):
         import sys
         import torch
         from instacart_next_order_recommendation_tpu_torch.eval.evaluator import RetrievalEvaluator
+        from instacart_next_order_recommendation_tpu_torch.index.ivf import IVFCatalogIndex
         from instacart_next_order_recommendation_tpu_torch.models import MPNET_BASE_CLASS
         from instacart_next_order_recommendation_tpu_torch.ops.attention import multi_head_attention
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
@@ -206,6 +207,8 @@ def test_port_imports_no_jax(served, tmp_path):
                                    use_index=False, device="cpu", encoder=rec.encoder)
         assert len(MicroBatcher(mon).recommend({QUERIES[1]!r}, top_k=4)) == 4
         assert warm_serve_shapes(mon, k_buckets=(16,)) == 2 + 2 + 2
+        ivf = IVFCatalogIndex(rec.product_embeddings, nlist=4, nprobe=4, device="cpu")
+        assert ivf.topk(rec.product_embeddings[:2], 3)[1].shape == (2, 3)
         assert rec.encoder.tokenizer.native_batches > 0 and native.library_path().exists()
         os.environ["INFERENCE_DEVICE"] = "cpu"
         os.environ["FEEDBACK_DB_PATH"] = {str(tmp_path / "feedback.db")!r}

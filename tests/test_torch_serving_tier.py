@@ -373,20 +373,20 @@ def test_inference_config_from_one_dict(served):
     raw = {
         "model_dir": str(ours.model_dir), "corpus": str(ours.corpus_path),
         "use_index": False, "query": "milk", "eval_query_id": 7, "top_k": 4,
-        "topk_extraction": "packed",
+        "topk_extraction": "packed", "ann": True, "ann_nlist": 12, "ann_nprobe": 3,
     }
+    keys = ("model_dir", "corpus", "use_index", "query", "eval_query_id", "top_k",
+            "topk_extraction", "ann", "ann_nlist", "ann_nprobe")
     a = port_recommender.InferenceConfig(raw)
     b = jax_recommender.InferenceConfig(raw)
-    for key in ("model_dir", "corpus", "use_index", "query", "eval_query_id", "top_k",
-                "topk_extraction"):
+    for key in keys:
         assert getattr(a, key) == getattr(b, key), key
     defaults = port_recommender.InferenceConfig({"corpus": str(ours.corpus_path)})
+    jax_defaults = jax_recommender.InferenceConfig({"corpus": str(ours.corpus_path)})
     assert (defaults.top_k, defaults.use_index, defaults.topk_extraction) == (10, True, None)
-    assert defaults.model_dir == jax_recommender.InferenceConfig(
-        {"corpus": str(ours.corpus_path)}
-    ).model_dir
-    with pytest.raises(NotImplementedError, match="IVF"):
-        port_recommender.InferenceConfig({**raw, "ann": True})
+    assert (defaults.ann, defaults.ann_nlist, defaults.ann_nprobe) == (False, None, 8)
+    for key in keys:
+        assert getattr(defaults, key) == getattr(jax_defaults, key), key
 
 
 @pytest.mark.parametrize("mode", ["query", "eval_query_id", "demo"])
