@@ -145,7 +145,28 @@ Run from the repository root, with no arguments:
    backward keeps only the layer inputs) and at S=200 (on: the unfused
    layers under ``torch.utils.checkpoint``, K6 run again in the backward);
    and the profiler's breakdown of a B=64 step.
-6. One JSON line describing each kernel, then, as the last line,
+5b. Multi-GPU on the one card. The device mesh puts two data shards on
+   cuda:0: ``ShardedCatalogIndex`` over phase 3's 50k catalog at B=256,
+   k=16 (f32, bf16, packed, aisle-masked; two K3 or K4 launches a call)
+   against the one-device index by the near-tie rules, dp=4 over 50,001
+   rows (a short last shard), the 1M rows of phase 3e at B=8 timed beside
+   the one-device scan, IVF's mesh build on them (every row in one bucket,
+   recall@10 at nprobe 8 within 0.01 of phase 3e's build, seconds by
+   stage), and ``TextEncoder`` over the mesh on the 50k catalog against the
+   one-device encode. Then two gloo ranks share cuda:0 (NCCL refuses two
+   ranks on one GPU), spawned by this script, each with its own launch
+   counts: DP=2 MiniLM-L6 through ``TwoTowerTrainer.train`` for one epoch
+   at train_batch_size 32 (global 64; 12 K1-train and 12 K5 a rank a step;
+   the loss falls; only rank 0 writes; ``final/`` serves), TP=2
+   mpnet-base-class for two epochs at B=64, S=256 (24 K6 and 24 K7 a rank
+   a step, no K1 or K5; the loss falls; peak memory a rank), and for each
+   3 dropout-0 steps held to the one-process ``TrainStep`` at B=64 by phase
+   4's limits (TP at S=200), with planted faults that must break them (no
+   division by dp; rank 1's positives left out of the gather; rank 1's
+   tp_exit all-reduce left out). Step ms a rank are printed as two ranks
+   sharing one card with collectives through gloo: not a scaling figure.
+6. One JSON line describing each kernel (with ``launches_phase_5b``), then,
+   as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when CUDA is absent or any check
@@ -1222,6 +1243,8 @@ class Smoke:
         self.failures: list[str] = []
         self.kernel_rows: dict[str, dict] = {}
         self.pool_rows: dict[int, list[dict]] = {}  # K2 readings by hidden width
+        self.ivf_1m: dict = {}  # phase 3e's 1M rows and one-device readings, for phase 5b
+        self.launches_5b: dict[str, int] = {}  # phase 5b's launches by kernels-line name
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -2822,6 +2845,11 @@ class IvfPhase:
             lambda: ivf_search(ivfs["bfloat16"], max(IVF_1M_NPROBES), q_all[:BATCH], k))
         out["device_ms"] = timing
         log(f"IVF at 1M x 384 ({self.smi}): {json.dumps(out)}")
+        smoke.ivf_1m = {  # on the host: phases 4 and 5 read the card's peak memory
+            "catalog": cat.cpu().numpy(), "queries": q_all.cpu().numpy(), "k": k,
+            "exact_ids": exact_ids.cpu().numpy(), "recall_nprobe_8": recalls["float32_nprobe_8"],
+            "build_s": builds["float32"]["by_stage_s"],
+        }
 
         # The bf16 kernels' rows for the kernels line: B=8, N=1M, k=10.
         q8 = q_all[:8].to(torch.bfloat16)
@@ -4838,6 +4866,577 @@ class HfBaselinesPhase:
                 "ndcg_at_10": ndcg, "cf_top5_identical": same}
 
 
+# Phase 5b: multi-GPU on one card. The device mesh puts two (or four) data
+# shards on cuda:0; the process mesh runs two gloo ranks that share cuda:0
+# (NCCL refuses two ranks on one GPU; gloo takes all_reduce and broadcast on
+# CUDA tensors, the two collectives the port uses there). What this shows:
+# the code paths, each shard's and each rank's kernels, and the collectives'
+# arithmetic. What it cannot show: interconnect speed or scaling.
+MESH_TEXT_TOL = K1_TOL  # TextEncoder over a mesh against one device: K1's stated limit
+MESH_RECALL_TOL = 0.01  # IVF's mesh build against the one-device build, recall@10 at nprobe 8
+MULTI_GPU_TIMEOUT_S = 300
+DP_BATCH = 32  # train_batch_size per data rank: global 64, phase 4's batch
+TP_PAIRS = 256  # the TP trainer's pairs: the longest distinct anchors, 4 steps of 64 an epoch
+TP_EPOCHS = 2
+# The TP trainer's rate: its 8 steps must show the loss falling on pairs it
+# has seen once (MPNET_LR's 3e-5 is set for a 96-step epoch).
+TP_LR = 1e-4
+
+
+def multi_gpu_rank(rank: int, world: int, workdir: str) -> None:
+    """One of phase 5b's two gloo ranks on cuda:0: the DP=2 MiniLM-L6 run
+    and its 3-step check with two planted faults, then the TP=2 mpnet run
+    and its 3-step check at S=200 with a planted fault. Each rank keeps its
+    own launch counts and writes what it read to ``rank<r>.json`` and its
+    whole first-step gradients to ``grads<r>.pt``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    work = Path(workdir)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{work / 'pg_init'}", rank=rank, world_size=world
+    )
+    try:
+        inputs = torch.load(work / "inputs.pt", weights_only=False)
+        ranks = RankRuns(rank, work, inputs)
+        out = {"rank": rank, "dp": ranks.dp(), "tp": ranks.tp()}
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+        torch.save(ranks.grads, work / f"grads{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+class RankRuns:
+    """What one rank of phase 5b runs (``multi_gpu_rank``)."""
+
+    def __init__(self, rank: int, work: Path, inputs: dict):
+        self.rank, self.work, self.inputs = rank, work, inputs
+        self.dev = torch.device("cuda", 0)
+        self.grads: dict = {}
+
+    def counted(self, fn) -> tuple[object, dict[str, int], float]:
+        """``fn()``, its launches by wrapper from zero, and its seconds."""
+        wrappers = training_wrappers()
+        for w in wrappers:
+            w.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        return result, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+
+    def train_config(self, name: str, **kw):
+        from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
+
+        return TrainConfig({
+            "processed_dir": str(self.work),
+            "output_dir": str(self.work / f"{name}_rank{self.rank}"),
+            "max_seq_length": 256, "vocab_size": 30000, "eval_batch_size": 64,
+            "loss_scale": 30.0, "logging_steps": 1000, "seed": 42, **kw,
+        })
+
+    def steps(self, tower_dir: str, seq: int, mesh, n: int, faults: dict) -> dict:
+        """``n`` TrainSteps at dropout 0 and STEP_CHECK_LR from the tower in
+        ``tower_dir`` on this rank's part of ``n`` global batches of 64 at
+        length ``seq`` (its rows for a data rank, its shards for a model
+        rank): the losses and the first step's whole gradients, then the
+        same under each planted fault (``name -> (module, attribute,
+        replacement)``). Step ms of steps 2 to n."""
+        from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
+        from instacart_next_order_recommendation_tpu_torch.parallel import shard_params
+        from instacart_next_order_recommendation_tpu_torch.parallel.mesh import gather_host
+        from instacart_next_order_recommendation_tpu_torch.parallel.shardings import split_dim
+        from instacart_next_order_recommendation_tpu_torch.train.trainer import (
+            TrainStep,
+            build_optimizer,
+            param_leaves,
+        )
+
+        full, cfg, tok = load_tower(tower_dir)
+        cfg = dataclasses.replace(cfg, hidden_dropout=0.0)
+        anchors, positives = self.inputs["data"][:2]
+        rows = slice(mesh.data_rank * (64 // mesh.dp), (mesh.data_rank + 1) * (64 // mesh.dp))
+        batches = []
+        for k in range(n):
+            b = []
+            for texts in (anchors, positives):
+                ids, mask = tok.encode_batch(texts[k * 64 : (k + 1) * 64][rows],
+                                             max_seq_length=seq, pad_to=seq)
+                b += [torch.from_numpy(ids).to(self.dev), torch.from_numpy(mask).to(self.dev)]
+            batches.append(b)
+
+        def run(n_steps: int) -> tuple[list[float], dict, float]:
+            local = shard_params(full, cfg, mesh.tp, mesh.model_rank)
+            params = {g: {k: t.to(self.dev, copy=True).requires_grad_(True)
+                          for k, t in v.items()} for g, v in local.items()}
+            leaves = dict(param_leaves(params))
+            opt = build_optimizer(params, 0.0)
+            first: dict = {}
+
+            def keep_first(*_):
+                if not first:
+                    first.update({n: t.grad.detach().cpu() for n, t in leaves.items()})
+
+            opt.register_step_pre_hook(keep_first)
+            step = TrainStep(params, cfg, opt, lambda count: STEP_CHECK_LR, loss_scale=30.0,
+                             accum=1, device=self.dev, mesh=mesh)
+            losses, times = [], []
+            for b in batches[:n_steps]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(step(b, seed=0).item())
+                times.append(time.perf_counter() - t0)
+            if mesh.tp > 1:  # whole gradients: the split leaves gathered over the model group
+                first = {n: g if split_dim(n) is None
+                         else gather_host(g, split_dim(n), mesh.host_model_group)
+                         for n, g in first.items()}
+            return losses, first, float(np.mean(times[1:]) * 1e3) if n_steps > 1 else None
+
+        (losses, grads, step_ms), counts, _ = self.counted(lambda: run(n))
+        out = {"losses": losses, "step_ms": step_ms, "launches": counts, "faults": {}}
+        tag = f"{Path(tower_dir).parent.parent.name}_S{seq}"
+        self.grads[tag] = {"sound": grads}
+        for name, (module, attr, replacement) in faults.items():
+            with mock.patch.object(module, attr, replacement):
+                f_losses, f_grads, _ = run(n)
+            out["faults"][name] = {"losses": f_losses}
+            self.grads[tag][name] = f_grads
+        return out
+
+    def dp(self) -> dict:
+        """DP=2, MiniLM-L6 at full width: one epoch through the trainer at
+        train_batch_size 32 (global 64), warm-started from phase 4's
+        untrained tower (the preset's seeded init and vocab, without
+        training the vocab again), then the 3-step check with its two
+        planted faults."""
+        import instacart_next_order_recommendation_tpu_torch.ops.mnrl as mnrl_mod
+        from instacart_next_order_recommendation_tpu_torch.parallel import MeshConfig, ProcessMesh
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+        from instacart_next_order_recommendation_tpu_torch.train import trainer as trainer_mod
+
+        cfg = self.train_config("dp", model_name=self.inputs["minilm_untrained"], epochs=1,
+                                train_batch_size=DP_BATCH, learning_rate=2.0e-4, data_parallel=2)
+        trainer = TwoTowerTrainer(cfg, device=self.dev)
+        result, counts, seconds = self.counted(lambda: trainer.train(data=self.inputs["data"]))
+        out = {"seconds": seconds, "seq": trainer.seq_len, "losses": trainer.step_losses,
+               "history": result["history"], "final_dir": result["final_dir"],
+               "launches": counts, "mesh": [trainer.mesh.dp, trainer.mesh.tp]}
+        average, gather = trainer_mod.average_over_data, mnrl_mod.all_gather_rows
+
+        def no_division(tensors, group, dp):
+            average(tensors, group, 1)
+
+        def rank1_left_out(x, group):
+            buf = gather(x, group)
+            buf[x.shape[0] :] = 0  # rank 1's positives: not in the gather
+            return buf
+
+        mesh = ProcessMesh(MeshConfig(2, 1))
+        out["steps"] = self.steps(
+            self.inputs["minilm_untrained"], 256, mesh, 3,
+            {"no_division_by_dp": (trainer_mod, "average_over_data", no_division),
+             "rank1_positives_left_out": (mnrl_mod, "all_gather_rows", rank1_left_out)},
+        )
+        return out
+
+    def tp(self) -> dict:
+        """TP=2, mpnet-base-class at full width: two epochs through the
+        trainer, warm-started from phase 5's untrained tower, over the
+        TP_PAIRS longest distinct pairs at B=64, S=256, then the
+        3-step check at S=200 with rank 1's tp_exit all-reduce left out."""
+        import torch.distributed as dist
+
+        from instacart_next_order_recommendation_tpu_torch.parallel import MeshConfig, ProcessMesh
+        from instacart_next_order_recommendation_tpu_torch.parallel import tp as tp_mod
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+
+        anchors, positives, _, queries, corpus, relevant = self.inputs["data"]
+        longest, seen = [], set()  # one pair per anchor and per product: batches fill
+        for i in np.argsort([-len(a) for a in anchors], kind="stable"):
+            if anchors[i] not in seen and positives[i] not in seen and len(longest) < TP_PAIRS:
+                longest.append(i)
+                seen.update((anchors[i], positives[i]))
+        data = ([anchors[i] for i in longest], [positives[i] for i in longest], None,
+                queries, corpus, relevant)
+        cfg = self.train_config(
+            "tp", model_name=self.inputs["mpnet_untrained"], epochs=TP_EPOCHS, train_batch_size=64,
+            learning_rate=TP_LR, model_parallel=2, data_parallel=1, save_total_limit=1,
+            run_information_retrieval_evaluator=False,
+        )
+        trainer = TwoTowerTrainer(cfg, device=self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        result, counts, seconds = self.counted(lambda: trainer.train(data=data))
+        out = {"seconds": seconds, "seq": trainer.seq_len, "losses": trainer.step_losses,
+               "history": result["history"], "launches": counts,
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "mesh": [trainer.mesh.dp, trainer.mesh.tp]}
+        real_exit = tp_mod._Exit
+
+        class Rank1SkipsExit(torch.autograd.Function):
+            """tp_exit whose all-reduce rank 1 leaves out: it keeps its own
+            partial sum (it still joins the collective, so rank 0 does not
+            wait for ever)."""
+
+            @staticmethod
+            def forward(ctx, x, group):
+                summed = real_exit.forward(ctx, x, group)
+                return x.contiguous().clone() if dist.get_rank(group) == 1 else summed
+
+            @staticmethod
+            def backward(ctx, grad):
+                return grad, None
+
+        mesh = ProcessMesh(MeshConfig(1, 2))
+        out["steps"] = self.steps(
+            self.inputs["mpnet_untrained"], ATTENTION_TRAIN_SEQ, mesh, 3,
+            {"rank1_tp_exit_skipped": (tp_mod, "_Exit", Rank1SkipsExit)},
+        )
+        return out
+
+
+class MultiGpuPhase:
+    """Phase 5b: multi-GPU on one card. The device mesh (dp=2, both shards
+    on cuda:0; dp=4 over 50,001 rows): ``ShardedCatalogIndex`` over phase
+    3's 50k catalog (f32, bf16, packed, aisle-masked) against the
+    one-device index, at 1M x 384 B=8 timed beside it, IVF's mesh build on
+    phase 3e's 1M rows against its one-device build, and ``TextEncoder``
+    over the mesh on the 50k catalog. The process mesh (two gloo ranks on
+    cuda:0, ``multi_gpu_rank``): DP=2 MiniLM-L6 and TP=2 mpnet-base-class
+    training, each held to the one-process TrainStep at B=64 with planted
+    faults. Launch counts are reset before and read after each part."""
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, smi: str, minilm, mpnet):
+        self.smoke, self.dev, self.smi = smoke, dev, smi
+        self.workdir = workdir / "multi_gpu"
+        self.workdir.mkdir(parents=True, exist_ok=True)
+        self.minilm, self.mpnet = minilm, mpnet
+        self.st = smoke.serve_state
+
+    def run(self) -> dict:
+        out = {"device_mesh": self.device_mesh(), "process_mesh": self.process_mesh()}
+        out["launches"] = self.smoke.launches_5b = self.counts
+        log("multi-GPU " + json.dumps(out))
+        return out
+
+    # ------------------------------------------------------------ device mesh
+
+    def device_mesh(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch.index import (
+            IVFCatalogIndex,
+            ShardedCatalogIndex,
+        )
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+        from instacart_next_order_recommendation_tpu_torch.ops.topk import _masked_scores
+        from instacart_next_order_recommendation_tpu_torch.parallel import MeshConfig, build_mesh
+
+        smoke, dev, st = self.smoke, self.dev, self.st
+        mesh2 = build_mesh(MeshConfig(2, 1), devices=[dev, dev])
+        mesh4 = build_mesh(MeshConfig(4, 1), devices=[dev] * 4)
+        catalog = st["catalog"]
+        encoder = TextEncoder.load(st["model_dir"], device=dev)
+        with torch.inference_mode():
+            q = encoder.encode_resident(st["queries"][:BATCH], batch_size=BATCH)
+        milk = torch.tensor(["Aisle: milk." in t for t in st["catalog_texts"]], dtype=torch.int32)
+        out: dict = {"sharded_50k": {}}
+
+        # ---- the main path, counted from zero
+        for w in training_wrappers():
+            w.launches = 0
+        cosine_topk.packed_launches = 0
+        cosine_topk.bf16_launches = cosine_topk.packed_bf16_launches = 0
+        for name, kw, mask, rule in (
+            ("f32", {}, None, (BF16_TIE, 1e-6)),
+            ("masked", {}, milk, (BF16_TIE, 1e-6)),
+            ("bf16", {"dtype": "bfloat16"}, None, (BF16_TIE, 1e-6)),
+            ("packed", {"extraction": "packed"}, None, (PACKED_TIE_REL, 1e-6)),
+        ):
+            before = cosine_topk.launches + cosine_topk.packed_launches
+            sharded = ShardedCatalogIndex(catalog, mesh2, **kw)
+            s_got, got = sharded.topk_device(q, K_BATCH, candidate_mask=mask)
+            launched = cosine_topk.launches + cosine_topk.packed_launches - before
+            one = ShardedCatalogIndex(catalog, device=dev, **kw)
+            s_want, want = one.topk_device(q, K_BATCH, candidate_mask=mask)
+            scores = _masked_scores(q, catalog, None, None if mask is None else mask.to(dev))
+            out["sharded_50k"][name] = {
+                "ids_identical": float((got == want).float().mean()),
+                "near_tie": ids_near_tie(scores, got, want, *rule),
+                "launches_per_call": launched,
+                "max_score_diff": (s_got - s_want).abs().max().item(),
+            }
+            smoke.check(out["sharded_50k"][name]["near_tie"] and launched == 2,
+                        f"ShardedCatalogIndex dp=2 ({name}) on one card: 2 launches a call, "
+                        "top-16 ids the one-device index's or near-ties")
+        rows = torch.cat([catalog, catalog[:1]])  # 50,001: the last of 4 shards is short
+        sharded4 = ShardedCatalogIndex(rows, mesh4)
+        got4 = sharded4.topk_device(q, K_BATCH)[1]
+        want4 = ShardedCatalogIndex(rows, device=dev).topk_device(q, K_BATCH)[1]
+        out["sharded_50001_dp4"] = {
+            "shard_valid": [sharded4.shard_valid(i) for i in range(4)],
+            "near_tie": ids_near_tie(_masked_scores(q, rows, None, None), got4, want4,
+                                     BF16_TIE, 1e-6),
+        }
+        smoke.check(out["sharded_50001_dp4"]["near_tie"]
+                    and out["sharded_50001_dp4"]["shard_valid"][-1] < sharded4.shard_rows,
+                    "ShardedCatalogIndex dp=4 over 50,001 rows (a short last shard)")
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            mesh_encoder = TextEncoder.load(st["model_dir"], mesh=mesh2)
+            enc = mesh_encoder.encode_resident(st["catalog_texts"], batch_size=512)
+            torch.cuda.synchronize()
+            enc_s = time.perf_counter() - t0
+        counts = {"cosine_topk": cosine_topk.launches - cosine_topk.bf16_launches,
+                  "cosine_topk_bf16": cosine_topk.bf16_launches,
+                  "cosine_topk_packed": cosine_topk.packed_launches
+                  - cosine_topk.packed_bf16_launches,
+                  "cosine_topk_packed_bf16": cosine_topk.packed_bf16_launches}
+        counts.update({w.__name__: w.launches for w in serve_wrappers()
+                       if w.__name__ != "cosine_topk"})
+        # ---- end of the main path
+        diff = (enc - catalog).abs().max().item()
+        out["text_encoder_50k"] = {"max_abs_diff": diff, "seconds": enc_s,
+                                   "shards": len(mesh_encoder.shard_devices)}
+        smoke.check(diff <= MESH_TEXT_TOL,
+                    f"TextEncoder over a dp=2 mesh equals the one-device encode ({diff:.3g})")
+        out["launches"] = counts
+        self.counts = dict(counts)
+        out.update(self.catalog_1m(mesh2))
+        return out
+
+    def catalog_1m(self, mesh2) -> dict:
+        """At 1M x 384: the sharded scan's device ms at B=8 beside the
+        one-device scan's (the shards run one after the other on one card:
+        this says what the merge costs, not what scaling gives), and IVF's
+        mesh build against phase 3e's one-device build."""
+        from instacart_next_order_recommendation_tpu_torch.index import (
+            IVFCatalogIndex,
+            ShardedCatalogIndex,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+
+        smoke, dev = self.smoke, self.dev
+        ivf_1m = self.smoke.ivf_1m
+        cat = torch.from_numpy(ivf_1m["catalog"]).to(dev)
+        q_all = torch.from_numpy(ivf_1m["queries"]).to(dev)
+        k = ivf_1m["k"]
+        one = ShardedCatalogIndex(cat, device=dev)
+        sharded = ShardedCatalogIndex(cat, mesh2)
+        q8 = q_all[:8]
+        before = cosine_topk.launches
+        same = bool(torch.equal(sharded.topk_device(q8, k)[1], one.topk_device(q8, k)[1]))
+        self.counts["cosine_topk"] += cosine_topk.launches - before
+        ms = ms_in_turns({"one_device": lambda: one.topk_device(q8, k),
+                          "sharded_dp2": lambda: sharded.topk_device(q8, k)}, 20)
+        del one, sharded
+        t0 = time.perf_counter()
+        ivf, peak = device_peak_bytes(lambda: IVFCatalogIndex(
+            cat, nlist=IVF_1M_NLIST, kmeans_iters=IVF_KMEANS_ITERS, mesh=mesh2))
+        build_s = time.perf_counter() - t0
+        ids = ivf._bucket_ids[ivf._bucket_ids >= 0]
+        one_bucket = ids.numel() == len(cat) and torch.unique(ids).numel() == len(cat)
+        ivf.nprobe = 8
+        got = torch.cat([ivf.topk_device(q_all[lo : lo + BATCH], k)[1]
+                         for lo in range(0, len(q_all), BATCH)])
+        recall = recall_at(got.cpu().numpy(), ivf_1m["exact_ids"])
+        out = {
+            "sharded_1m_b8": {"ids_equal_one_device": same, "device_ms": ms},
+            "ivf_mesh_1m": {
+                "seconds": build_s, "by_stage_s": ivf.build_s, "peak_device_bytes": peak,
+                "one_bucket_per_row": one_bucket, "recall_at_10_nprobe_8": recall,
+                "one_device_recall_at_10_nprobe_8": ivf_1m["recall_nprobe_8"],
+                "one_device_by_stage_s": ivf_1m["build_s"],
+            },
+        }
+        log(f"multi-GPU at 1M x 384 ({self.smi}): {json.dumps(out)}")
+        smoke.check(same, "ShardedCatalogIndex dp=2 at 1M, B=8: the one-device index's ids")
+        smoke.check(one_bucket, "IVF mesh build at 1M: every row in exactly one bucket")
+        smoke.check(abs(recall - ivf_1m["recall_nprobe_8"]) <= MESH_RECALL_TOL,
+                    f"IVF mesh build at 1M: recall@10 at nprobe 8 {recall:.4f}, the one-device "
+                    f"build's {ivf_1m['recall_nprobe_8']:.4f} (within {MESH_RECALL_TOL})")
+        del ivf, cat, q_all
+        torch.cuda.empty_cache()
+        return out
+
+    # ------------------------------------------------------------ process mesh
+
+    def process_mesh(self) -> dict:
+        import torch.multiprocessing as mp
+
+        smoke = self.smoke
+        work = self.workdir / "ranks"
+        work.mkdir(parents=True, exist_ok=True)
+        inputs = {
+            "data": self.minilm.data,
+            "minilm_untrained": str(self.minilm.workdir / "untrained" / "final"),
+            "mpnet_untrained": str(self.mpnet.workdir / "untrained" / "final"),
+        }
+        torch.save(inputs, work / "inputs.pt")
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(multi_gpu_rank, args=(2, str(work)), nprocs=2, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MULTI_GPU_TIMEOUT_S
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise RuntimeError(f"phase 5b's gloo ranks outlived {MULTI_GPU_TIMEOUT_S} s")
+        ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(2)]
+        out = {"seconds": time.perf_counter() - t0,
+               "note": "two ranks share one card; collectives through gloo"}
+        grads = [torch.load(work / f"grads{r}.pt", weights_only=False) for r in range(2)]
+        out["dp"] = self.check_dp(ranks, grads)
+        out["tp"] = self.check_tp(ranks, grads)
+        for name in ("fused_encoder_layer", "fused_encoder_layer_train",
+                     "fused_encoder_layer_backward", "masked_mean_pool_l2norm", "cosine_topk",
+                     "multi_head_attention", "multi_head_attention_backward"):
+            self.counts[name] = self.counts.get(name, 0) + sum(
+                r[part]["launches"][name] for r in ranks for part in ("dp", "tp")
+            )
+        return out
+
+    def reference(self, phase, seq: int) -> tuple[list[float], dict]:
+        """The one-process TrainStep at B=64 (kernels) from the same tower on
+        the same batches: three losses and the first step's gradients."""
+        from instacart_next_order_recommendation_tpu_torch.train.trainer import (
+            TrainStep,
+            build_optimizer,
+            param_leaves,
+        )
+
+        params, cfg, tok = phase.fresh_params()
+        cfg = dataclasses.replace(cfg, hidden_dropout=0.0)
+        leaves = dict(param_leaves(params))
+        opt = build_optimizer(params, 0.0)
+        first: dict = {}
+
+        def keep_first(*_):
+            if not first:
+                first.update({n: t.grad.detach().cpu() for n, t in leaves.items()})
+
+        opt.register_step_pre_hook(keep_first)
+        step = TrainStep(params, cfg, opt, lambda count: STEP_CHECK_LR, loss_scale=30.0,
+                         accum=1, device=self.dev)
+        return [step(b, seed=0).item() for b in phase.batches(tok, seq, 64, 3)], first
+
+    def held(self, what: str, runs: list, grads: list, ref: tuple, fault_limits: str) -> dict:
+        """Losses and whole first-step gradients of the ranks' step runs, and
+        of each planted fault, against the one-process reference, by phase
+        4's limits, each reading the worst over the ranks. ``fault_limits``:
+        ``"grads"`` (each fault must break the gradient limit) or ``"any"``
+        (the loss or the gradient limit)."""
+        ref_losses, ref_grads = ref
+
+        def reading(losses: list, by_rank: list) -> dict:
+            rel = {n: max(rel_err(g[n], ref_grads[n]) for g in by_rank)
+                   for n in ref_grads if n != "layers/k_b"}
+            worst = max(rel, key=rel.get)
+            return {"loss_rel": max(abs(a - b) / abs(b)
+                                    for rank in losses for a, b in zip(rank, ref_losses)),
+                    "grad_rel": rel[worst], "grad_worst_leaf": worst}
+
+        sound = reading([r["losses"] for r in runs], [g["sound"] for g in grads])
+        faults = {name: reading([r["faults"][name]["losses"] for r in runs],
+                                [g[name] for g in grads])
+                  for name in runs[0]["faults"]}
+        log(f"{what}: losses by rank {[r['losses'] for r in runs]} vs one process {ref_losses}; "
+            f"{json.dumps(sound)}; planted faults {json.dumps(faults)}")
+        self.smoke.check(sound["loss_rel"] <= STEP_LOSS_REL_TOL
+                         and sound["grad_rel"] <= STEP_GRAD_REL_TOL,
+                         f"{what}: 3 steps agree with the one-process trainer at B=64")
+        broken = {
+            name: f["grad_rel"] > STEP_GRAD_REL_TOL
+            or (fault_limits == "any" and f["loss_rel"] > STEP_LOSS_REL_TOL)
+            for name, f in faults.items()
+        }
+        self.smoke.check(all(broken.values()),
+                         f"{what}: every planted fault breaks the "
+                         f"{'gradient limit' if fault_limits == 'grads' else 'limits'}")
+        return {"sound": sound, "planted_faults": faults, "ref_losses": ref_losses}
+
+    def check_dp(self, ranks: list, grads: dict) -> dict:
+        smoke = self.smoke
+        runs = [r["dp"] for r in ranks]
+        losses = np.asarray(runs[0]["losses"])
+        steps = len(losses)
+        head, tail = losses[:10].mean(), losses[-10:].mean()
+        out = {
+            "steps": steps, "seq": runs[0]["seq"],
+            "train_s_per_rank": [r["seconds"] for r in runs],
+            "step_ms_epoch": runs[0]["history"][0]["epoch_seconds"] / steps * 1e3,
+            "step_ms_per_rank": [r["steps"]["step_ms"] for r in runs],
+            "launches_per_rank": [r["launches"] for r in runs],
+            "history": runs[0]["history"],
+        }
+        log(f"DP=2 MiniLM-L6 (two ranks share one card; collectives through gloo; "
+            f"{self.smi}): {json.dumps(out)}")
+        log("DP=2 per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        smoke.check(all(r["mesh"] == [2, 1] for r in runs) and runs[0]["seq"] == 256,
+                    "DP=2: a (2, 1) process mesh; the pairs bucket to S=256")
+        smoke.check(runs[0]["losses"] == runs[1]["losses"]
+                    and runs[0]["history"] == runs[1]["history"],
+                    "DP=2: both ranks hold the same losses and history")
+        smoke.check(bool(np.isfinite(losses).all()) and tail < head,
+                    f"DP=2: the loss falls (first 10 mean {head:.4f}, last 10 {tail:.4f})")
+        smoke.check(all(r["launches"]["fused_encoder_layer_train"] == 12 * steps
+                        and r["launches"]["fused_encoder_layer_backward"] == 12 * steps
+                        for r in runs),
+                    "DP=2: 12 K1-train and 12 K5 launches per rank per step")
+        out_dirs = [Path(runs[0]["final_dir"]).parent, self.workdir / "ranks" / "dp_rank1"]
+        smoke.check(any(out_dirs[0].iterdir()) and not out_dirs[1].exists(),
+                    "DP=2: only rank 0's output directory holds files")
+        from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
+
+        corpus_path = self.minilm.workdir / "train_corpus.json"
+        with torch.inference_mode():
+            top = Recommender(runs[0]["final_dir"], corpus_path, use_index=False).recommend(
+                next(iter(self.minilm.data[3].values())), top_k=10)
+        smoke.check(len(top) == 10, "DP=2: final/ loads and serves in Recommender")
+        out["three_steps"] = self.held("DP=2 MiniLM-L6", [r["steps"] for r in runs],
+                                       [g["minilm-l6_S256"] for g in grads],
+                                       self.reference(self.minilm, 256),
+                                       "grads")
+        return out
+
+    def check_tp(self, ranks: list, grads: dict) -> dict:
+        smoke = self.smoke
+        runs = [r["tp"] for r in ranks]
+        losses = runs[0]["losses"]
+        steps = len(losses)
+        hist = runs[0]["history"]
+        out = {
+            "steps": steps, "seq": runs[0]["seq"],
+            "train_s_per_rank": [r["seconds"] for r in runs],
+            "step_ms_epoch": [h["epoch_seconds"] / (steps / len(hist)) * 1e3 for h in hist],
+            "step_ms_per_rank": [r["steps"]["step_ms"] for r in runs],
+            "launches_per_rank": [r["launches"] for r in runs],
+            "peak_device_bytes_per_rank": [r["peak_device_bytes"] for r in runs],
+            "epoch_train_loss": [h["train_loss"] for h in hist], "losses": losses,
+        }
+        log(f"TP=2 mpnet-base-class (two ranks share one card; collectives through gloo; "
+            f"{self.smi}): {json.dumps(out)}")
+        smoke.check(all(r["mesh"] == [1, 2] for r in runs) and runs[0]["seq"] == 256,
+                    "TP=2: a (1, 2) process mesh at S=256")
+        smoke.check(bool(np.isfinite(losses).all()) and len(hist) == TP_EPOCHS
+                    and hist[-1]["train_loss"] < hist[0]["train_loss"],
+                    "TP=2: the loss falls over the epochs")
+        smoke.check(all(r["launches"]["multi_head_attention"] == 24 * steps
+                        and r["launches"]["multi_head_attention_backward"] == 24 * steps
+                        and r["launches"]["fused_encoder_layer_train"] == 0
+                        and r["launches"]["fused_encoder_layer_backward"] == 0
+                        and r["launches"]["fused_encoder_layer"] == 0
+                        for r in runs),
+                    "TP=2: 24 K6 and 24 K7 launches per rank per step, no K1 or K5")
+        out["three_steps"] = self.held(
+            "TP=2 mpnet-base-class at S=200", [r["steps"] for r in runs],
+            [g[f"mpnet-base_S{ATTENTION_TRAIN_SEQ}"] for g in grads],
+            self.reference(self.mpnet, ATTENTION_TRAIN_SEQ), "any",
+        )
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -4961,9 +5560,13 @@ def main() -> int:
             log(f"phase 4b (baselines) {time.perf_counter() - t0:.1f}s; phase 4b in all "
                 f"{t_hf:.1f}s ({smi})")
             t0 = time.perf_counter()
-            train_mpnet = MpnetTrainPhase(smoke, dev, Path(tmp), data=minilm.data).run()
+            mpnet = MpnetTrainPhase(smoke, dev, Path(tmp), data=minilm.data)
+            train_mpnet = mpnet.run()
             log("mpnet train " + json.dumps(train_mpnet))
             log(f"phase 5 (mpnet training) {time.perf_counter() - t0:.1f}s")
+            t0 = time.perf_counter()
+            MultiGpuPhase(smoke, dev, Path(tmp), smi, minilm, mpnet).run()
+            log(f"phase 5b (multi-GPU on one card) {time.perf_counter() - t0:.1f}s ({smi})")
     except Exception:  # noqa: BLE001 - report the failure and exit non-zero
         traceback.print_exc()
         smoke.failures.append("exception")
@@ -5002,6 +5605,7 @@ def main() -> int:
             "source": f"{PKG}/ops/csrc/{src}",
             "replaces": f"{JAX_PKG}/{tpu}",
             **smoke.kernel_rows[name],
+            "launches_phase_5b": smoke.launches_5b.get(name, 0),
         })
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,8 +1,7 @@
 """IVF (inverted-file) approximate index on one GPU.
 
-Counterpart of the JAX package's ``index/ivf.py`` (its single-device build;
-the mesh build waits for multi-GPU), for catalogs too large for the exact
-scan. The same names, arguments and results:
+Counterpart of the JAX package's ``index/ivf.py``, for catalogs too large
+for the exact scan. The same names, arguments and results:
 
 - **Build**: spherical k-means on the device. Each chunk of rows is scored
   against the centroids (one matmul), assigned to its best centroid
@@ -13,6 +12,11 @@ scan. The same names, arguments and results:
   capacity-balanced assignment on the host (each cluster holds at most
   ``bucket_len`` rows; overflow spills to the next preference), and one
   dense ``[nlist, bucket_len, D]`` bucket tensor filled on the device.
+  With a mesh (``_MeshBuilder``) the rows stay sharded over its data
+  devices for the build: each shard sums its k-means partials and counts
+  over row chunks, the shards' partials add up in rank order each
+  iteration, and each shard ranks its rows' preferences; the assignment
+  and the fill are the same.
 - **Search**: centroid scores ``[B, nlist]``, the top ``nprobe`` clusters
   per query, their buckets gathered (in chunks of queries, so one gather
   and its f32 copy stay under ``GATHER_BYTES``: a chunk moves no more than
@@ -42,6 +46,7 @@ import torch
 
 from instacart_next_order_recommendation_tpu_torch.device import resolve_device
 from instacart_next_order_recommendation_tpu_torch.index.sharded import DTYPES
+from instacart_next_order_recommendation_tpu_torch.parallel.mesh import Mesh, data_devices
 
 logger = logging.getLogger(__name__)
 
@@ -129,6 +134,66 @@ def _kmeans(
     return centroids
 
 
+class _MeshBuilder:
+    """k-means and preferences with the rows sharded over data devices.
+
+    Counterpart of the JAX package's ``_MeshBuilder``: shard ``i`` holds
+    rows ``[i * shard_rows, (i + 1) * shard_rows)`` on its device for the
+    whole build. Each k-means iteration runs every shard over its row
+    chunks (scores, argmax, one-hot matmul sums and bincount counts, the
+    chunks' partials added in f64 in order), then adds the shards' partials
+    on the first device in rank order: no padding rows, so no count to
+    take back. The centroids start from an unsorted draw of rows, as JAX's
+    mesh build starts (its single-device ``_kmeans`` sorts the draw).
+    """
+
+    def __init__(self, embeddings, devices: list[torch.device], chunk: int):
+        n = embeddings.shape[0]
+        self.n = n
+        self.devices = devices
+        self.shard_rows = -(-n // len(devices))
+        self.chunk = min(chunk, self.shard_rows)
+        self.x = [
+            _rows(embeddings, i * self.shard_rows, (i + 1) * self.shard_rows, dev)
+            for i, dev in enumerate(devices)
+        ]
+
+    def _chunks(self, x: torch.Tensor):
+        return (x[lo : lo + self.chunk] for lo in range(0, len(x), self.chunk))
+
+    def kmeans(self, nlist: int, iters: int, seed: int, embeddings) -> np.ndarray:
+        rng = np.random.default_rng(seed)
+        centroids = _take(embeddings, rng.choice(self.n, size=nlist, replace=False))
+        first = self.devices[0]
+        for _ in range(iters):
+            sums = torch.zeros((nlist, centroids.shape[1]), dtype=torch.float64, device=first)
+            counts = torch.zeros(nlist, dtype=torch.int64, device=first)
+            for x in self.x:  # rank order
+                c = torch.from_numpy(centroids).to(x.device)
+                part_s = torch.zeros_like(sums, device=x.device)
+                part_c = torch.zeros_like(counts, device=x.device)
+                for xc in self._chunks(x):
+                    assign = torch.argmax(xc @ c.T, dim=1)
+                    onehot = torch.zeros((len(xc), nlist), dtype=torch.float32, device=x.device)
+                    onehot[torch.arange(len(xc), device=x.device), assign] = 1.0
+                    part_s += (onehot.T @ xc).double()
+                    part_c += torch.bincount(assign, minlength=nlist)
+                sums += part_s.to(first)
+                counts += part_c.to(first)
+            centroids = _finish_centroids(
+                sums.cpu().numpy(), counts.cpu().numpy(), embeddings, rng
+            )
+        return centroids
+
+    def prefs(self, centroids: np.ndarray, prefs: int) -> np.ndarray:
+        """Top-``prefs`` nearest centroids per row, [n, prefs] int32."""
+        parts = []
+        for x in self.x:
+            c = torch.from_numpy(centroids).to(x.device)
+            parts += [_top(xc @ c.T, prefs)[1].to(torch.int32).cpu() for xc in self._chunks(x)]
+        return torch.cat(parts).numpy()
+
+
 def _balanced_assign(pref_idx: np.ndarray, nlist: int, cap: int) -> np.ndarray:
     """Capacity-balanced cluster assignment from per-row preference lists.
 
@@ -205,20 +270,24 @@ class IVFCatalogIndex:
         kmeans_iters: int = 8,
         seed: int = 0,
         dtype: str = "float32",
-        mesh=None,
+        mesh: Mesh | None = None,
         build_chunk: int = 8192,
         device: str | torch.device | None = None,
     ):
         """``dtype``: the buckets' storage dtype on the device (``"float32"``
-        or ``"bfloat16"``); centroids and scores are f32. ``mesh``: only
-        ``None`` in this version (the sharded build waits for multi-GPU).
+        or ``"bfloat16"``); centroids and scores are f32.
         ``build_chunk``: rows per k-means and preference step on the device.
         ``device=None`` means the GPU and raises where there is none.
+        ``mesh``: a device mesh (``parallel.build_mesh``) whose data devices
+        shard the k-means and preference build (the rows stay there for
+        it); the buckets and the search live on ``device``, or on the first
+        data device when ``device`` is None.
         ``build_s`` holds the build's seconds by stage."""
-        if mesh is not None:
-            raise ValueError("IVFCatalogIndex: the build over a mesh is not ported yet")
+        shard_devices = data_devices(mesh)
         if dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got {dtype!r}")
+        if device is None and shard_devices is not None:
+            device = shard_devices[0]
         self.device = resolve_device(device)
         n, d = embeddings.shape
         self.n_total = n
@@ -229,11 +298,18 @@ class IVFCatalogIndex:
         n_prefs = min(8, self.nlist)
 
         t0 = time.perf_counter()
-        centroids = _kmeans(
-            embeddings, self.nlist, kmeans_iters, seed, chunk=build_chunk, device=self.device
-        )
-        t1 = time.perf_counter()
-        pref_idx = self._prefs(embeddings, centroids, n_prefs, build_chunk, self.device)
+        if shard_devices is not None:
+            builder = _MeshBuilder(embeddings, shard_devices, build_chunk)
+            centroids = builder.kmeans(self.nlist, kmeans_iters, seed, embeddings)
+            t1 = time.perf_counter()
+            pref_idx = builder.prefs(centroids, n_prefs)
+            del builder
+        else:
+            centroids = _kmeans(
+                embeddings, self.nlist, kmeans_iters, seed, chunk=build_chunk, device=self.device
+            )
+            t1 = time.perf_counter()
+            pref_idx = self._prefs(embeddings, centroids, n_prefs, build_chunk, self.device)
         t2 = time.perf_counter()
         assign = _balanced_assign(pref_idx, self.nlist, self.bucket_len)
         t3 = time.perf_counter()
@@ -251,8 +327,9 @@ class IVFCatalogIndex:
         }
         fill = (bucket_ids >= 0).mean()
         logger.info(
-            "IVF index: %d rows, nlist=%d, bucket_len=%d (fill %.0f%%), nprobe=%d",
+            "IVF index: %d rows, nlist=%d, bucket_len=%d (fill %.0f%%), nprobe=%d%s",
             n, self.nlist, self.bucket_len, 100 * fill, self.nprobe,
+            f", built on {len(shard_devices)} data shards" if shard_devices else "",
         )
 
     @staticmethod

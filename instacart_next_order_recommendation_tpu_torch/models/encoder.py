@@ -41,6 +41,7 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     prepare_layer,
     supports,
 )
+from instacart_next_order_recommendation_tpu_torch.parallel.tp import tp_enter, tp_exit
 
 Params = dict[str, Any]
 
@@ -210,14 +211,21 @@ def _encoder_layer(
     mask: torch.Tensor,
     config: TowerConfig,
     masks: tuple[torch.Tensor, torch.Tensor] | None = None,
+    model_group=None,
 ) -> torch.Tensor:
     """One post-LN BERT block without the fused kernels, cast for cast as
     the JAX package's ``_encoder_layer``. x: ``[B, S, hidden]`` in the
     compute dtype; ``layer`` a ``prepare_layer`` dict; ``masks`` the
-    ``(m1, m2)`` dropout masks (nonzero = kept) or None."""
+    ``(m1, m2)`` dropout masks (nonzero = kept) or None.
+
+    ``model_group`` marks a tensor-parallel forward: ``layer`` holds this
+    rank's Megatron shards (its heads of Q/K/V and its rows of the output
+    projection, its FFN columns and rows; ``parallel/shardings.py``), and
+    ``tp_enter``/``tp_exit`` keep the activations whole and the gradients
+    right. Hidden activations and every LayerNorm stay full width."""
     b, s, h = x.shape
     hd = config.head_dim
-    nh = h // hd
+    nh = layer["qkv_w"].shape[1] // (3 * hd)  # this rank's heads
     keep = 1.0 - config.hidden_dropout
 
     def dropout(t, m):
@@ -229,15 +237,17 @@ def _encoder_layer(
         return _layer_norm(t, scale, bias, config.layer_norm_eps).to(x.dtype)
 
     # One [hidden, 3 * hidden] product: the same columns as JAX's three.
-    qkv = (torch.matmul(x, layer["qkv_w"]) + layer["qkv_b"]).view(b, s, 3, nh, hd)
+    x_in = tp_enter(x, model_group)
+    qkv = (torch.matmul(x_in, layer["qkv_w"]) + layer["qkv_b"]).view(b, s, 3, nh, hd)
     q, k, v = (t.permute(0, 2, 1, 3) for t in qkv.unbind(2))
     attn = multi_head_attention(q, k, v, mask, scale=1.0 / hd**0.5)
-    attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, h), layer["o_w"]) + layer["o_b"]
+    attn = torch.matmul(attn.transpose(1, 2).reshape(b, s, nh * hd), layer["o_w"])
+    attn = tp_exit(attn, model_group) + layer["o_b"]
     m1, m2 = masks if masks is not None else (None, None)
     x = layer_norm(x + dropout(attn, m1), layer["ln1_s"], layer["ln1_b"])
-    ffn = torch.matmul(x, layer["w1"]) + layer["b1"]
+    ffn = torch.matmul(tp_enter(x, model_group), layer["w1"]) + layer["b1"]
     ffn = _gelu_exact(ffn.to(torch.float32)).to(x.dtype)
-    ffn = torch.matmul(ffn, layer["w2"]) + layer["b2"]
+    ffn = tp_exit(torch.matmul(ffn, layer["w2"]), model_group) + layer["b2"]
     return layer_norm(x + dropout(ffn, m2), layer["ln2_s"], layer["ln2_b"])
 
 
@@ -248,6 +258,7 @@ def encode(
     config: TowerConfig,
     layers: list[dict] | None = None,
     generator: torch.Generator | None = None,
+    model_group=None,
 ) -> torch.Tensor:
     """Tower forward: token ids -> unit-norm sentence embedding ``[B, hidden]``.
 
@@ -258,12 +269,21 @@ def encode(
     by shape (``fused_layer.supports``) before any launch. ``config.remat``
     checkpoints each unfused layer; its masks are drawn outside the
     checkpoint, so the recompute sees the same masks.
+
+    ``model_group`` runs the layers on this rank's tensor-parallel shards
+    (``params`` local, as ``parallel.shard_params`` cuts them) through the
+    unfused layer: the fused kernel's LayerNorm follows the row-parallel
+    sum, which would need the all-reduce inside the kernel (the JAX package
+    takes its fused route only without a model axis too). Every rank of the
+    group must draw the same dropout masks: seed their generators alike.
     """
     x = embed(params, input_ids, config, generator)
     if layers is None:
         layers = prepare_layers(params, config)
     s = input_ids.shape[1]
-    if supports(config.hidden_size, config.num_heads, s, config.intermediate_size):
+    if model_group is None and supports(
+        config.hidden_size, config.num_heads, s, config.intermediate_size
+    ):
         kwargs = dict(
             num_heads=config.num_heads,
             scale=1.0 / (config.head_dim**0.5),
@@ -292,8 +312,9 @@ def encode(
             )
         if remat:
             x = checkpoint(
-                _encoder_layer, x, layer, attention_mask, config, masks, use_reentrant=False
+                _encoder_layer, x, layer, attention_mask, config, masks, model_group,
+                use_reentrant=False,
             )
         else:
-            x = _encoder_layer(x, layer, attention_mask, config, masks)
+            x = _encoder_layer(x, layer, attention_mask, config, masks, model_group)
     return masked_mean_pool_l2norm(x, attention_mask)

@@ -3,7 +3,9 @@
 Counterpart of the JAX package's ``models/text_encoder.py``. Batches pad to
 the tokenizer's length buckets; only token ids cross to the device (int16
 when the vocab fits), and the attention mask is recomputed there from the
-pad positions.
+pad positions. With a device mesh each batch's rows split over its data
+devices, each holding a copy of the tower, and the embeddings come back to
+the first.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from instacart_next_order_recommendation_tpu_torch.models.encoder import (
     encode,
     prepare_layers,
 )
+from instacart_next_order_recommendation_tpu_torch.parallel.mesh import Mesh, data_devices
 from instacart_next_order_recommendation_tpu_torch.tokenizer import WordPieceTokenizer
 
 
@@ -60,15 +63,33 @@ class TextEncoder:
         tokenizer: WordPieceTokenizer,
         max_seq_length: int | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ):
+        """``mesh``: a device mesh whose data devices each encode a block
+        of every batch's rows (a batch smaller than the data axis uses the
+        first devices); embeddings land on the first, which is ``device``
+        (``device`` is then ignored)."""
+        self.shard_devices = data_devices(mesh)
+        if self.shard_devices is not None:
+            device = self.shard_devices[0]
         self.device = resolve_device(device)
-        self.params = params_to_device(params, self.device)
         self.config = config
         self.tokenizer = tokenizer
         self.max_seq_length = max_seq_length or config.max_seq_length
-        with torch.no_grad():
-            self.layers = prepare_layers(self.params, config)
+        self._set_params(params)
         self.wire_dtype = wire_dtype(tokenizer.vocab_size)
+
+    def _set_params(self, params: Params) -> None:
+        """The tower on ``device`` and, with a mesh, a copy on every other
+        data device (one per distinct device), with its bf16 layer copies."""
+        self.params = params_to_device(params, self.device)
+        with torch.no_grad():
+            self.layers = prepare_layers(self.params, self.config)
+            self._replicas = {self.device: (self.params, self.layers)}
+            for dev in self.shard_devices or ():
+                if dev not in self._replicas:
+                    p = params_to_device(params, dev)
+                    self._replicas[dev] = (p, prepare_layers(p, self.config))
 
     @classmethod
     def load(
@@ -76,35 +97,42 @@ class TextEncoder:
         model_dir: Path | str,
         max_seq_length: int | None = None,
         device: str | torch.device | None = None,
+        mesh: Mesh | None = None,
     ) -> "TextEncoder":
         from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
 
         params, config, tokenizer = load_tower(model_dir)
         if tokenizer is None:
             raise FileNotFoundError(f"No vocab.txt in {model_dir}")
-        return cls(params, config, tokenizer, max_seq_length, device)
+        return cls(params, config, tokenizer, max_seq_length, device, mesh)
 
     def with_params(self, params: Params) -> "TextEncoder":
-        """A view of this encoder on other params (on its device), with the
-        bf16 layer copies made anew from them; training eval uses it."""
+        """A view of this encoder on other params (on its device, and on its
+        mesh's other data devices), with the bf16 layer copies made anew."""
         new = TextEncoder.__new__(TextEncoder)
         new.__dict__.update(self.__dict__)
-        new.params = params_to_device(params, self.device)
-        with torch.no_grad():
-            new.layers = prepare_layers(new.params, self.config)
+        new._set_params(params)
         return new
 
     def upload_ids(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids.astype(self.wire_dtype))).to(self.device)
 
     def _run_encode(self, ids_d: torch.Tensor) -> torch.Tensor:
-        return encode_from_ids(
-            self.params,
-            ids_d,
-            config=self.config,
-            pad_id=self.tokenizer.pad_id,
-            layers=self.layers,
-        )
+        if self.shard_devices is None:
+            return encode_from_ids(
+                self.params, ids_d, config=self.config, pad_id=self.tokenizer.pad_id,
+                layers=self.layers,
+            )
+        rows = -(-ids_d.shape[0] // len(self.shard_devices))
+        parts = []
+        for block, dev in zip(ids_d.split(rows), self.shard_devices):
+            params, layers = self._replicas[dev]
+            emb = encode_from_ids(
+                params, block.to(dev), config=self.config, pad_id=self.tokenizer.pad_id,
+                layers=layers,
+            )
+            parts.append(emb.to(self.device))
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
 
     @torch.inference_mode()
     def encode_device(

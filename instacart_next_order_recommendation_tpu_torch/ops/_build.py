@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface under ``<repo>/build/kernels/``. The file name carries a
 hash of the source, the shared ``csrc/*.cuh`` headers and the flags, so a
 changed source rebuilds and an unchanged one is loaded as it is. ``build`` starts one nvcc per missing library, all
-at once, and waits for all of them. Each library keeps nvcc's output beside
-it (``.log``): ptxas's registers, shared memory and spills per kernel.
+at once, and waits for all of them, holding a file lock on the build
+directory: the ranks of a multi-GPU job on a fresh machine build once, and
+the others wait and load. Each library keeps nvcc's output beside it
+(``.log``): ptxas's registers, shared memory and spills per kernel.
 
 Every C entry point returns ``cudaGetLastError()`` after its launches; the
 Python wrappers pass it to ``check``, which raises on anything but 0.
@@ -14,6 +16,7 @@ Python wrappers pass it to ``check``, which raises on anything but 0.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -66,8 +69,16 @@ def start_nvcc(src: Path, out: Path, defines: tuple[str, ...] = ()) -> subproces
 def build(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
     """Compile every library in ``names`` that is not built yet, one nvcc
     process each, all started together. Returns nvcc's output per name:
-    this build's, or the one kept beside a library built before."""
+    this build's, or the one kept beside a library built before. Other
+    processes building into the same directory wait for this one (a file
+    lock), then find its libraries built."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as lock_file:
+        fcntl.flock(lock_file, fcntl.LOCK_EX)  # released when the file closes
+        return _build_locked(names)
+
+
+def _build_locked(names: tuple[str, ...]) -> dict[str, str]:
     started, logs = {}, {}
     for name in names:
         out = library_path(name)

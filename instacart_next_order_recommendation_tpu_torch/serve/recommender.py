@@ -47,6 +47,7 @@ from instacart_next_order_recommendation_tpu_torch.index.embedding_index import 
 from instacart_next_order_recommendation_tpu_torch.index.ivf import IVFCatalogIndex
 from instacart_next_order_recommendation_tpu_torch.index.sharded import ShardedCatalogIndex
 from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+from instacart_next_order_recommendation_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from instacart_next_order_recommendation_tpu_torch.serve.pipeline import FusedServePipeline
 from instacart_next_order_recommendation_tpu_torch.serve.precompile import K_BUCKETS
 from instacart_next_order_recommendation_tpu_torch.utils.config import (
@@ -263,8 +264,16 @@ class Recommender:
         ann: bool = False,
         ann_nlist: int | None = None,
         ann_nprobe: int = 8,
+        mesh: Mesh | None = None,
     ):
         """``device=None`` means the GPU and raises where there is none.
+
+        ``mesh``: a device mesh (``parallel.build_mesh``) for the catalog:
+        the exact index row-shards over its ``data`` axis (requests then
+        take the index route: ``_fused`` is None) and IVF builds over it.
+        None on a host with more than one GPU, and ``device`` on the GPU,
+        builds one over every GPU, as the JAX package does on a host with
+        more than one device.
 
         ``ann=True`` swaps the exact scan for the IVF approximate index
         (``IVFCatalogIndex(nlist=ann_nlist, nprobe=ann_nprobe)``), for
@@ -307,14 +316,20 @@ class Recommender:
         self._stage_cal = StageCalibrator(self)
         self.product_embeddings = self._load_or_build_embeddings(batch_size, use_index)
         self._fused: FusedServePipeline | None = None
+        if mesh is None and self.device.type == "cuda" and torch.cuda.device_count() > 1:
+            mesh = build_mesh(MeshConfig())
         if ann:
+            # Search stays on the recommender's device; the build shards.
             self.index = IVFCatalogIndex(
-                self.product_embeddings, nlist=ann_nlist, nprobe=ann_nprobe, device=self.device
+                self.product_embeddings, nlist=ann_nlist, nprobe=ann_nprobe, mesh=mesh,
+                device=self.device,
             )
             return
         self.index = ShardedCatalogIndex(
-            self.product_embeddings, device=self.device, extraction=topk_extraction
+            self.product_embeddings, mesh, device=self.device, extraction=topk_extraction
         )
+        if self.index.dp > 1:
+            return  # the sharded scan serves through the index route
         self._fused = FusedServePipeline(
             self.encoder.params,
             self.encoder.config,

@@ -1,6 +1,6 @@
-"""Two-tower contrastive trainer on one GPU.
+"""Two-tower contrastive trainer on one GPU or one process per GPU.
 
-Counterpart of the JAX package's ``train/trainer.py`` on one device: loads
+Counterpart of the JAX package's ``train/trainer.py``: loads
 the processed (anchor, positive) datasets and IR artifacts, trains the
 shared tower with MultipleNegativesRankingLoss, AdamW on a warmup-cosine
 schedule (10% warmup from 0), no-duplicates batching with drop_last,
@@ -18,6 +18,21 @@ per ``gradient_accumulation_steps`` micro-batches on the mean of their
 gradients, as ``optax.MultiSteps`` does. The schedule is evaluated at the
 count of optimizer steps taken before the update, as optax does, so the
 first step runs at lr 0.
+
+Several processes (torchrun: one per GPU) form a ``(data_parallel,
+model_parallel)`` process mesh (``parallel/mesh.py``), the JAX trainer's
+shard_map step in PyTorch's terms: ``train_batch_size`` is per data rank
+and the no-duplicates sampler draws the global batch, of which each data
+rank takes its block; MNRL's negatives are the global batch (the positives
+gathered over the data group); the dropout seed folds in the data rank
+only, so the model ranks of one replica draw the same masks; the loss and
+the gradients are averaged over the data group, the gradients in one flat
+all-reduce a step; with ``model_parallel`` > 1 each rank holds its
+Megatron shards (``parallel/shardings.py``) and the layers run unfused with
+``tp_enter``/``tp_exit`` (``models/encoder.py``); AdamW steps each rank's
+own tensors. Rank 0 alone evaluates (and sends every rank the metrics) and
+writes; checkpoints hold the full params and optimizer state, gathered over
+the model group, and a resume reads them on rank 0 and broadcasts them.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from instacart_next_order_recommendation_tpu_torch.constants import (
     DATA_PREP_PARAMS_FILENAME,
@@ -63,8 +79,23 @@ from instacart_next_order_recommendation_tpu_torch.models.encoder import (
     encode,
     init_params,
 )
-from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+from instacart_next_order_recommendation_tpu_torch.models.text_encoder import (
+    TextEncoder,
+    params_to_device,
+)
 from instacart_next_order_recommendation_tpu_torch.ops import fused_layer, mnrl_loss
+from instacart_next_order_recommendation_tpu_torch.parallel.mesh import (
+    MeshConfig,
+    ProcessMesh,
+    gather_host,
+    init_distributed,
+)
+from instacart_next_order_recommendation_tpu_torch.parallel.shardings import (
+    shard,
+    shard_params,
+    split_dim,
+    validate_tp,
+)
 from instacart_next_order_recommendation_tpu_torch.tokenizer import (
     WordPieceTokenizer,
     bucket_length,
@@ -111,8 +142,17 @@ class TrainConfig:
         )
         self.vocab_size = int(raw.get("vocab_size", 30000))
         self.seed = int(raw.get("seed", 42))
-        self.data_parallel = raw.get("data_parallel")  # None = the one GPU
+        # Processes on the data axis; None = every process the model axis leaves.
+        self.data_parallel = raw.get("data_parallel")
         self.model_parallel = int(raw.get("model_parallel", 1))
+        # The JAX trainer's choice between two formulations of its step,
+        # validated as there; the port has one (``TrainStep``) and runs it
+        # for each.
+        self.train_step_mode = str(raw.get("train_step_mode", "auto"))
+        if self.train_step_mode not in ("auto", "gspmd", "shard_map"):
+            raise ValueError(
+                f"train_step_mode must be auto|gspmd|shard_map, got {self.train_step_mode!r}"
+            )
         self.save_total_limit = int(raw.get("save_total_limit", 2))
         self.logging_steps = int(raw.get("logging_steps", 100))
         self.resume = bool(raw.get("resume", False))
@@ -159,10 +199,23 @@ def param_leaves(params: Params, prefix: str = "") -> list[tuple[str, torch.Tens
     return out
 
 
-def dropout_seed(seed: int, epoch: int, step: int) -> int:
+def dropout_seed(seed: int, epoch: int, step: int, data_rank: int = 0) -> int:
     """Dropout seed of one micro-step: a pure function of the run seed, the
-    epoch and the step within it, so a resumed run draws the same masks."""
-    return (seed * 1_000_003 + epoch) * 1_000_003 + step
+    epoch, the step within it and the data rank (never the model rank: the
+    ranks of one tensor-parallel group must draw the same masks), so a
+    resumed run draws the same masks."""
+    p = 1_000_003
+    return ((seed * p + epoch) * p + step + data_rank * p**3) % (1 << 64)
+
+
+def average_over_data(tensors: list[torch.Tensor], group, dp: int) -> None:
+    """Replace each tensor by its mean over the data group, in one flat f32
+    all-reduce (one collective a step, not one per leaf)."""
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dp
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 class TrainStep:
@@ -172,8 +225,16 @@ class TrainStep:
     accumulated gradients, at the schedule's lr for the count of optimizer
     steps taken so far."""
 
-    def __init__(self, params, tower_cfg, optimizer, schedule, *, loss_scale, accum, device):
+    def __init__(
+        self, params, tower_cfg, optimizer, schedule, *, loss_scale, accum, device, mesh=None
+    ):
+        """``mesh``: this process's ``ProcessMesh`` (None: one process).
+        ``params`` are then this rank's shards, and ``__call__`` takes this
+        rank's block of the global batch."""
         self.params = params
+        self.data_group = None if mesh is None else mesh.data_group
+        self.model_group = None if mesh is None else mesh.model_group
+        self.dp = 1 if mesh is None else mesh.dp
         self.tower_cfg = tower_cfg
         self.optimizer = optimizer
         self.schedule = schedule
@@ -186,11 +247,21 @@ class TrainStep:
     def __call__(self, batch: list[torch.Tensor], seed: int) -> torch.Tensor:
         a_ids, a_mask, p_ids, p_mask = batch
         self.generator.manual_seed(seed)
-        qa = encode(self.params, a_ids, a_mask, self.tower_cfg, generator=self.generator)
-        qp = encode(self.params, p_ids, p_mask, self.tower_cfg, generator=self.generator)
-        loss = mnrl_loss(qa, qp, scale=self.loss_scale)
+        kw = dict(generator=self.generator, model_group=self.model_group)
+        qa = encode(self.params, a_ids, a_mask, self.tower_cfg, **kw)
+        qp = encode(self.params, p_ids, p_mask, self.tower_cfg, **kw)
+        loss = mnrl_loss(qa, qp, scale=self.loss_scale, group=self.data_group)
         (loss / self.accum).backward()  # grads sum to the mean over the micro-batches
+        loss = loss.detach()
         self.micro += 1
+        if self.data_group is not None:
+            # Gradients of split and replicated leaves alike: tp_enter has
+            # made the replicated ones whole on every model rank already.
+            box = [loss.reshape(1).clone()]
+            if self.micro == self.accum:
+                box = [t.grad for _, t in param_leaves(self.params)] + box
+            average_over_data(box, self.data_group, self.dp)
+            loss = box[-1][0]
         if self.micro == self.accum:
             lr = self.schedule(self.opt_steps)
             for group in self.optimizer.param_groups:
@@ -199,7 +270,7 @@ class TrainStep:
             self.optimizer.zero_grad(set_to_none=True)
             self.opt_steps += 1
             self.micro = 0
-        return loss.detach()
+        return loss
 
     def state(self) -> dict:
         """What a checkpoint keeps to resume the optimizer exactly."""
@@ -233,18 +304,18 @@ def build_optimizer(params: Params, weight_decay: float) -> torch.optim.AdamW:
 
 
 class TwoTowerTrainer:
-    """Runs the training pipeline on one GPU (``device=None``) or, for
+    """Runs the training pipeline on the GPU (``device=None``) or, for
     tests and small runs, the CPU (``device="cpu"``, the plain versions of
-    the kernels)."""
+    the kernels), in this process alone or as one rank of a process group
+    (``init_distributed``: torchrun's, or one the caller made)."""
 
     def __init__(self, config: TrainConfig, device: str | torch.device | None = None):
-        if (config.data_parallel not in (None, 1)) or config.model_parallel != 1:
-            raise NotImplementedError(
-                "data_parallel/model_parallel > 1: multi-GPU training is not ported yet "
-                "(ROADMAP.md, open items, queue 1, multi-GPU)"
-            )
         self.cfg = config
         self.device = resolve_device(device)
+        init_distributed(self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = ProcessMesh(MeshConfig(config.data_parallel, config.model_parallel))
         self.step_losses: list[float] = []
 
     # ------------------------------------------------------------------ data
@@ -379,10 +450,115 @@ class TwoTowerTrainer:
                 shutil.rmtree(old, ignore_errors=True)
         return ckpt_dir
 
+    # ------------------------------------------------------------------ the mesh
+
+    def _full_tree(self, leaves: list[tuple[str, torch.Tensor | None]]) -> list:
+        """Host copies of ``(path, tensor)`` leaves shaped like the params,
+        each whole: gathered over the model group where it is split."""
+        pm = self.mesh
+        out = []
+        for path, t in leaves:
+            if t is not None:
+                t = t.detach().cpu()
+                if pm.tp > 1 and split_dim(path) is not None:
+                    t = gather_host(t, split_dim(path), pm.host_model_group)
+            out.append(t)
+        return out
+
+    def _full_params(self, params: Params) -> Params:
+        """The whole param tree (the one-process trainer's), on the host
+        under tensor parallelism, else ``params`` itself."""
+        if self.mesh.tp == 1:
+            return params
+        leaves = param_leaves(params)
+        full: Params = {}
+        for (path, _), t in zip(leaves, self._full_tree(leaves)):
+            group, name = path.split("/")
+            full.setdefault(group, {})[name] = t
+        return full
+
+    def _full_opt_state(self, train_step: "TrainStep") -> dict:
+        """``train_step.state()`` with every moment and accumulated gradient
+        whole, as a one-process run would save it."""
+        state = train_step.state()
+        if self.mesh.tp == 1:
+            return state
+        paths = [path for path, _ in param_leaves(train_step.params)]
+        # state_dict() shares each parameter's state dict with the optimizer:
+        # copy them before putting whole tensors in.
+        moments = {i: dict(m) for i, m in state["optimizer"]["state"].items()}
+        state["optimizer"] = {**state["optimizer"], "state": moments}
+        for key in ("exp_avg", "exp_avg_sq"):
+            have = [i for i in range(len(paths)) if key in moments.get(i, {})]  # none before a step
+            full = self._full_tree([(paths[i], moments[i][key]) for i in have])
+            for i, t in zip(have, full):
+                moments[i][key] = t
+        state["acc_grads"] = self._full_tree(list(zip(paths, state["acc_grads"])))
+        return state
+
+    def _local_opt_state(self, state: dict, params: Params) -> dict:
+        """This rank's slice of a whole optimizer state (``_full_opt_state``)."""
+        pm = self.mesh
+        if pm.tp == 1:
+            return state
+        paths = [path for path, _ in param_leaves(params)]
+
+        def cut(t, path):
+            return None if t is None else shard(t, split_dim(path), pm.tp, pm.model_rank)
+
+        for i, path in enumerate(paths):
+            moments = state["optimizer"]["state"].get(i, {})
+            for key in ("exp_avg", "exp_avg_sq"):
+                if key in moments:
+                    moments[key] = cut(moments[key], path)
+        state["acc_grads"] = [cut(g, p) for g, p in zip(state["acc_grads"], paths)]
+        return state
+
+    def _resume(self) -> dict | None:
+        """The newest checkpoint's state, read on rank 0 and broadcast to
+        every rank (only rank 0 writes checkpoints, so on per-host disks only
+        it can find one): epoch, history, whole params and optimizer state,
+        tower config and vocab. None when there is none. Rank 0 keeps the
+        checkpoint's tokenizer in ``_resume_tokenizer``."""
+        state = None
+        if self.mesh.is_main:
+            ckpts = self._sorted_checkpoints()
+            if ckpts:
+                ckpt = ckpts[-1]
+                params, tower_cfg, self._resume_tokenizer = load_tower(ckpt)
+                train_state = json.loads((ckpt / TRAIN_STATE_FILENAME).read_text())
+                state = {
+                    "name": ckpt.name,
+                    "epoch": int(train_state["epoch"]),
+                    "history": train_state.get("history", []),
+                    "params": params,
+                    "opt": torch.load(ckpt / OPT_STATE_FILENAME, map_location="cpu"),
+                    "tower": tower_cfg.to_dict(),
+                    "vocab": self._resume_tokenizer.vocab,
+                }
+        return self.mesh.broadcast_object(state)
+
+    def _evaluate(self, entry, params, tower_cfg, tokenizer, batch_size, evaluator) -> dict:
+        """``entry`` with the eval loss and IR metrics of ``params`` (whole)
+        added, on rank 0; every rank gets rank 0's entry, so the histories
+        are equal."""
+        if self.mesh.is_main:
+            params = params_to_device(params, self.device)
+            eval_loss = self._eval_loss(params, tower_cfg, tokenizer, batch_size)
+            if eval_loss is not None:
+                entry["eval_loss"] = eval_loss
+            if evaluator is not None:
+                encoder = TextEncoder(
+                    params, tower_cfg, tokenizer, self.cfg.max_seq_length, device=self.device
+                )
+                entry.update(evaluator(encoder))
+        return self.mesh.broadcast_object(entry)
+
     # ------------------------------------------------------------------ run
 
     def train(self, data=None) -> dict:
-        """Run training; returns ``{"history", "best_epoch", "final_dir"}``.
+        """Run training; returns ``{"history", "best_epoch", "final_dir"}``
+        (the same on every rank).
 
         ``data=None`` reads the processed directory, as the JAX trainer
         does. Otherwise ``data`` is ``(anchors, positives, eval_pairs,
@@ -390,7 +566,9 @@ class TwoTowerTrainer:
         ``eval_pairs`` an ``(anchors, positives)`` pair of lists or None.
         """
         cfg = self.cfg
-        cfg.output_dir.mkdir(parents=True, exist_ok=True)
+        pm = self.mesh
+        if pm.is_main:
+            cfg.output_dir.mkdir(parents=True, exist_ok=True)
         if data is None:
             data = self._load_processed()
         else:
@@ -404,6 +582,7 @@ class TwoTowerTrainer:
         self._log_params()
         vocab_texts = list(eval_corpus.values()) + anchors[:50_000]
         params, tower_cfg, tokenizer = self._build_model(vocab_texts)
+        validate_tp(tower_cfg, pm.tp)
 
         # Tokenize once on the host; pad every pair to one global bucket.
         logger.info("[3/5] tokenizing %d pairs...", len(anchors))
@@ -419,51 +598,58 @@ class TwoTowerTrainer:
         del a_chunks, p_chunks
         logger.info("  tokenized in %.1fs; padded seq len %d", time.time() - t0, self.seq_len)
 
-        batch_size = cfg.train_batch_size
-        n_steps_epoch = steps_per_epoch(len(anchors), batch_size)
+        batch_size = cfg.train_batch_size  # per data rank
+        global_batch = batch_size * pm.dp
+        n_steps_epoch = steps_per_epoch(len(anchors), global_batch)
         # The schedule horizon counts optimizer steps: one per `accum`
         # micro-batches.
         accum = max(1, cfg.gradient_accumulation_steps)
         total_steps = max(2, cfg.epochs * n_steps_epoch // accum)
         schedule = warmup_cosine_schedule(cfg.learning_rate, total_steps)
 
-        params = self._to_trainable(params)
         evaluator = None
-        if cfg.run_information_retrieval_evaluator:
+        if cfg.run_information_retrieval_evaluator and pm.is_main:
             evaluator = RetrievalEvaluator(
                 eval_queries, eval_corpus, eval_relevant, batch_size=cfg.eval_batch_size
             )
-        encoder = TextEncoder(params, tower_cfg, tokenizer, cfg.max_seq_length, device=self.device)
 
         start_epoch = 1
         history: list[dict] = []
-        resume_state = None
-        if cfg.resume:
-            ckpts = self._sorted_checkpoints()
-            if ckpts:
-                ckpt = ckpts[-1]
-                loaded, tower_cfg, tokenizer = load_tower(ckpt)
-                params = self._to_trainable(loaded)
-                resume_state = torch.load(ckpt / OPT_STATE_FILENAME, map_location=self.device)
-                train_state = json.loads((ckpt / TRAIN_STATE_FILENAME).read_text())
-                start_epoch = train_state["epoch"] + 1
-                history = train_state.get("history", [])
-                logger.info("Resuming from %s (epoch %d)", ckpt.name, start_epoch)
+        resumed = self._resume() if cfg.resume else None
+        if resumed is not None:
+            if pm.is_main:
+                tower_cfg = TowerConfig.from_dict(resumed["tower"])
+                tokenizer = self._resume_tokenizer
+            elif resumed["tower"] != tower_cfg.to_dict() or resumed["vocab"] != tokenizer.vocab:
+                raise RuntimeError(
+                    "resume: this rank's tower config or vocab differs from the checkpoint's "
+                    "on rank 0 (config or data changed between runs); restart without resume"
+                )
+            params = resumed["params"]
+            start_epoch = resumed["epoch"] + 1
+            history = resumed["history"]
+            logger.info("Resuming from %s (epoch %d)", resumed["name"], start_epoch)
+        params = self._to_trainable(shard_params(params, tower_cfg, pm.tp, pm.model_rank))
         train_step = TrainStep(
             params, tower_cfg, build_optimizer(params, cfg.weight_decay), schedule,
-            loss_scale=cfg.loss_scale, accum=accum, device=self.device,
+            loss_scale=cfg.loss_scale, accum=accum, device=self.device, mesh=pm,
         )
-        if resume_state is not None:
-            train_step.load_state(resume_state)
+        if resumed is not None:
+            train_step.load_state(self._local_opt_state(resumed["opt"], params))
+        del resumed
 
         logger.info(
-            "[4/5] training: %d epochs x %d steps, batch %d, seq %d, on %s",
-            cfg.epochs, n_steps_epoch, batch_size, self.seq_len, self.device,
+            "[4/5] training: %d epochs x %d steps, global batch %d (dp=%d, tp=%d), seq %d, "
+            "on %s; train step mode: %s",
+            cfg.epochs, n_steps_epoch, global_batch, pm.dp, pm.tp, self.seq_len, self.device,
+            cfg.train_step_mode,
         )
         global_step = (start_epoch - 1) * n_steps_epoch
         col = np.arange(self.seq_len)[None, :]
+        rows = slice(pm.data_rank * batch_size, (pm.data_rank + 1) * batch_size)
 
         def assemble(idx: np.ndarray) -> list[torch.Tensor]:
+            idx = idx[rows]  # this data rank's block of the global batch
             out = []
             for ids_all, len_all in ((a_ids, a_len), (p_ids, p_len)):
                 out += [
@@ -496,7 +682,7 @@ class TwoTowerTrainer:
         for epoch in range(start_epoch, cfg.epochs + 1):
             epoch_start = time.time()
             losses = []
-            batch_iter = no_duplicates_batches(anchors, positives, batch_size, cfg.seed, epoch)
+            batch_iter = no_duplicates_batches(anchors, positives, global_batch, cfg.seed, epoch)
             step = 0
             while True:
                 group = list(itertools.islice(batch_iter, n_group))
@@ -513,7 +699,10 @@ class TwoTowerTrainer:
                 t_a = time.perf_counter() if loop_timing else 0.0
                 batches = [assemble(idx) for idx in group]
                 t_b = time.perf_counter() if loop_timing else 0.0
-                seeds = [dropout_seed(cfg.seed, epoch, len(losses) + i) for i in range(n_group)]
+                seeds = [
+                    dropout_seed(cfg.seed, epoch, len(losses) + i, pm.data_rank)
+                    for i in range(n_group)
+                ]
                 t_c = time.perf_counter() if loop_timing else 0.0
                 for batch, seed in zip(batches, seeds):
                     loss = train_step(batch, seed)
@@ -548,7 +737,7 @@ class TwoTowerTrainer:
                     "epoch %d yielded NO full batches: %d pairs cannot fill a "
                     "no-duplicates batch of %d. Lower train_batch_size or add "
                     "data; the model is NOT training.",
-                    epoch, len(anchors), batch_size,
+                    epoch, len(anchors), global_batch,
                 )
             epoch_losses = torch.stack(losses).tolist() if losses else []
             self.step_losses.extend(epoch_losses)
@@ -557,42 +746,44 @@ class TwoTowerTrainer:
                 "train_loss": float(np.mean(epoch_losses)) if epoch_losses else None,
                 "epoch_seconds": time.time() - epoch_start,
             }
-            eval_loss = self._eval_loss(params, tower_cfg, tokenizer, batch_size)
-            if eval_loss is not None:
-                entry["eval_loss"] = eval_loss
-                logger.info("  epoch %d eval_loss %.4f", epoch, eval_loss)
-            if evaluator is not None:
-                metrics = evaluator(encoder.with_params(params))
-                entry.update(metrics)
+            full = self._full_params(params)  # collective under tensor parallelism
+            entry = self._evaluate(entry, full, tower_cfg, tokenizer, global_batch, evaluator)
+            if "eval_loss" in entry:
+                logger.info("  epoch %d eval_loss %.4f", epoch, entry["eval_loss"])
+            if BEST_METRIC in entry:
                 logger.info(
                     "  epoch %d eval: ndcg@10 %.4f recall@10 %.4f mrr@10 %.4f acc@10 %.4f",
-                    epoch, metrics["ndcg_at_10"], metrics["recall_at_10"],
-                    metrics["mrr_at_10"], metrics["accuracy_at_10"],
+                    epoch, entry["ndcg_at_10"], entry["recall_at_10"],
+                    entry["mrr_at_10"], entry["accuracy_at_10"],
                 )
             history.append(entry)
-            self._save_epoch_checkpoint(
-                epoch, params, train_step.state(), tower_cfg, tokenizer, history
-            )
-            (cfg.output_dir / "eval_history.json").write_text(json.dumps(history, indent=2))
+            opt_state = self._full_opt_state(train_step) if pm.tp > 1 or pm.is_main else None
+            if pm.is_main:
+                self._save_epoch_checkpoint(epoch, full, opt_state, tower_cfg, tokenizer, history)
+                (cfg.output_dir / "eval_history.json").write_text(json.dumps(history, indent=2))
 
         # Best checkpoint by NDCG@10.
         best_epoch = cfg.epochs
         scored = [h for h in history if BEST_METRIC in h]
-        if evaluator is not None and scored:
+        if cfg.run_information_retrieval_evaluator and scored:
             best_epoch = max(scored, key=lambda h: h[BEST_METRIC])["epoch"]
         final_dir = cfg.output_dir / FINAL_SUBDIR
-        best_ckpt = cfg.output_dir / f"checkpoint-epoch{best_epoch}"
-        if best_ckpt.exists():
-            params, tower_cfg, tokenizer = load_tower(best_ckpt)
-            logger.info("Loaded best checkpoint (epoch %d by %s)", best_epoch, BEST_METRIC)
-        save_tower(final_dir, params, tower_cfg, tokenizer)
-        best_entry = next((h for h in history if h["epoch"] == best_epoch), None)
-        (cfg.output_dir / "best.json").write_text(
-            json.dumps(
-                {"best_epoch": best_epoch, "metric": BEST_METRIC, "entry": best_entry}, indent=2
+        full = self._full_params(params)
+        if pm.is_main:
+            best_ckpt = cfg.output_dir / f"checkpoint-epoch{best_epoch}"
+            if best_ckpt.exists():
+                full, tower_cfg, tokenizer = load_tower(best_ckpt)
+                logger.info("Loaded best checkpoint (epoch %d by %s)", best_epoch, BEST_METRIC)
+            save_tower(final_dir, full, tower_cfg, tokenizer)
+            best_entry = next((h for h in history if h["epoch"] == best_epoch), None)
+            (cfg.output_dir / "best.json").write_text(
+                json.dumps(
+                    {"best_epoch": best_epoch, "metric": BEST_METRIC, "entry": best_entry},
+                    indent=2,
+                )
             )
-        )
-        logger.info("[5/5] Done. Model saved to %s", final_dir)
+            logger.info("[5/5] Done. Model saved to %s", final_dir)
+        pm.barrier()  # every rank returns once final/ is written
         return {"history": history, "best_epoch": best_epoch, "final_dir": str(final_dir)}
 
     def _tokenize(self, tokenizer, texts: list[str]) -> list[tuple[np.ndarray, np.ndarray]]:
@@ -661,11 +852,18 @@ class TwoTowerTrainer:
 
 
 def main() -> None:
-    parser = argparse.ArgumentParser(description="Train the two-tower model on one GPU")
+    """The training CLI: one process, or one rank of ``torchrun
+    --nproc-per-node N -m instacart_next_order_recommendation_tpu_torch.train``."""
+    parser = argparse.ArgumentParser(description="Train the two-tower model on the GPUs")
     parser.add_argument("--config", type=Path, default=None, help="Path to YAML config")
     args = parser.parse_args()
     setup_colored_logging(quiet_loggers=["datasets", "urllib3"])
-    TwoTowerTrainer(TrainConfig.load(args.config)).train()
+    init_distributed()
+    try:
+        TwoTowerTrainer(TrainConfig.load(args.config)).train()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

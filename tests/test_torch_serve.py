@@ -194,7 +194,18 @@ def test_port_imports_no_jax(served, tmp_path):
         from instacart_next_order_recommendation_tpu_torch.utils.profiling import (
             annotate, maybe_trace,
         )
-        for cli in ("serve", "api", "baselines"):  # each CLI runs main(): help, then exit 0
+        from instacart_next_order_recommendation_tpu_torch.parallel import (
+            MeshConfig, ProcessMesh, build_mesh, init_distributed, shard_params,
+        )
+        from instacart_next_order_recommendation_tpu_torch.index.sharded import ShardedCatalogIndex
+        # torchrun's environment, one rank: init_distributed has nothing to join.
+        os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT="29500")
+        init_distributed("cpu")
+        import torch.distributed as dist
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+        assert ProcessMesh(MeshConfig()).dp == 1
+        for cli in ("serve", "api", "baselines", "train"):  # each CLI runs main(): help, exit 0
             sys.argv = [cli, "--help"]
             try:
                 __import__(f"instacart_next_order_recommendation_tpu_torch.{{cli}}.__main__")
@@ -209,6 +220,9 @@ def test_port_imports_no_jax(served, tmp_path):
         assert warm_serve_shapes(mon, k_buckets=(16,)) == 2 + 2 + 2
         ivf = IVFCatalogIndex(rec.product_embeddings, nlist=4, nprobe=4, device="cpu")
         assert ivf.topk(rec.product_embeddings[:2], 3)[1].shape == (2, 3)
+        mesh = build_mesh(MeshConfig(2, 1), devices=["cpu", "cpu"])
+        sharded = ShardedCatalogIndex(rec.product_embeddings, mesh)
+        assert sharded.topk(rec.product_embeddings[:2], 3)[1].shape == (2, 3)
         assert rec.encoder.tokenizer.native_batches > 0 and native.library_path().exists()
         os.environ["INFERENCE_DEVICE"] = "cpu"
         os.environ["FEEDBACK_DB_PATH"] = {str(tmp_path / "feedback.db")!r}

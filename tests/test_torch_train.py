@@ -322,9 +322,11 @@ def test_resume_continues_the_same_run(processed, tmp_path, monkeypatch):
 
 
 def test_multi_gpu_and_missing_cuda_raise(monkeypatch, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # A mesh of two needs two processes (torchrun starts one per GPU); one
+    # process alone never trains as if it were several.
+    with pytest.raises(ValueError, match="needs 2 processes, have 1"):
         TwoTowerTrainer(TrainConfig({"data_parallel": 2}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="model_parallel=2 does not divide the 1 processes"):
         TwoTowerTrainer(TrainConfig({"model_parallel": 2}), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
