@@ -165,8 +165,28 @@ Run from the repository root, with no arguments:
    division by dp; rank 1's positives left out of the gather; rank 1's
    tp_exit all-reduce left out). Step ms a rank are printed as two ranks
    sharing one card with collectives through gloo: not a scaling figure.
-6. One JSON line describing each kernel (with ``launches_phase_5b``), then,
-   as the last line,
+6. The user workflows, in this process through each one's ``main``, at
+   MiniLM-L6's full width, launch counts reset before and read after each:
+   (a) the port's synthetic CSVs (1,200 users, 2,000 products, real-length
+   names) and ``python -m instacart_next_order_recommendation_tpu_torch.data``'s
+   ``main`` (every relevant doc in the corpus, no eval query holding the
+   next order); (b) ``scripts/torch_run_demo.py`` at its defaults (12
+   K1-train and 12 K5 launches a step; K1, K2 and K3 in the recommend and
+   HTTP stages); (c) the feedback loop on the demo's model, served by
+   ``create_app`` on a local port: ``torch_generate_sample_feedback`` (60
+   recommends with their contexts stored, and their funnel events),
+   ``torch_feedback_analytics``, and two ``torch_feedback_retrain --once``
+   ticks warm-started from the served model, the first with a gate no run
+   passes (the served model's signature and answers unchanged), the second
+   with one every run passes (the model hot-swapped through
+   ``/admin/model``; /recommend then answers the new tower's direct
+   recommend by the near-tie rule); (d) ``torch_compare_untrained_vs_trained``
+   on the demo's data and model (the collapse indicators); (e)
+   ``torch_real_data_run`` on (a)'s prep, warm-started from phase 4b's
+   safetensors HF directory, one epoch at B=64, S=256, its results file
+   in the temporary directory (random weights: not a parity run).
+7. One JSON line describing each kernel (with ``launches_phase_5b`` and
+   ``launches_phase_6``), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when CUDA is absent or any check
@@ -183,6 +203,7 @@ import itertools
 import json
 import os
 import re
+import sqlite3
 import subprocess
 import sys
 import tempfile
@@ -1245,6 +1266,7 @@ class Smoke:
         self.pool_rows: dict[int, list[dict]] = {}  # K2 readings by hidden width
         self.ivf_1m: dict = {}  # phase 3e's 1M rows and one-device readings, for phase 5b
         self.launches_5b: dict[str, int] = {}  # phase 5b's launches by kernels-line name
+        self.launches_6: dict[str, int] = {}  # phase 6's launches by kernels-line name
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -5437,6 +5459,371 @@ class MultiGpuPhase:
         return out
 
 
+WORKFLOW_USERS = 1_200  # phase 6 (a)'s CSVs: phase 4's users, real-length names (S=256)
+WORKFLOW_PRODUCTS = 2_000
+FEEDBACK_REQUESTS = 60  # /recommend calls a sample-feedback run sends
+GATE_FAIL_MARGIN = 1.0  # NDCG@10 lies in [0, 1]: no run beats the deployed one by 1.0
+GATE_PASS_MARGIN = -1.0  # and every run beats it less 1.0
+WORKFLOW_WRAPPERS = ("fused_encoder_layer_train", "fused_encoder_layer_backward",
+                     "fused_encoder_layer", "masked_mean_pool_l2norm", "cosine_topk")
+
+
+class WorkflowsPhase:
+    """Phase 6: the user workflows (``scripts/torch_*.py`` and the data
+    prep's CLI), each run in this process through its ``main`` at MiniLM-L6's
+    full width, with launch counts reset before and read after each one.
+    (a) ``generate_instacart_csvs`` and ``python -m ..._torch.data``'s
+    ``main``, the artifacts' contracts checked; (b) ``torch_run_demo.main``
+    at its defaults (500 users, 800 products, 3 epochs, B=32, S=128), its
+    stages' launches read through wrappers that count around them; (c) the
+    feedback loop on the demo's model: ``create_app`` on a local port,
+    ``torch_generate_sample_feedback``, ``torch_feedback_analytics`` and two
+    ``torch_feedback_retrain --once`` ticks, the first with a gate no run can
+    pass, the second with one every run passes: the served model's signature
+    moves only after the second, and /recommend then answers the new
+    tower's direct recommend; (d) ``torch_compare_untrained_vs_trained`` on
+    the demo's data and model; (e) ``torch_real_data_run`` on (a)'s CSVs,
+    warm-started from phase 4b's HF directory, one epoch at B=64, S=256,
+    its results file written inside the temporary directory."""
+
+    def __init__(self, smoke: "Smoke", workdir: Path, smi: str, serving: dict, hf_dir: Path):
+        self.smoke, self.smi, self.hf_dir = smoke, smi, hf_dir
+        self.root = workdir / "workflows"
+        self.root.mkdir(parents=True)
+        self.tol = serving["batcher"]["near_tie_tol"]
+        self.counts: dict[str, int] = dict.fromkeys(WORKFLOW_WRAPPERS, 0)
+        self.seconds: dict[str, float] = {}
+
+    def counted(self, what: str, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with every kernel wrapper counted from
+        zero; returns its result, the launches by wrapper, and its stdout
+        (echoed). Adds the launches to the phase's totals."""
+        wrappers = {w.__name__: w for w in training_wrappers()}
+        for w in wrappers.values():
+            w.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kwargs)
+        self.seconds[what] = time.perf_counter() - t0
+        counts = {name: w.launches for name, w in wrappers.items()}
+        for name in WORKFLOW_WRAPPERS:
+            self.counts[name] += counts[name]
+        print(buf.getvalue(), end="", flush=True)
+        log(f"{what}: {self.seconds[what]:.1f}s, launches {json.dumps(counts)}")
+        return result, counts, buf.getvalue()
+
+    def run(self) -> dict:
+        env = {"RATE_LIMIT": "1000000/minute"}
+        unset = ("INFERENCE_DEVICE", "BATCH_WINDOW_MS", "API_KEY", "ITOR_TOPK_EXTRACTION",
+                 "PRECOMPILE_ON_STARTUP", "MODEL_DIR", "CORPUS_PATH", "FEEDBACK_DB_PATH",
+                 "STORE_REQUEST_CONTEXTS", "ITOR_PROFILE_DIR", "ITOR_LOOP_TIMING")
+        out: dict = {}
+        with mock.patch.dict(os.environ, env):
+            for name in unset:
+                os.environ.pop(name, None)
+            out["prep"] = self.prep()
+            out["demo"] = self.demo()
+            out["feedback_loop"] = self.feedback_loop()
+            out["compare"] = self.compare()
+            out["runbook"] = self.runbook()
+        out["seconds"] = self.seconds
+        out["launches"] = self.smoke.launches_6 = self.counts
+        log(f"workflows {json.dumps(out)} ({self.smi})")
+        return out
+
+    def prep(self) -> dict:
+        """(a) The CSVs, then the data prep's CLI with a YAML config."""
+        from instacart_next_order_recommendation_tpu_torch.data.prepare import main as prep_main
+        from instacart_next_order_recommendation_tpu_torch.data.synthetic import (
+            generate_instacart_csvs,
+        )
+
+        smoke = self.smoke
+        t0 = time.perf_counter()
+        self.csv_dir = generate_instacart_csvs(
+            self.root / "csvs", n_users=WORKFLOW_USERS, n_products=WORKFLOW_PRODUCTS, seed=0,
+            long_names=True,
+        )
+        self.seconds["csvs"] = time.perf_counter() - t0
+        # The runbook (e) reads the prep from <workdir>/processed/p5_mp20_ef0.1.
+        self.runbook_ws = self.root / "runbook"
+        config = self.root / "data_prep.yaml"
+        config.write_text(json.dumps({"data_dir": str(self.csv_dir),
+                                      "output_dir": str(self.runbook_ws / "processed")}))
+        rc, counts, _ = self.counted("(a) python -m ..._torch.data", prep_main,
+                                     ["--config", str(config)])
+        processed = self.runbook_ws / "processed" / "p5_mp20_ef0.1"
+        queries = json.loads((processed / "eval_queries.json").read_text())
+        corpus = json.loads((processed / "eval_corpus.json").read_text())
+        relevant = json.loads((processed / "eval_relevant_docs.json").read_text())
+        params = json.loads((processed / "data_prep_params.json").read_text())
+        smoke.check(rc == 0 and (processed / "train_dataset").is_dir()
+                    and (processed / "eval_dataset").is_dir() and sum(counts.values()) == 0,
+                    "(a) the data prep's CLI wrote p5_mp20_ef0.1 (datasets and JSON artifacts)")
+        smoke.check(
+            len(corpus) == WORKFLOW_PRODUCTS and set(relevant) == set(queries)
+            and all(pid in corpus for docs in relevant.values() for pid in docs),
+            "(a) every relevant doc is in the corpus",
+        )
+        smoke.check(
+            bool(queries) and not any("next order" in q.lower() or "next:" in q.lower()
+                                      for q in queries.values()),
+            "(a) no eval query holds the next order (serve-time queries)",
+        )
+        return {"params": params, "csv_s": self.seconds["csvs"]}
+
+    def demo(self) -> dict:
+        """(b) ``torch_run_demo.main`` at its defaults, stage by stage."""
+        from scripts import torch_run_demo
+
+        smoke = self.smoke
+        stages: dict[str, dict] = {}
+
+        def watched(name, fn):
+            def run(*args, **kwargs):
+                before = {w.__name__: w.launches for w in training_wrappers()}
+                t0 = time.perf_counter()
+                result = fn(*args, **kwargs)
+                stages[name] = {
+                    "seconds": time.perf_counter() - t0,
+                    "launches": {w.__name__: w.launches - before[w.__name__]
+                                 for w in training_wrappers()},
+                }
+                return result
+            return run
+
+        patches = [mock.patch.object(torch_run_demo, name, watched(name, getattr(torch_run_demo, name)))
+                   for name in ("stage_data", "stage_train", "stage_recommend", "stage_api")]
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            rc, counts, text = self.counted(
+                "(b) torch_run_demo.main", torch_run_demo.main,
+                ["--workdir", str(self.root / "demo"), "--port", "0"],
+            )
+        steps = int(re.search(r"trained (\d+) steps", text).group(1))
+        self.demo_processed = self.root / "demo" / "processed" / "p5_mp20_ef0.15"
+        self.demo_final = self.root / "demo" / "model" / "final"
+        best = json.loads((self.root / "demo" / "model" / "best.json").read_text())
+        history = json.loads((self.root / "demo" / "model" / "eval_history.json").read_text())
+        train, rec, api = (stages[n]["launches"] for n in ("stage_train", "stage_recommend",
+                                                           "stage_api"))
+        out = {"steps": steps, "ndcg_at_10": best["entry"]["ndcg_at_10"],
+               "best_epoch": best["best_epoch"],
+               "epoch_seconds": [h["epoch_seconds"] for h in history],
+               "stages_s": {n: v["seconds"] for n, v in stages.items()},
+               "stage_launches": {n: v["launches"] for n, v in stages.items()}}
+        log(f"(b) demo: {steps} steps, NDCG@10 {out['ndcg_at_10']:.4f} (epoch "
+            f"{out['best_epoch']}), stages {json.dumps(out['stages_s'])} ({self.smi})")
+        smoke.check(rc == 0 and "Demo complete." in text
+                    and "POST /recommend -> 200, 3 items" in text
+                    and "POST /feedback  -> 202" in text, "(b) the demo ran its five stages")
+        smoke.check(
+            steps > 0 and train["fused_encoder_layer_train"] == 12 * steps
+            and train["fused_encoder_layer_backward"] == 12 * steps
+            and counts["fused_encoder_layer_train"] == 12 * steps
+            and train["masked_mean_pool_l2norm"] > 0,
+            f"(b) demo training: 12 K1-train and 12 K5 launches a step ({steps} steps), K2",
+        )
+        smoke.check(
+            all(stage["fused_encoder_layer"] >= 6 and stage["masked_mean_pool_l2norm"] > 0
+                and stage["cosine_topk"] > 0 for stage in (rec, api))
+            and all(stage["fused_encoder_layer_train"] == 0 for stage in (rec, api)),
+            "(b) demo recommend and HTTP stages: K1, K2 and K3 launched",
+        )
+        return out
+
+    def served_state(self, app, client, query: str):
+        rec = app.state["recommender"]
+        status, body = client.post("/recommend", {"user_context": query, "top_k": 10})
+        assert status == 200, body
+        return (str(app.state["model_dir"]), rec._model_signature), ranked(body)
+
+    def feedback_loop(self) -> dict:
+        """(c) Sample feedback, analytics and two retrain ticks against the
+        demo's model served by ``create_app`` on a local port."""
+        from scripts import (
+            torch_feedback_analytics,
+            torch_feedback_retrain,
+            torch_generate_sample_feedback,
+        )
+
+        from instacart_next_order_recommendation_tpu_torch.api.app import create_app
+        from instacart_next_order_recommendation_tpu_torch.serve import MonitoredRecommender
+
+        smoke, root = self.smoke, self.root / "feedback"
+        root.mkdir()
+        db = root / "feedback.db"
+        os.environ["FEEDBACK_DB_PATH"] = str(db)
+        corpus_path = self.demo_processed / "eval_corpus.json"
+        query = next(iter(json.loads((self.demo_processed / "eval_queries.json").read_text())
+                          .values()))
+        deployed = json.loads((self.demo_final.parent / "best.json").read_text())["entry"]
+        state = root / "retrain_state.json"
+        state.write_text(json.dumps({"last_event_id": 0, "runs": 0,
+                                     "deployed_metric": deployed["ndcg_at_10"]}))
+        train_config = root / "train.json"  # YAML is a superset of JSON
+        train_config.write_text(json.dumps({
+            "model_name": str(self.demo_final), "output_dir": str(root / "runs"), "epochs": 1,
+            "train_batch_size": 32, "eval_batch_size": 128, "max_seq_length": 128,
+            "learning_rate": 2e-4, "logging_steps": 50,
+        }))
+        out: dict = {}
+        served = ServedApp(create_app(self.demo_final, corpus_path))
+        try:
+            gen_config = root / "generate.json"
+            gen_config.write_text(json.dumps({"url": f"http://127.0.0.1:{served.port}",
+                                              "num_requests": FEEDBACK_REQUESTS, "seed": 0}))
+            # Eval user ids from the demo's prep, as from a checkout's processed/.
+            with mock.patch.object(torch_generate_sample_feedback, "DEFAULT_PROCESSED_DIR",
+                                   self.demo_processed.parent):
+                rc_gen, gen_counts, gen_text = self.counted(
+                    "(c) torch_generate_sample_feedback.main",
+                    torch_generate_sample_feedback.main, ["--config", str(gen_config)],
+                )
+                fa_config = root / "analytics.json"
+                fa_config.write_text(json.dumps({"db_path": str(db), "show_funnel_sample": 3}))
+                rc_fa, _, fa_text = self.counted(
+                    "(c) torch_feedback_analytics.main", torch_feedback_analytics.main,
+                    ["--config", str(fa_config)],
+                )
+                conn = sqlite3.connect(db)
+                n_imp = conn.execute("SELECT COUNT(DISTINCT request_id || '/' || product_id) "
+                                     "FROM feedback_events WHERE event_type = 'impression'"
+                                     ).fetchone()[0]
+                n_contexts = conn.execute("SELECT COUNT(*) FROM request_contexts").fetchone()[0]
+                conn.close()
+                smoke.check(
+                    rc_gen == 0 and rc_fa == 0
+                    and f"request {FEEDBACK_REQUESTS}/{FEEDBACK_REQUESTS}:" in gen_text
+                    and f"Impressions (unique request+product): {n_imp:,}" in fa_text
+                    and n_imp >= FEEDBACK_REQUESTS and n_contexts >= FEEDBACK_REQUESTS
+                    and gen_counts["cosine_topk"] >= FEEDBACK_REQUESTS
+                    and gen_counts["fused_encoder_layer"] > 0,
+                    f"(c) {FEEDBACK_REQUESTS} recommends with their contexts stored and their "
+                    "funnel events, read back by the analytics",
+                )
+                before, answer_before = self.served_state(served.app, served.client, query)
+                url = f"http://127.0.0.1:{served.port}"
+                tick = ["--processed-dir", str(self.demo_processed), "--train-config",
+                        str(train_config), "--state-file", str(state), "--once",
+                        "--serve-url", url, "--min-new-events", "1"]
+                rc1, c1, _ = self.counted(
+                    "(c) torch_feedback_retrain.main (gate fails)", torch_feedback_retrain.main,
+                    [*tick, "--min-improvement", str(GATE_FAIL_MARGIN)],
+                )
+                run1 = json.loads(state.read_text())
+                after_fail, answer_fail = self.served_state(served.app, served.client, query)
+                self.counted("(c) torch_generate_sample_feedback.main (second batch)",
+                             torch_generate_sample_feedback.main, ["--config", str(gen_config)])
+                rc2, c2, _ = self.counted(
+                    "(c) torch_feedback_retrain.main (gate passes)", torch_feedback_retrain.main,
+                    [*tick, "--min-improvement", str(GATE_PASS_MARGIN)],
+                )
+                run2 = json.loads(state.read_text())
+                after_pass, answer_pass = self.served_state(served.app, served.client, query)
+        finally:
+            served.stop()
+        gates = []
+        for run, margin in ((run1, GATE_FAIL_MARGIN), (run2, GATE_PASS_MARGIN)):
+            best = json.loads((root / "runs" / f"run-{run['last_event_id']}" / "best.json")
+                              .read_text())
+            gates.append({"ndcg_at_10": best["entry"]["ndcg_at_10"], "margin": margin,
+                          "deployed_before": deployed["ndcg_at_10"]})
+        new_model = Path(run2.get("deployed_model", ""))
+        want = MonitoredRecommender(new_model, corpus_path, use_index=False).recommend(
+            query, top_k=10
+        )
+        out.update({"impressions": n_imp, "contexts": n_contexts, "gate": gates,
+                    "fb_dataset": str(self.demo_processed.name) + "_fb"})
+        log(f"(c) retrain gate: run 1 NDCG@10 {gates[0]['ndcg_at_10']:.4f} against "
+            f"{gates[0]['deployed_before']:.4f} + {GATE_FAIL_MARGIN}: not deployed; run 2 "
+            f"{gates[1]['ndcg_at_10']:.4f} against {gates[1]['deployed_before']:.4f} "
+            f"{GATE_PASS_MARGIN:+}: deployed ({self.smi})")
+        smoke.check(rc1 == 0 and rc2 == 0 and run1["runs"] == 1 and run2["runs"] == 2,
+                    "(c) two retrain ticks ran")
+        smoke.check(
+            (self.demo_processed.parent / f"{self.demo_processed.name}_fb" / "train_dataset")
+            .is_dir() and all(c["fused_encoder_layer_train"] > 0
+                              and c["fused_encoder_layer_train"] == c["fused_encoder_layer_backward"]
+                              and c["fused_encoder_layer_train"] % 12 == 0 for c in (c1, c2)),
+            "(c) each tick built the _fb dataset and trained on K1-train and K5 (12 a step)",
+        )
+        smoke.check(after_fail == before and answer_fail == answer_before
+                    and "deployed_model" not in run1,
+                    "(c) a failed gate leaves the served model (signature and answer) as it was")
+        smoke.check(
+            after_pass != before and after_pass[0] == str(new_model)
+            and new_model.parent.name == f"run-{run2['last_event_id']}"
+            and run2["deployed_metric"] == gates[1]["ndcg_at_10"],
+            "(c) the passing gate hot-swapped the served model to the new final/",
+        )
+        smoke.check(near_tie_ok(answer_pass, want, self.tol) and answer_pass != answer_before,
+                    "(c) after the swap /recommend answers the new tower's direct recommend "
+                    "(near-tie rule)")
+        return out
+
+    def compare(self) -> dict:
+        """(d) The collapse diagnostics on the demo's data and model."""
+        from scripts import torch_compare_untrained_vs_trained
+
+        config = self.root / "compare.json"
+        config.write_text(json.dumps({"processed_dir": str(self.demo_processed),
+                                      "model_dir": str(self.demo_final), "batch_size": 64}))
+        rc, counts, text = self.counted(
+            "(d) torch_compare_untrained_vs_trained.main",
+            torch_compare_untrained_vs_trained.main, ["--config", str(config)],
+        )
+        readings = {
+            f"{who.lower()}_{what.replace(' ', '_')}": float(v)
+            for who, what, v in re.findall(
+                r"(Untrained|Trained)\s+(query mean pairwise cos_sim|corpus mean pairwise cos_sim"
+                r"|corpus mean std per dim):\s+([-\d.]+)", text)
+        }
+        self.smoke.check(
+            rc == 0 and len(readings) == 6 and "NDCG@10 delta" in text
+            and all(counts[k] > 0 for k in ("fused_encoder_layer", "masked_mean_pool_l2norm",
+                                            "cosine_topk")),
+            "(d) the collapse indicators printed for both towers; K1, K2 and K3 launched",
+        )
+        log(f"(d) collapse indicators {json.dumps(readings)}")
+        return readings
+
+    def runbook(self) -> dict:
+        """(e) The real-data runbook on (a)'s CSVs from phase 4b's HF directory."""
+        from scripts import torch_real_data_run
+
+        results = self.root / "REAL_RESULTS.md"
+        with logged_messages(TRAINER_LOGGER) as messages:
+            rc, counts, text = self.counted(
+                "(e) torch_real_data_run.main", torch_real_data_run.main,
+                ["--data-dir", str(self.csv_dir), "--base-model", str(self.hf_dir),
+                 "--workdir", str(self.runbook_ws), "--epochs", "1", "--train-batch-size", "64",
+                 "--max-seq-length", "256", "--results", str(results)],
+            )
+        seq = [int(m.group(1)) for msg in messages
+               if (m := re.search(r"padded seq len (\d+)", msg))]
+        history = json.loads((self.runbook_ws / "model" / "eval_history.json").read_text())
+        vocab = json.loads((self.hf_dir / "config.json").read_text())["vocab_size"]
+        self.smoke.check(
+            rc == 0 and results.is_file() and "| ndcg_at_10 |" in results.read_text()
+            and "skipping prep" in text and "Item-item CF (ours / ref)" in text
+            and seq == [256] and len(history) == 1
+            and counts["fused_encoder_layer_train"] > 0
+            and counts["fused_encoder_layer_train"] == counts["fused_encoder_layer_backward"]
+            and all(counts[k] > 0 for k in ("fused_encoder_layer", "masked_mean_pool_l2norm",
+                                            "cosine_topk")),
+            "(e) the runbook ran on (a)'s prep at S=256 (K1-train, K5, K1, K2, K3) and wrote "
+            "its table",
+        )
+        out = {"history": history, "vocab": vocab, "seq": seq,
+               "base_model": self.hf_dir.name}
+        log(f"(e) runbook (random-weight HF tower, vocab {vocab}; not a parity run): "
+            f"{json.dumps(history)}")
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -5567,6 +5954,9 @@ def main() -> int:
             t0 = time.perf_counter()
             MultiGpuPhase(smoke, dev, Path(tmp), smi, minilm, mpnet).run()
             log(f"phase 5b (multi-GPU on one card) {time.perf_counter() - t0:.1f}s ({smi})")
+            t0 = time.perf_counter()
+            WorkflowsPhase(smoke, Path(tmp), smi, serving, hf_phase.root / hf["dirs"][-1]).run()
+            log(f"phase 6 (workflows) {time.perf_counter() - t0:.1f}s ({smi})")
     except Exception:  # noqa: BLE001 - report the failure and exit non-zero
         traceback.print_exc()
         smoke.failures.append("exception")
@@ -5606,6 +5996,7 @@ def main() -> int:
             "replaces": f"{JAX_PKG}/{tpu}",
             **smoke.kernel_rows[name],
             "launches_phase_5b": smoke.launches_5b.get(name, 0),
+            "launches_phase_6": smoke.launches_6.get(name, 0),
         })
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,20 +36,28 @@ CONFIG_DIR = PROJECT_ROOT / "configs"
 DEFAULT_CONFIG_TRAIN = CONFIG_DIR / "train.yaml"
 DEFAULT_CONFIG_INFERENCE = CONFIG_DIR / "inference.yaml"
 DEFAULT_CONFIG_BASELINES = CONFIG_DIR / "baselines.yaml"
+DEFAULT_CONFIG_DATA_PREP = CONFIG_DIR / "data_prep.yaml"
+DEFAULT_CONFIG_COMPARE = CONFIG_DIR / "compare_untrained_vs_trained.yaml"
+DEFAULT_CONFIG_FEEDBACK_ANALYTICS = CONFIG_DIR / "feedback_analytics.yaml"
+DEFAULT_CONFIG_GENERATE_SAMPLE_FEEDBACK = CONFIG_DIR / "generate_sample_feedback.yaml"
 
-# Raw Instacart CSVs (the Kaggle layout) under data_dir, read by the
-# item-item CF baseline; order_products__prior.csv (~32M rows) is streamed
-# in chunks of ORDER_PRODUCTS_CHUNK_SIZE rows.
+# Raw Instacart CSVs (the Kaggle layout) under data_dir, read by the data
+# prep and the item-item CF baseline; order_products__prior.csv (~32M rows)
+# is streamed in chunks of ORDER_PRODUCTS_CHUNK_SIZE rows.
 DEFAULT_DATA_DIR = PROJECT_ROOT / "data"
+PRODUCTS_CSV = "products.csv"
+AISLES_CSV = "aisles.csv"
+DEPARTMENTS_CSV = "departments.csv"
 ORDERS_CSV = "orders.csv"
 ORDER_PRODUCTS_PRIOR_CSV = "order_products__prior.csv"
+ORDER_PRODUCTS_TRAIN_CSV = "order_products__train.csv"
 ORDER_PRODUCTS_CHUNK_SIZE = 500_000
 
 # orders.csv eval_set column values
 EVAL_SET_TRAIN = "train"
 EVAL_SET_PRIOR = "prior"
 
-# Processed data (written by the JAX package's data prep)
+# Processed data (written by the data prep, ``data/prepare.py``)
 DEFAULT_PROCESSED_DIR = PROJECT_ROOT / "processed"
 EVAL_QUERIES_FILENAME = "eval_queries.json"
 EVAL_CORPUS_FILENAME = "eval_corpus.json"
@@ -71,6 +79,15 @@ MAX_CORPUS_UPLOAD_PRODUCTS = 100_000
 
 # Feedback store
 DEFAULT_FEEDBACK_DB_PATH = PROJECT_ROOT / "data" / "feedback.db"
+
+# Sample user contexts (the demo and the sample-feedback load generator)
+SAMPLE_USER_CONTEXTS = [
+    "[+7d w4h14] Organic Milk, Whole Wheat Bread.",
+    "[+3d w1h9] Banana, Greek Yogurt, Honey.",
+    "[+14d w6h18] Chicken Breast, Broccoli, Rice.",
+    "[+1d w0h12] Coffee, Oat Milk, Granola.",
+    "[+5d w3h20] Pasta, Tomato Sauce, Parmesan.",
+]
 
 # Demo query used by the serve CLI when no query is configured
 DEMO_QUERY = "[+7d w4h14] Organic Milk, Whole Wheat Bread."

@@ -60,7 +60,7 @@ def resolve_processed_dir(
     if not train_path.exists():
         raise FileNotFoundError(
             f"Train dataset not found at {train_path}. Run data prep first "
-            "(python -m instacart_next_order_recommendation_tpu.data.prepare) "
+            "(python -m instacart_next_order_recommendation_tpu_torch.data) "
             "or point processed_dir at a param subdir (e.g. processed/p5_mp20_ef0.1)."
         )
     return processed_dir, None

@@ -198,6 +198,19 @@ def test_port_imports_no_jax(served, tmp_path):
             MeshConfig, ProcessMesh, build_mesh, init_distributed, shard_params,
         )
         from instacart_next_order_recommendation_tpu_torch.index.sharded import ShardedCatalogIndex
+        from instacart_next_order_recommendation_tpu_torch.data import (
+            DataPrepConfig, InstacartDataPrep, no_duplicates_batches,
+        )
+        from instacart_next_order_recommendation_tpu_torch.data.synthetic import (
+            generate_instacart_csvs,
+        )
+        import importlib
+        workflows = [
+            importlib.import_module(f"scripts.torch_{{name}}")
+            for name in ("run_demo", "feedback_analytics", "generate_sample_feedback",
+                         "feedback_retrain", "compare_untrained_vs_trained", "reval_tower",
+                         "real_data_run")
+        ]
         # torchrun's environment, one rank: init_distributed has nothing to join.
         os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
                           MASTER_ADDR="127.0.0.1", MASTER_PORT="29500")
@@ -205,12 +218,19 @@ def test_port_imports_no_jax(served, tmp_path):
         import torch.distributed as dist
         dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
         assert ProcessMesh(MeshConfig()).dp == 1
-        for cli in ("serve", "api", "baselines", "train"):  # each CLI runs main(): help, exit 0
+        for cli in ("serve", "api", "baselines", "train", "data"):  # each CLI's main: help, exit 0
             sys.argv = [cli, "--help"]
             try:
                 __import__(f"instacart_next_order_recommendation_tpu_torch.{{cli}}.__main__")
             except SystemExit as exc:
                 assert exc.code == 0, exc.code
+        for module in workflows:  # the scripts' mains: help, exit 0
+            try:
+                module.main(["--help"])
+            except SystemExit as exc:
+                assert exc.code == 0, (module.__name__, exc.code)
+            else:
+                raise AssertionError(module.__name__)
         rec = Recommender({str(ours.model_dir)!r}, {str(ours.corpus_path)!r},
                           use_index=False, device="cpu", topk_extraction="packed")
         assert len(rec.recommend({QUERIES[0]!r}, top_k=3)) == 3
