@@ -185,8 +185,19 @@ Run from the repository root, with no arguments:
    ``torch_real_data_run`` on (a)'s prep, warm-started from phase 4b's
    safetensors HF directory, one epoch at B=64, S=256, its results file
    in the temporary directory (random weights: not a parity run).
-7. One JSON line describing each kernel (with ``launches_phase_5b`` and
-   ``launches_phase_6``), then, as the last line,
+6b. The harness entry, the last tools and the notebooks, launch counts
+   reset before and read after each step: ``__graft_entry_torch__.entry()``
+   (6 K1 and 1 K2, held to the plain forward) and ``dryrun_multichip(2)``
+   (two gloo ranks on cuda:0: a train step with global-batch MNRL, the
+   sharded and masked top-k); ``scripts/torch_profile_serve.py`` at its
+   defaults; ``scripts/torch_bench_soak.py`` with 5 s phases (no batch-1
+   latch, no window latch, the flood survived); ``scripts/torch_launch_multihost.py``
+   with two processes sharing the card over gloo at model_parallel 1 and 2;
+   ``scripts/torch_rehearsal_real_shapes.py`` at 2,000 users for 1 epoch;
+   and the four ``notebooks/torch_*.ipynb`` on the GPU. It must launch K1,
+   K1-train, K2, K3, K5, K6 and K7.
+7. One JSON line describing each kernel (with ``launches_phase_5b``,
+   ``launches_phase_6`` and ``launches_phase_6b``), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when CUDA is absent or any check
@@ -388,45 +399,6 @@ ATTENTION_TRAIN_SEQ = 200
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def build_catalog_texts(n: int, rng: np.random.Generator) -> list[str]:
-    """Product texts in the corpus template ("Product: X. Aisle: Y. Department: Z.")."""
-    adjectives = [
-        "Organic", "Fresh", "Whole", "Natural", "Classic", "Golden", "Premium",
-        "Sweet", "Crunchy", "Creamy", "Roasted", "Smoked", "Wild", "Baked",
-    ]
-    nouns = [
-        "Milk", "Bread", "Banana", "Yogurt", "Cheese", "Chicken", "Broccoli",
-        "Rice", "Coffee", "Granola", "Pasta", "Sauce", "Parmesan", "Apple",
-    ]
-    aisles = ["fresh fruits", "milk", "bread", "cereal", "coffee", "pasta sauce"]
-    depts = ["produce", "dairy eggs", "bakery", "beverages", "pantry"]
-    out = []
-    for i in range(n):
-        name = f"{rng.choice(adjectives)} {rng.choice(nouns)} {i}"
-        out.append(
-            f"Product: {name}. Aisle: {rng.choice(aisles)}. Department: {rng.choice(depts)}."
-        )
-    return out
-
-
-def build_query_texts(n: int, catalog: list[str], rng: np.random.Generator) -> list[str]:
-    """User-context-shaped queries: [+Nd wDhH] name, name; ... (serve-time form)."""
-    names = [t.split("Product: ")[1].split(".")[0] for t in catalog]
-    out = []
-    for _ in range(n):
-        segments = []
-        for _ in range(int(rng.integers(1, 6))):
-            k = int(rng.integers(2, 7))
-            prods = rng.choice(len(names), size=k, replace=False)
-            prefix = (
-                f"+{int(rng.integers(1, 30))}d w{int(rng.integers(0, 7))}"
-                f"h{int(rng.integers(0, 24))}"
-            )
-            segments.append(f"[{prefix}] " + ", ".join(names[j] for j in prods))
-        out.append("; ".join(segments) + ".")
-    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1267,6 +1239,7 @@ class Smoke:
         self.ivf_1m: dict = {}  # phase 3e's 1M rows and one-device readings, for phase 5b
         self.launches_5b: dict[str, int] = {}  # phase 5b's launches by kernels-line name
         self.launches_6: dict[str, int] = {}  # phase 6's launches by kernels-line name
+        self.launches_6b: dict[str, int] = {}  # phase 6b's launches by wrapper name
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1677,6 +1650,10 @@ class Smoke:
         )
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
         from instacart_next_order_recommendation_tpu_torch.tokenizer import WordPieceTokenizer
+        from instacart_next_order_recommendation_tpu_torch.utils.bench_texts import (
+            build_catalog_texts,
+            build_query_texts,
+        )
 
         wrappers = (fused_encoder_layer, masked_mean_pool_l2norm, cosine_topk)
         cosine_topk.dense_calls = 0
@@ -3695,20 +3672,9 @@ class HttpApiPhase:
 
 def training_wrappers() -> tuple:
     """Every kernel wrapper a training run may launch, on either route."""
-    from instacart_next_order_recommendation_tpu_torch.ops import (
-        cosine_topk,
-        fused_encoder_layer,
-        fused_encoder_layer_backward,
-        fused_encoder_layer_train,
-        masked_mean_pool_l2norm,
-        multi_head_attention,
-        multi_head_attention_backward,
-    )
+    from instacart_next_order_recommendation_tpu_torch.ops import KERNEL_WRAPPERS
 
-    return (
-        fused_encoder_layer_train, fused_encoder_layer_backward, masked_mean_pool_l2norm,
-        fused_encoder_layer, cosine_topk, multi_head_attention, multi_head_attention_backward,
-    )
+    return KERNEL_WRAPPERS
 
 
 class TrainPhase:
@@ -5824,6 +5790,294 @@ class WorkflowsPhase:
         return out
 
 
+# Phase 6b: the last tools and the notebooks. Each step's launches are
+# counted from zero; the steps whose work runs in processes of their own
+# (the dry run's ranks, the multi-process harness's workers) report their
+# counts, which are added in. Cuts, each to keep the run well inside its
+# time limit:
+# - the soak's phases last 5 s (its default is 20 s), and its server's
+#   socket timeout is 2 s (default 5 s), so the flood phase lasts 6 s;
+# - the multi-process harness trains its tiny tower for 1 epoch (default 2)
+#   at its default sizes otherwise;
+# - the rehearsal runs 2,000 users (the reference's scale is 200,000) for 1
+#   epoch (default 5), over the reference's 50,000 products.
+TOOLS_SOAK_ARGS = ["--phase-seconds", "5", "--socket-timeout", "2", "--port", "0"]
+TOOLS_MULTIHOST_ARGS = ["--processes", "2", "--epochs", "1"]
+TOOLS_REHEARSAL_ARGS = ["--users", "2000", "--epochs", "1"]
+NOTEBOOKS = ("torch_prepare_data", "torch_train_two_tower", "torch_serve_recommendations",
+             "torch_run_baselines")
+# Every kernel phase 6b must launch: K1, K1-train, K5, K2, K3, K6 and K7.
+TOOLS_KERNELS = ("fused_encoder_layer", "fused_encoder_layer_train",
+                 "fused_encoder_layer_backward", "masked_mean_pool_l2norm", "cosine_topk",
+                 "multi_head_attention", "multi_head_attention_backward")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def last_json(text: str) -> dict:
+    """The last line of ``text`` that parses as a JSON object."""
+    for line in reversed(text.strip().splitlines()):
+        if line.startswith("{"):
+            with contextlib.suppress(ValueError):
+                return json.loads(line)
+    raise ValueError("no JSON line in the output")
+
+
+class ToolsPhase:
+    """Phase 6b: the harness entry and the last tools on the card, each
+    through the entry point a user calls, in this process unless it spawns
+    its own: (1) ``__graft_entry_torch__.entry()`` (6 K1 and 1 K2, held to
+    the plain forward) and ``dryrun_multichip(2)`` (two gloo ranks on
+    cuda:0: a TrainStep with global-batch MNRL, the sharded and masked
+    top-k); (2) ``scripts/torch_profile_serve.py`` at its defaults (the 50k
+    catalog, a 30,000-word vocab, MiniLM-L6; device, tokenizer and
+    end-to-end q/s); (3) ``scripts/torch_bench_soak.py`` (its latch and
+    flood invariants must hold); (4) ``scripts/torch_launch_multihost.py``
+    with 2 processes sharing the card (gloo), at model_parallel 1 (K1-train,
+    K5) and 2 (K6, K7); (5) ``scripts/torch_rehearsal_real_shapes.py`` cut to
+    2,000 users and 1 epoch (the all-MiniLM-L6-v2 architecture at B=64,
+    S=256); (6) the four ``notebooks/torch_*.ipynb``, their code cells run
+    in order in one namespace each, on the GPU their device cell names."""
+
+    def __init__(self, smoke: "Smoke", workdir: Path, smi: str):
+        self.smoke, self.smi = smoke, smi
+        self.root = workdir / "tools"
+        self.root.mkdir(parents=True)
+        self.counts: dict[str, int] = dict.fromkeys(TOOLS_KERNELS, 0)
+        self.seconds: dict[str, float] = {}
+        self.launches: dict[str, dict[str, int]] = {}
+
+    def add(self, what: str, counts: dict[str, int]) -> None:
+        self.launches[what] = counts
+        for name in TOOLS_KERNELS:
+            self.counts[name] += counts.get(name, 0)
+
+    def counted(self, what: str, fn, *args, **kwargs):
+        """``fn(*args, **kwargs)`` with every launch counter from zero;
+        returns its result and its stdout (echoed)."""
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            launch_counts,
+            reset_launch_counts,
+        )
+
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.seconds[what] = time.perf_counter() - t0
+        self.add(what, launch_counts())
+        print(buf.getvalue(), end="", flush=True)
+        log(f"{what}: {self.seconds[what]:.1f}s, launches {json.dumps(self.launches[what])}")
+        return result, buf.getvalue()
+
+    def run(self) -> dict:
+        env = {"RATE_LIMIT": "10000000/minute"}
+        unset = ("INFERENCE_DEVICE", "BATCH_WINDOW_MS", "API_KEY", "ITOR_TOPK_EXTRACTION",
+                 "PRECOMPILE_ON_STARTUP", "MODEL_DIR", "CORPUS_PATH", "FEEDBACK_DB_PATH",
+                 "STORE_REQUEST_CONTEXTS", "ITOR_PROFILE_DIR", "ITOR_LOOP_TIMING")
+        out: dict = {}
+        with mock.patch.dict(os.environ, env):
+            for name in unset:
+                os.environ.pop(name, None)
+            out["entry"] = self.entry()
+            out["dryrun"] = self.dryrun()
+            out["profile_serve"] = self.profile_serve()
+            out["soak"] = self.soak()
+            out["multihost"] = {mp: self.multihost(mp) for mp in (1, 2)}
+            out["rehearsal"] = self.rehearsal()
+            out["notebooks"] = self.notebooks()
+        out["seconds"] = self.seconds
+        out["launches"] = self.launches
+        self.smoke.launches_6b = self.counts
+        missing = [name for name in TOOLS_KERNELS if not self.counts[name]]
+        self.smoke.check(not missing, f"phase 6b launched every kernel of its path (missing "
+                                      f"{missing})")
+        log(f"tools {json.dumps(out)} ({self.smi})")
+        return out
+
+    def entry(self) -> dict:
+        """(1a) ``entry()``'s forward through the kernels, held to the plain
+        forward on the same inputs by K1's stated limit."""
+        import __graft_entry_torch__ as graft
+
+        fn, args = graft.entry()
+        with torch.inference_mode():
+            emb, _ = self.counted("(1) entry()", fn, *args)
+            with plain_kernels():
+                ref = fn(*args)
+        counts = self.launches["(1) entry()"]
+        err = (emb - ref).abs().max().item()
+        self.smoke.check(
+            tuple(emb.shape) == (8, 384) and emb.device.type == "cuda"
+            and bool(torch.isfinite(emb).all()) and err <= K1_TOL
+            and counts["fused_encoder_layer"] == 6 and counts["masked_mean_pool_l2norm"] == 1,
+            f"(1) entry(): MiniLM-L6 at B=8 S=128 on the card, 6 K1 and 1 K2, within {K1_TOL} "
+            f"of the plain forward (max abs err {err:.3g})",
+        )
+        return {"shape": list(emb.shape), "max_abs_err_vs_plain": err}
+
+    def dryrun(self) -> dict:
+        """(1b) Two gloo ranks on cuda:0; their launches come back in the result."""
+        import __graft_entry_torch__ as graft
+
+        t0 = time.perf_counter()
+        out = graft.dryrun_multichip(2)
+        self.seconds["(1) dryrun_multichip(2)"] = time.perf_counter() - t0
+        self.add("(1) dryrun_multichip(2)", out["launches"])
+        n = out["launches"]
+        self.smoke.check(
+            out["device"] == "cuda" and np.isfinite(out["loss"])
+            and all(r["topk_exact"] and r["masked_ok"] for r in out["ranks"])
+            and n["fused_encoder_layer_train"] > 0
+            and n["fused_encoder_layer_train"] == n["fused_encoder_layer_backward"]
+            and n["cosine_topk"] > 0,
+            "(1) dryrun_multichip(2): finite global-batch loss on two ranks (K1-train, K5), "
+            "sharded and masked top-k exact (K3)",
+        )
+        log(f"(1) dryrun_multichip(2): loss {out['loss']:.4f}, launches {json.dumps(n)}")
+        return {"loss": out["loss"], "dp": out["dp"], "tp": out["tp"]}
+
+    def profile_serve(self) -> dict:
+        """(2) The serve profile at the JAX script's sizes."""
+        from scripts import torch_profile_serve
+
+        rc, text = self.counted("(2) torch_profile_serve", torch_profile_serve.main, [])
+        summary = last_json(text)
+        n = self.launches["(2) torch_profile_serve"]
+        self.smoke.check(
+            rc == 0 and len(summary["device"]) == 6 and len(summary["e2e"]) == 6
+            and all(r["qps"] > 0 for r in summary["device"] + summary["e2e"])
+            and summary["tokenize"]["qps"] > 0
+            and all(n[k] > 0 for k in ("fused_encoder_layer", "masked_mean_pool_l2norm",
+                                       "cosine_topk")),
+            "(2) the serve profile read device, tokenizer and end-to-end q/s (K1, K2, K3)",
+        )
+        return summary
+
+    def soak(self) -> dict:
+        """(3) The HTTP soak; its three invariants must read true."""
+        from scripts import torch_bench_soak
+
+        rc, text = self.counted(
+            "(3) torch_bench_soak", torch_bench_soak.main,
+            ["--workdir", str(self.root / "soak"), *TOOLS_SOAK_ARGS],
+        )
+        summary = last_json(text)
+        n = self.launches["(3) torch_bench_soak"]
+        self.smoke.check(
+            rc == 0 and summary["metric"] == "serve_soak"
+            and all(summary["phases"][p]["n"] > 0 for p in ("lone", "burst", "mixed",
+                                                            "lone_after_burst"))
+            and summary["no_batch1_latch"] is True and summary.get("no_window_latch") is True
+            and summary["flood_survived"] is True
+            and all(n[k] > 0 for k in ("fused_encoder_layer", "masked_mean_pool_l2norm",
+                                       "cosine_topk")),
+            "(3) the soak: no batch-1 latch, no window latch, the flood survived (K1, K2, K3)",
+        )
+        return summary
+
+    def multihost(self, mp: int) -> dict:
+        """(4) Two processes sharing the card over gloo; process 0 reports its
+        launches (the other's are the same work on its half of the batch)."""
+        from scripts import torch_launch_multihost
+
+        what = f"(4) torch_launch_multihost --model-parallel {mp}"
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = torch_launch_multihost.main([
+                *TOOLS_MULTIHOST_ARGS, "--model-parallel", str(mp),
+                "--workspace", str(self.root / "multihost"), "--port", str(free_port()),
+                "--timeout", "300",
+            ])
+        self.seconds[what] = time.perf_counter() - t0
+        print(buf.getvalue(), end="", flush=True)
+        multi = last_json(buf.getvalue())["multi"]
+        n = {name: multi["train_launches"][name] + multi["retrieval_launches"][name]
+             for name in TOOLS_KERNELS}
+        self.add(what, n)
+        route = (("multi_head_attention", "multi_head_attention_backward") if mp > 1
+                 else ("fused_encoder_layer_train", "fused_encoder_layer_backward"))
+        self.smoke.check(
+            rc == 0 and multi["processes"] == 2 and multi["model_parallel"] == mp
+            and multi["train_loss_finite"] and multi["retrieval_exact_top1"]
+            and multi["tp_crosses_process"] == (mp > 1)
+            and all(n[k] > 0 for k in (*route, "masked_mean_pool_l2norm", "cosine_topk")),
+            f"{what}: finite loss, exact retrieval top-1 ({' and '.join(route)}, K2, K3)",
+        )
+        log(f"{what}: {self.seconds[what]:.1f}s, {json.dumps(multi)}")
+        return multi
+
+    def rehearsal(self) -> dict:
+        """(5) The rehearsal, cut; its report stays in its workdir."""
+        from scripts import torch_rehearsal_real_shapes
+
+        wd = self.root / "rehearsal"
+        rc, text = self.counted(
+            "(5) torch_rehearsal_real_shapes", torch_rehearsal_real_shapes.main,
+            ["--workdir", str(wd), *TOOLS_REHEARSAL_ARGS],
+        )
+        summary = last_json(text)
+        n = self.launches["(5) torch_rehearsal_real_shapes"]
+        self.smoke.check(
+            rc == 0 and summary["vocab"] == 30522 and summary["padded_seq_len"] == [256]
+            and summary["corpus"] == 50_000 and summary["peak_device_gb"] > 0
+            and (wd / "REHEARSAL_RESULTS.md").is_file()
+            and n["fused_encoder_layer_train"] > 0
+            and n["fused_encoder_layer_train"] == n["fused_encoder_layer_backward"]
+            and all(n[k] > 0 for k in ("fused_encoder_layer", "masked_mean_pool_l2norm",
+                                       "cosine_topk")),
+            "(5) the rehearsal at S=256 from the all-MiniLM-L6-v2 architecture (K1-train, K5, "
+            "K1, K2, K3), its report in its workdir",
+        )
+        return summary
+
+    def notebooks(self) -> dict:
+        """(6) Each notebook's code cells in order, in a namespace of its own,
+        from a stand-in repo root in the temporary directory (the notebooks
+        write their workspace beside the root they find)."""
+        cwd = self.root / "notebooks"
+        (cwd / PKG).mkdir(parents=True)  # the root marker the bootstrap cell looks for
+        out = {}
+        here = os.getcwd()
+        os.chdir(cwd)
+        try:
+            for name in NOTEBOOKS:
+                nb = json.loads((REPO / "notebooks" / f"{name}.ipynb").read_text())
+                ns: dict = {"__name__": "__main__"}
+
+                def run_cells(nb=nb, ns=ns) -> None:
+                    for i, cell in enumerate(nb["cells"]):
+                        if cell["cell_type"] == "code":
+                            exec(compile("".join(cell["source"]), f"{name} cell {i}", "exec"), ns)
+
+                self.counted(f"(6) {name}", run_cells)
+                out[name] = {"device": ns.get("DEVICE"), "launches": self.launches[f"(6) {name}"]}
+                if "result" in ns:
+                    out[name]["history"] = ns["result"]["history"]
+        finally:
+            os.chdir(here)
+        n = {name: self.launches[f"(6) {name}"] for name in NOTEBOOKS}
+        self.smoke.check(
+            all(out[name]["device"] == "cuda" for name in NOTEBOOKS[1:])
+            and n["torch_train_two_tower"]["fused_encoder_layer_train"] > 0
+            and n["torch_train_two_tower"]["fused_encoder_layer_backward"] > 0
+            and all(n[name][k] > 0 for name in NOTEBOOKS[1:]
+                    for k in ("fused_encoder_layer", "masked_mean_pool_l2norm", "cosine_topk")),
+            "(6) the notebooks ran on the card: training on K1-train and K5, serving and the "
+            "baselines on K1, K2 and K3",
+        )
+        return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
@@ -5957,6 +6211,10 @@ def main() -> int:
             t0 = time.perf_counter()
             WorkflowsPhase(smoke, Path(tmp), smi, serving, hf_phase.root / hf["dirs"][-1]).run()
             log(f"phase 6 (workflows) {time.perf_counter() - t0:.1f}s ({smi})")
+            t0 = time.perf_counter()
+            ToolsPhase(smoke, Path(tmp), smi).run()
+            log(f"phase 6b (harness entry, tools, notebooks) {time.perf_counter() - t0:.1f}s "
+                f"({smi})")
     except Exception:  # noqa: BLE001 - report the failure and exit non-zero
         traceback.print_exc()
         smoke.failures.append("exception")
@@ -5997,6 +6255,7 @@ def main() -> int:
             **smoke.kernel_rows[name],
             "launches_phase_5b": smoke.launches_5b.get(name, 0),
             "launches_phase_6": smoke.launches_6.get(name, 0),
+            "launches_phase_6b": smoke.launches_6b.get(name, 0),
         })
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -25,15 +25,40 @@ from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
 )
 from instacart_next_order_recommendation_tpu_torch.ops.topk import cosine_topk
 
+# Every kernel wrapper, by the name its launch counter goes under.
+KERNEL_WRAPPERS = (
+    fused_encoder_layer,
+    fused_encoder_layer_train,
+    fused_encoder_layer_backward,
+    masked_mean_pool_l2norm,
+    cosine_topk,
+    multi_head_attention,
+    multi_head_attention_backward,
+)
+
+
+def launch_counts() -> dict[str, int]:
+    """Each kernel wrapper's launches since its counter was last reset."""
+    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in KERNEL_WRAPPERS:
+        w.launches = 0
+
+
 __all__ = [
+    "KERNEL_WRAPPERS",
     "cosine_topk",
     "fused_encoder_layer",
     "fused_encoder_layer_backward",
     "fused_encoder_layer_train",
+    "launch_counts",
     "masked_mean_pool_l2norm",
     "mnrl_loss",
     "multi_head_attention",
     "multi_head_attention_backward",
     "multi_head_attention_backward_reference",
     "multi_head_attention_reference",
+    "reset_launch_counts",
 ]

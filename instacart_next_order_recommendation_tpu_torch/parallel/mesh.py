@@ -108,19 +108,26 @@ def init_distributed(device: str | torch.device = "cuda") -> None:
     """Join the process group torchrun describes, where it describes one.
 
     Does nothing when ``WORLD_SIZE`` is unset or 1, or when a process group
-    exists already (the caller's is used). Otherwise initializes ``nccl`` for
-    a CUDA ``device`` and ``gloo`` for the CPU, from torchrun's environment,
-    and binds ``cuda:LOCAL_RANK``. Raises when initialization fails: the
-    operator asked for N processes, and N processes each training alone
-    would write one output tree N times.
+    exists already (the caller's is used). Otherwise initializes it from
+    torchrun's environment: ``gloo`` for the CPU; for a CUDA ``device``,
+    ``nccl`` with ``cuda:LOCAL_RANK`` where each of the host's
+    ``LOCAL_WORLD_SIZE`` processes has a GPU of its own, and ``gloo`` with
+    ``cuda:LOCAL_RANK`` modulo the GPU count where more processes than GPUs
+    share the host (NCCL refuses two ranks on one GPU). Raises when
+    initialization fails: the operator asked for N processes, and N
+    processes each training alone would write one output tree N times.
     """
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
         return
     cuda = torch.device(device).type == "cuda"
+    backend = "gloo"
     try:
         if cuda:
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("nccl" if cuda else "gloo", init_method="env://")
+            local, gpus = int(os.environ.get("LOCAL_RANK", "0")), torch.cuda.device_count()
+            if int(os.environ.get("LOCAL_WORLD_SIZE", "1")) <= gpus:
+                backend = "nccl"
+            torch.cuda.set_device(local % gpus)
+        dist.init_process_group(backend, init_method="env://")
     except Exception as exc:
         raise RuntimeError(
             "WORLD_SIZE > 1 but the process group did not initialize (check MASTER_ADDR, "

@@ -58,8 +58,13 @@ class FusedServePipeline:
         ``mask`` is accepted for symmetry with the tokenizer's output but
         never transferred: pad positions in ``ids`` determine it on device.
         """
-        k = min(k, self.n_valid)
         ids_d = torch.from_numpy(np.ascontiguousarray(ids.astype(self.wire_dtype))).to(self.device)
+        return self.run_device(ids_d, k)
+
+    @torch.inference_mode()
+    def run_device(self, ids_d: torch.Tensor, k: int):
+        """``topk_device`` on ids already on the device (``wire_dtype``)."""
+        k = min(k, self.n_valid)
         emb = encode_from_ids(
             self.params, ids_d, config=self.config, pad_id=self.pad_id, layers=self.layers
         )

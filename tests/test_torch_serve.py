@@ -209,8 +209,35 @@ def test_port_imports_no_jax(served, tmp_path):
             importlib.import_module(f"scripts.torch_{{name}}")
             for name in ("run_demo", "feedback_analytics", "generate_sample_feedback",
                          "feedback_retrain", "compare_untrained_vs_trained", "reval_tower",
-                         "real_data_run")
+                         "real_data_run", "profile_serve", "bench_soak", "launch_multihost",
+                         "make_rehearsal_checkpoint", "rehearsal_real_shapes")
         ]
+        import __graft_entry_torch__ as graft
+        from instacart_next_order_recommendation_tpu_torch.utils import bench_texts
+        # The harness entry and the tools run on the card unless asked for
+        # the CPU: here, with none, each raises before any work.
+        if not torch.cuda.is_available():
+            tools = {{name: sys.modules[f"scripts.torch_{{name}}"] for name in (
+                "profile_serve", "bench_soak", "launch_multihost", "rehearsal_real_shapes")}}
+            no_card = {str(tmp_path / "no_card")!r}
+            calls = [
+                graft.entry,
+                lambda: graft.dryrun_multichip(2),
+                lambda: tools["profile_serve"].main([]),
+                lambda: tools["bench_soak"].main(["--workdir", no_card]),
+                lambda: tools["launch_multihost"].main(["--workspace", no_card]),
+                lambda: tools["rehearsal_real_shapes"].main(["--workdir", no_card]),
+            ]
+            for call in calls:
+                try:
+                    call()
+                except RuntimeError as exc:
+                    assert "CUDA is not available" in str(exc), exc
+                else:
+                    raise AssertionError("ran without a card")
+            assert not os.path.exists(no_card)
+        assert graft.entry(device="cpu")[1][1].shape == (8, 128)
+        assert len(bench_texts.build_catalog_texts(3, __import__("numpy").random.default_rng(0))) == 3
         # torchrun's environment, one rank: init_distributed has nothing to join.
         os.environ.update(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
                           MASTER_ADDR="127.0.0.1", MASTER_PORT="29500")
@@ -254,7 +281,8 @@ def test_port_imports_no_jax(served, tmp_path):
         assert TrainConfig({{"model_name": "mpnet-base"}}).model_name == "mpnet-base"
         assert MPNET_BASE_CLASS.head_dim == 64
         bad = [m for m in sys.modules
-               if m.split(".")[0] in ("jax", "jaxlib", "flax", "instacart_next_order_recommendation_tpu")]
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "instacart_next_order_recommendation_tpu",
+                                      "bench", "__graft_entry__")]
         assert not bad, bad
         # The card's machine has neither: imported only where a file is read.
         lazy = [m for m in sys.modules if m.split(".")[0] in ("yaml", "datasets")]
