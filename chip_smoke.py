@@ -7,24 +7,32 @@ Run from the repository root, with no arguments:
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
-   fails if ptxas spills in an attention kernel at head_dim 32 or 64, in
-   any kernel of the fused layer (K1, K5), in any top-k kernel (K3, K4) or
-   in any pool kernel (K2), or if a head_dim 32 or 64 instance of the fused
-   layer's attention kernels or an instance of the top-k or pool kernel is
+   fails if ptxas spills in any attention kernel (K6, K7; head_dim 16 to
+   128), in any kernel of the fused layer (K1, K5), in any top-k kernel (K3,
+   K4) or in any pool kernel (K2), or if an instance of the fused layer's
+   attention kernels (one-pass forward at head_dim 16, 32 and 64, two-pass
+   forward and backward at 16 to 128) or of the top-k or pool kernel is
    missing.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
    training form of the fused layer (K1 with dropout masks) and the fused
    backward (K5) at B in {1, 64, 512} and S in {32, 64, 128, 256}, K1 and
-   K5 as medians of five readings in turns with their
+   K5 (at the grid's corners and the training shapes) as medians of five
+   readings in turns with their
    ``nn.TransformerEncoderLayer`` yardsticks, and K1-train, K5 and K5's
    yardstick at S=256 broken down launch by launch (``torch.profiler``);
    the same three fused-layer kernels (and K2) at head_dim 64
    (mpnet-base-class widths) at B in {1, 64, 256} and S in {32, 64, 128,
    192, 256}, read in turns with their yardsticks at the serve shape
    (256, 192) and the train shape (64, 256); each K1 reading with the
-   largest |y| and the worst error in bf16 ulps; the attention forward and
+   largest |y| and the worst error in bf16 ulps; the same three past the
+   first envelope: head_dim 32 at S in {272, 384, 512}, head_dim 64 at
+   S=512, head_dim 16 and 128 at one shape each, read in turns with their
+   yardsticks at B=64 and B=256, S=512 (and B=64, S=512 at head_dim 64);
+   at every K1-train/K5 shape the residual-saving pair (K1's save_resid,
+   K5 reading the residuals) bitwise equal to the recompute pair, and K5
+   timed in both forms where timed; the attention forward and
    backward (K6, K7) at the shapes the unfused layer gives them; K3 timed
    at B in {1, 256} over 50k unit rows at D=384 and 768 (and at k in {10,
    100, 256}), K4 at B in {8, 256}, each split by the profiler into the
@@ -52,8 +60,9 @@ Run from the repository root, with no arguments:
    mpnet-base-class tower.
    Then the same serve path for the mpnet-base-class tower at full width
    (head_dim 64 through the fused layer: 12 K1 per forward, no K6),
-   MiniLM-L6 and mpnet-base-class at two lengths their fused kernels do not
-   take (S=512 and S=200, through K6), and
+   MiniLM-L6 and mpnet-base-class at S=512 (through K1: 6 and 12 per
+   forward, no K6) and at S=200, which the fused kernels do not take
+   (S % 16 != 0: K6 in every layer), and
    ``Recommender(topk_extraction="packed")`` (K4) against the exact one.
    K3 and K4 are read beside torch.topk(torch.mm(q, C.T), k) at the
    batch's shapes.
@@ -84,7 +93,8 @@ Run from the repository root, with no arguments:
    and under load at concurrency 8) and /admin/model, with the peak device
    memory; ``ITOR_TOPK_EXTRACTION=packed`` (K4); and the API CLI as a
    subprocess, stopped with SIGINT. Launch counts are reset before and
-   read after.
+   read after. The loads are half of phase 3c's (64, 256 and 512 requests;
+   512 in the profiled run): the host sets their time.
 3e. The IVF index and the bf16 catalog: phase 3's MiniLM-L6 tower, 50k
    catalog and queries through ``Recommender(ann=True)`` at full probe
    (top-10 equal to the exact recommender's by the near-tie rule, filtered
@@ -135,6 +145,16 @@ Run from the repository root, with no arguments:
    with CF; exit 0, both tables parse, NDCG@10 trained above untrained),
    and CF's top-5 for 20 queries against a plain count of co-occurring
    pairs. Launch counts are reset before and read after.
+4c. Training at S=512: phase 4's users in the data prep's form with more
+   history (the last 8 prior orders, at most 40 names: ``max_prior_orders``
+   and ``max_product_names`` raised), whose contexts pass 256 tokens, so
+   ``TwoTowerTrainer.train(data=...)`` with ``max_seq_length: 512`` runs
+   MiniLM-L6 at full width at S=512 for one epoch (35 steps) at B=64: 12
+   K1-train and 12 K5 a step in the form ``saves_residuals`` picks
+   (printed), no K6 or K7, a falling loss; the 3-step check at S=512 with a
+   planted K5 fault (dx negated) that the limits must catch; K1-train, K5
+   and K5-resid at the batch's shape for the kernels line; then a short
+   mpnet-base-class run at S=512, B=64 (24 K1-train and 24 K5 a step).
 5. The same training for the mpnet-base-class tower (``model_name:
    mpnet-base``) for one epoch through the fused layer: 24 K1-train and 24
    K5 launches per step, 12 K1 per eval forward, no K6 or K7; the 3-step
@@ -156,7 +176,8 @@ Run from the repository root, with no arguments:
    one-device encode. Then two gloo ranks share cuda:0 (NCCL refuses two
    ranks on one GPU), spawned by this script, each with its own launch
    counts: DP=2 MiniLM-L6 through ``TwoTowerTrainer.train`` for one epoch
-   at train_batch_size 32 (global 64; 12 K1-train and 12 K5 a rank a step;
+   over 3,072 of phase 4's pairs at train_batch_size 32 (global 64; 12
+   K1-train and 12 K5 a rank a step;
    the loss falls; only rank 0 writes; ``final/`` serves), TP=2
    mpnet-base-class for two epochs at B=64, S=256 (24 K6 and 24 K7 a rank
    a step, no K1 or K5; the loss falls; peak memory a rank), and for each
@@ -190,15 +211,17 @@ Run from the repository root, with no arguments:
    (6 K1 and 1 K2, held to the plain forward) and ``dryrun_multichip(2)``
    (two gloo ranks on cuda:0: a train step with global-batch MNRL, the
    sharded and masked top-k); ``scripts/torch_profile_serve.py`` at its
-   defaults; ``scripts/torch_bench_soak.py`` with 5 s phases (no batch-1
+   defaults; ``scripts/torch_bench_soak.py`` with 3 s phases (no batch-1
    latch, no window latch, the flood survived); ``scripts/torch_launch_multihost.py``
    with two processes sharing the card over gloo at model_parallel 1 and 2;
-   ``scripts/torch_rehearsal_real_shapes.py`` at 2,000 users for 1 epoch;
+   ``scripts/torch_rehearsal_real_shapes.py`` at 1,500 users for 1 epoch;
    and the four ``notebooks/torch_*.ipynb`` on the GPU. It must launch K1,
    K1-train, K2, K3, K5, K6 and K7.
 7. One JSON line describing each kernel (with ``launches_phase_5b``,
-   ``launches_phase_6`` and ``launches_phase_6b``), then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+   ``launches_phase_6`` and ``launches_phase_6b``: the phase's launches of
+   the row's wrapper, at any shape, or of the form the row names; null
+   where the phase does not count the row apart, as for a row of one
+   shape), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, when CUDA is absent or any check
 fails. Imports nothing of JAX.
@@ -311,20 +334,27 @@ K5_REL_TOL = 2e-2
 # The kernels of each fused-layer library, as ptxas names them: every one
 # must appear in its report, and none may spill.
 FUSED_LAYER_KERNELS = {
-    "fused_layer": ("gemm_kernel", "attn_fwd_one_pass_kernel", "residual_layernorm_kernel"),
+    "fused_layer": (
+        "gemm_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
+        "residual_layernorm_kernel",
+    ),
     "fused_layer_bwd": (
-        "gemm_kernel", "attn_fwd_one_pass_kernel", "residual_layernorm_kernel",
-        "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel", "ln_bwd_kernel", "colsum_kernel",
+        "gemm_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
+        "residual_layernorm_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+        "ln_bwd_kernel", "colsum_kernel",
     ),
 }
-# The attention instances of each fused-layer library: head_dim 32 and 64,
-# one to four 64-key tiles (S <= 256).
-_FWD = [f"attn_fwd_one_pass_kernel<{d},{n},0>" for d in (32, 64) for n in range(1, 5)]
+# The attention instances of each fused-layer library: the one-pass forward
+# at head_dim 16, 32 and 64 over one to four 64-key tiles (S <= 256); the
+# two-pass forward and the (streamed) backward at every head_dim.
+FUSED_HEAD_DIMS = (16, 32, 64, 128)
+_FWD = [f"attn_fwd_one_pass_kernel<{d},{n},0>" for d in (16, 32, 64) for n in range(1, 5)]
+_FWD += [f"attn_fwd_two_pass_kernel<{d},0>" for d in FUSED_HEAD_DIMS]
 FUSED_LAYER_ATTENTION = {
     "fused_layer": _FWD,
     "fused_layer_bwd": _FWD + [
-        f"{k}<{d},{n}>" for k in ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
-        for d in (32, 64) for n in range(1, 5)
+        f"{k}<{d}>" for k in ("attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+        for d in FUSED_HEAD_DIMS
     ],
 }
 # The top-k kernel's instances (csrc/topk.cu): <query tile, list size>, on
@@ -556,11 +586,13 @@ def layer_weight_bytes(h: int, inter: int) -> int:
     return (4 * h * h + 2 * h * inter) * 2 + (6 * h + inter) * 2 + 4 * h * 4
 
 
-def k1_bound(b: int, s: int, h: int, inter: int, masked: bool = False) -> tuple[float, str]:
+def k1_bound(b: int, s: int, h: int, inter: int, masked: bool = False,
+             resid: bool = False) -> tuple[float, str]:
     """x read and y written once (and the two [B, S, H] bf16 dropout masks
-    read), the key bias and the weights read once; the four GEMMs and
-    attention."""
-    n_bytes = b * s * h * 2 * (4 if masked else 2) + b * s * 4 + layer_weight_bytes(h, inter)
+    read, and the four residuals written in the residual-saving form), the
+    key bias and the weights read once; the four GEMMs and attention."""
+    tensors = 2 + (2 if masked else 0) + (4 if resid else 0)
+    n_bytes = b * s * h * 2 * tensors + b * s * 4 + layer_weight_bytes(h, inter)
     ops = 2 * b * s * (4 * h * h + 2 * h * inter) + 4 * b * s * s * h
     return bound_ms(n_bytes, ops, PEAK_BF16)
 
@@ -737,14 +769,20 @@ def topk_reading(q, c, k: int, packed: bool, iters: int = 20) -> dict:
     return row
 
 
-def k5_bound(b: int, s: int, h: int, inter: int, masked: bool) -> tuple[float, str]:
-    """Inputs x, g (and masks) and the weights read once, dx and the twelve
-    grads written once; forward recompute + dgrad + wgrad GEMMs and the
-    attention backward."""
+def k5_bound(b: int, s: int, h: int, inter: int, masked: bool,
+             resid: bool = False) -> tuple[float, str]:
+    """Inputs x, g (and masks, and in the resid form the four residuals)
+    and the weights read once, dx and the twelve grads written once;
+    forward recompute + dgrad + wgrad GEMMs and the attention backward. The
+    resid form recomputes only the qkv and W1 products of the forward: 2 *
+    B*S*(3*H^2 + H*I) fewer operations, and no attention forward."""
     n_bytes = (
-        b * s * h * 2 * (3 + (2 if masked else 0)) + b * s * 4 + 2 * layer_weight_bytes(h, inter)
+        b * s * h * 2 * (3 + (2 if masked else 0) + (4 if resid else 0)) + b * s * 4
+        + 2 * layer_weight_bytes(h, inter)
     )
-    ops = 3 * 2 * b * s * (4 * h * h + 2 * h * inter) + 12 * b * s * s * h
+    forward = 2 * b * s * ((3 * h * h + h * inter) if resid else (4 * h * h + 2 * h * inter))
+    attention = (8 if resid else 12) * b * s * s * h
+    ops = forward + 2 * 2 * b * s * (4 * h * h + 2 * h * inter) + attention
     return bound_ms(n_bytes, ops, PEAK_BF16)
 
 
@@ -1052,17 +1090,28 @@ def packed_ties_ok(queries, catalog, i_packed, i_exact) -> bool:
     return bool(((a - b).abs() <= PACKED_TIE_REL * b.abs() + 1e-6).all())
 
 
+def bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.int16), b.contiguous().view(torch.int16)
+    )
+
+
 def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_iters):
     """K1's mask form and K5 at x's shape against their plain versions (the
     plain backward is autograd of the plain forward), with their bounds;
-    unless ``library`` is None, timed with CUDA events in turns with one
-    ``library`` (nn.TransformerEncoderLayer) forward and backward (medians of
-    five readings). Returns the two kernels-line rows (without launches),
-    the gradient with the largest relative error, and whether every output
-    is finite."""
+    both residual-saving forms against the recompute forms, bit for bit
+    (K1's save_resid gives the same y, K5 reading the residuals the same dx
+    and twelve grads); unless ``library`` is None, timed with CUDA events
+    in turns with one ``library`` (nn.TransformerEncoderLayer) forward and
+    backward (medians of five readings), K5 in both forms. K1-train takes
+    the form ``saves_residuals`` picks, as in training. Returns the two
+    kernels-line rows (without launches; the K5 row the recompute form's,
+    with the resid form's under ``resid``), the gradient with the largest
+    relative error, and whether every output is finite."""
     from instacart_next_order_recommendation_tpu_torch.ops import (
         fused_encoder_layer_backward,
         fused_encoder_layer_train,
+        fused_layer,
     )
     from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
         WEIGHT_NAMES,
@@ -1083,32 +1132,52 @@ def measure_train_kernels(x, mask, layer, masks, up, library, kw, iters, plain_i
     def k5():
         return fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
 
+    y_r, resids = fused_layer._launch(x, bias, layer, masks, **kw, save_resid=True)
+
+    def k5_resid():
+        return fused_encoder_layer_backward(x, bias, up, masks, layer, **kw, resids=resids)
+
     def plain5():
         return fused_encoder_layer_backward_reference(x, bias, up, masks, layer, **kw)
 
     y = k1()
     (dx, dw), (dx_r, dw_r) = k5(), plain5()
+    dx_k, dw_k = k5_resid()
     pairs = {"dx": (dx, dx_r), **{n: (dw[n], dw_r[n]) for n in WEIGHT_NAMES}}
     rel = {n: rel_err(a, r) for n, (a, r) in pairs.items()}
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, *dw.values()))
-    bound1, by1 = k1_bound(b, s, h, inter, masks is not None)
+    resid_bitwise = (
+        bitwise_equal(fused_layer._launch(x, bias, layer, masks, **kw), y_r)
+        and bitwise_equal(dx, dx_k) and all(bitwise_equal(dw[n], dw_k[n]) for n in WEIGHT_NAMES)
+    )
+    bound1, by1 = k1_bound(
+        b, s, h, inter, masks is not None, fused_layer.saves_residuals(b, s, h, inter)
+    )
     bound5, by5 = k5_bound(b, s, h, inter, masks is not None)
+    bound5r, by5r = k5_bound(b, s, h, inter, masks is not None, resid=True)
     k1_row = dict(bound_ms=bound1, bound_by=by1, **k1_error(y, plain1()))
     k5_row = dict(
         max_abs_err=max((a.float() - r.float()).abs().max().item() for a, r in pairs.values()),
-        max_rel_err=rel[worst], bound_ms=bound5, bound_by=by5,
+        max_rel_err=rel[worst], bound_ms=bound5, bound_by=by5, resid_bitwise=resid_bitwise,
+        resid=dict(bound_ms=bound5r, bound_by=by5r),
     )
-    del y, dx, dw, dx_r, dw_r, pairs
+    del y, dx, dw, dx_r, dw_r, dx_k, dw_k, pairs, y_r
     if library is not None:
         lib_fwd, lib_bwd = library_train_calls(library, x, mask == 0, up)
-        ms = ms_in_turns({"k1": k1, "lib_fwd": lib_fwd, "k5": k5, "lib_bwd": lib_bwd}, iters)
+        ms = ms_in_turns({
+            "k1": k1, "lib_fwd": lib_fwd, "k5": k5, "k5_resid": k5_resid, "lib_bwd": lib_bwd,
+        }, iters)
         k1_row.update(
             ms=ms["k1"], plain_ms=cuda_ms(plain1, plain_iters, 1), library_ms=ms["lib_fwd"]
         )
         k5_row.update(
             ms=ms["k5"], plain_ms=cuda_ms(plain5, plain_iters, 1), library_ms=ms["lib_bwd"]
         )
+        k5_row["resid"].update(
+            ms=ms["k5_resid"], plain_ms=k5_row["plain_ms"], library_ms=ms["lib_bwd"],
+        )
+    k5_row["resid"].update(max_abs_err=k5_row["max_abs_err"], max_rel_err=k5_row["max_rel_err"])
     return k1_row, k5_row, worst, finite
 
 
@@ -1171,21 +1240,22 @@ def held_out_users(users: list) -> int:
     return max(1, int(len(users) * EVAL_FRAC))
 
 
-def build_training_data(synthetic: dict):
+def build_training_data(synthetic: dict, max_prior_orders: int = MAX_PRIOR_ORDERS,
+                        max_product_names: int = MAX_PRODUCT_NAMES):
     """(anchors, positives, eval_pairs, eval_queries, eval_corpus, relevant)
     in the form the data prep writes for ``configs/data_prep.yaml``
-    (p5_mp20), from ``synthetic_users``: an anchor is the user's context
-    before the target order (the last MAX_PRIOR_ORDERS prior orders, oldest
-    first, at most MAX_PRODUCT_NAMES names, then ``Next: <time>``), a
-    positive one product of that order. The numerically last EVAL_FRAC of
-    target orders are held out; their queries drop the ``Next:`` clause, as
-    at serve time."""
+    (p5_mp20 by default), from ``synthetic_users``: an anchor is the user's
+    context before the target order (the last ``max_prior_orders`` prior
+    orders, oldest first, at most ``max_product_names`` names, then ``Next:
+    <time>``), a positive one product of that order. The numerically last
+    EVAL_FRAC of target orders are held out; their queries drop the
+    ``Next:`` clause, as at serve time."""
     catalog, names = synthetic["catalog"], synthetic["names"]
     targets = []  # (order id, context, basket) of each user's last order
     for orders in synthetic["users"]:
         segments, total = [], 0
-        for _, days, dow, hour, basket in orders[-1 - MAX_PRIOR_ORDERS : -1]:
-            take = basket[: MAX_PRODUCT_NAMES - total]
+        for _, days, dow, hour, basket in orders[-1 - max_prior_orders : -1]:
+            take = basket[: max_product_names - total]
             if not take:
                 break
             total += len(take)
@@ -1237,9 +1307,14 @@ class Smoke:
         self.kernel_rows: dict[str, dict] = {}
         self.pool_rows: dict[int, list[dict]] = {}  # K2 readings by hidden width
         self.ivf_1m: dict = {}  # phase 3e's 1M rows and one-device readings, for phase 5b
-        self.launches_5b: dict[str, int] = {}  # phase 5b's launches by kernels-line name
-        self.launches_6: dict[str, int] = {}  # phase 6's launches by kernels-line name
-        self.launches_6b: dict[str, int] = {}  # phase 6b's launches by wrapper name
+        # Phases 5b, 6 and 6b's launches by ``ops.launch_counts`` name (5b's
+        # top-k forms by kernels-line name).
+        self.launches_5b: dict[str, int] = {}
+        self.launches_6: dict[str, int] = {}
+        self.launches_6b: dict[str, int] = {}
+        # Phase 2's timed K1 rows ("forward", widths, B, S) and K1-train and
+        # K5 rows ("train", widths, B, S), for the kernels line.
+        self.phase2_rows: dict[tuple, object] = {}
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1280,6 +1355,8 @@ class Smoke:
                     row = k1_error(y, fused_encoder_layer_reference(x, mask, layer, **kw))
                     row.update(zip(("bound_ms", "bound_by"), k1_bound(b, s, h, inter)))
                 finite = bool(torch.isfinite(y.float()).all())
+                if "ms" in row:
+                    self.phase2_rows[("forward", widths, b, s)] = row
                 log(
                     f"K1 fused_encoder_layer {widths} B={b} S={s}: {json.dumps(row)} "
                     f"(tol {K1_TOL}) finite={finite} launches={fused_encoder_layer.launches}"
@@ -1304,7 +1381,8 @@ class Smoke:
 
     def compare_kernels(self, dev) -> None:
         """K1 and K2 at MiniLM-L6 widths over B in {1, 256, 512} and S in
-        {32, 64, 128, 256}, every shape timed; then K3 and K4."""
+        {32, 64, 128, 256}, timed at the grid's corners and the longest S;
+        then K3 and K4."""
         from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
         from instacart_next_order_recommendation_tpu_torch.ops.topk import (
             cosine_topk_packed_reference,
@@ -1312,7 +1390,10 @@ class Smoke:
         )
 
         g = torch.Generator().manual_seed(1)
-        self.compare_forward_kernels(dev, MINILM_WIDTHS, (1, 256, 512), (32, 64, 128, 256), g)
+        self.compare_forward_kernels(  # timed at the grid's corners and the longest S
+            dev, MINILM_WIDTHS, (1, 256, 512), (32, 64, 128, 256), g,
+            timed={(1, 32), (1, 256), (256, 256), (512, 32), (512, 256)},
+        )
 
         # K3: grid-valued catalog and queries, so every score is exact in
         # f32 under any summation order; ids must then be identical.
@@ -1594,6 +1675,13 @@ class Smoke:
                 self.check(
                     finite and k5["max_rel_err"] <= K5_REL_TOL, f"K5 {widths} B={b} S={s}"
                 )
+                self.check(
+                    k5["resid_bitwise"],
+                    f"K1-train's and K5's resid forms bitwise equal to the recompute forms "
+                    f"{widths} B={b} S={s}",
+                )
+                if "ms" in k1:
+                    self.phase2_rows[("train", widths, b, s)] = (k1, k5)
                 if (b, s) in traced:
                     bias = ((1.0 - mask.float()) * -1e9).contiguous()
                     show_breakdown(
@@ -1614,6 +1702,27 @@ class Smoke:
                 torch.cuda.empty_cache()
         del library
         torch.cuda.empty_cache()
+
+    def compare_contract_shapes(self, dev) -> None:
+        """K1, K1-train and K5 (both forms) against their plain versions at
+        the shapes past the first envelope: head_dim 32 (MiniLM-L6's widths)
+        at S in {272, 384, 512}, head_dim 64 (mpnet-base-class's) at S=512,
+        and head_dim 16 and 128 at one shape each; read in turns with their
+        yardsticks at B=64 and B=256, S=512 (MiniLM), at B=64, S=512 (mpnet)
+        and at the head_dim 16 and 128 shapes."""
+        g = torch.Generator().manual_seed(60)
+        hd16, hd128 = (256, 16, 1024), (768, 6, 3072)
+        cases = [  # (widths, batches, seqs, timed (B, S), seed)
+            (MINILM_WIDTHS, (2, 64), (272, 384), set(), 61),
+            (MINILM_WIDTHS, (64, 256), (512,), {(64, 512), (256, 512)}, 62),
+            (MPNET_WIDTHS, (64,), (512,), {(64, 512)}, 63),
+            (hd16, (8,), (320,), {(8, 320)}, 64),
+            (hd128, (8,), (512,), {(8, 512)}, 65),
+        ]
+        for widths, batches, seqs, timed, seed in cases:
+            with torch.inference_mode():
+                self.compare_forward_kernels(dev, widths, batches, seqs, g, timed=timed)
+            self.compare_train_kernels(dev, widths, batches, seqs, seed=seed, timed=timed)
 
     def time_pool(self, dev, h: int, shapes, seed: int) -> list[dict]:
         """K2 (``pool_reading``) at width ``h`` and the (B, S) pairs in
@@ -2017,10 +2126,13 @@ class Smoke:
         return out
 
     def repaired_shapes(self, dev) -> dict:
-        """MiniLM-L6 and mpnet-base-class at two lengths their fused kernels
-        do not take: a batch that buckets to S=512 under max_seq_length 512,
-        and one that fills max_seq_length 200. Each takes the unfused layer
-        (K6 in every layer, no K1) and must match the plain versions."""
+        """MiniLM-L6 and mpnet-base-class at two lengths past the serve
+        batch's: a batch that buckets to S=512 under max_seq_length 512,
+        which the fused layer takes (6 / 12 K1 per forward, no K6), and one
+        that fills max_seq_length 200, which it does not (S % 16 != 0: the
+        unfused layer, K6 in every layer, no K1). Each must match the plain
+        versions. The S=512 MiniLM counts are the launches of the kernels
+        line's ``fused_encoder_layer_s512`` row."""
         from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
         from instacart_next_order_recommendation_tpu_torch.ops import (
             fused_encoder_layer,
@@ -2051,13 +2163,21 @@ class Smoke:
             key = f"{tower} S={max_len}"
             out[key] = {"seq": int(ids.shape[1]), "max_abs_err": err, "launches": counts}
             log(f"{tower} at max_seq_length {max_len}: {json.dumps(out[key])}")
-            self.check(
-                ids.shape[1] == max_len
-                and counts["multi_head_attention"] == enc.config.num_layers
-                and counts["fused_encoder_layer"] == 0 and err <= 5e-3
-                and bool(torch.isfinite(emb).all()),
-                f"{tower} at S={max_len} through K6, matching the plain versions",
+            fused = max_len % 16 == 0
+            route = (
+                counts["fused_encoder_layer"] == enc.config.num_layers
+                and counts["multi_head_attention"] == 0
+            ) if fused else (
+                counts["multi_head_attention"] == enc.config.num_layers
+                and counts["fused_encoder_layer"] == 0
             )
+            self.check(
+                ids.shape[1] == max_len and route and err <= 5e-3
+                and bool(torch.isfinite(emb).all()),
+                f"{tower} at S={max_len} through {'K1' if fused else 'K6'}, matching the plain "
+                f"versions",
+            )
+        self.s512_serve_launches = out["MiniLM-L6 S=512"]["launches"]["fused_encoder_layer"]
         return out
 
     def serve_packed(self, dev) -> dict:
@@ -2883,6 +3003,11 @@ def ivf_search(ivf, nprobe: int, q, k: int):
 
 
 API_MAX_CONCURRENCY = 256  # the smoke's servers: load at concurrency 64 never nears it
+# Phase 3d's HTTP loads (concurrency, requests): half of phase 3c's batcher
+# runs, since the host, not the card, sets their time (phase 3d took
+# 63.5-113.7 s with phase 3c's loads on two machines, PERF.md).
+API_LOAD_RUNS = ((1, 64), (8, 256), (64, 512))
+API_PROFILED_REQUESTS = 512
 API_SECOND_CORPUS = 10_000
 API_EVAL_USERS = 32
 API_METRICS = (
@@ -3306,7 +3431,7 @@ class HttpApiPhase:
         kind = "batched" if batched else "direct"
         before, cal_before = launch_counts(), len(rec._stage_cal._cache)
         runs, checked, chunks, n_filtered = {}, [], 0, 0
-        for concurrency, n in BATCHER_RUNS:
+        for concurrency, n in API_LOAD_RUNS:
             reqs = [self.request_body(i) for i in range(n)]
             drains_before = dict(batcher.drain_sizes) if batched else {}
             got = self.client_run(served.port, concurrency, [body for _, _, body in reqs])
@@ -3361,7 +3486,7 @@ class HttpApiPhase:
         from instacart_next_order_recommendation_tpu_torch.api.http import TestClient
 
         client = TestClient(app)
-        reqs = [self.request_body(i) for i in range(BATCHER_RUNS[0][1])]
+        reqs = [self.request_body(i) for i in range(API_LOAD_RUNS[0][1])]
 
         def direct(req):
             _, _, body = req
@@ -3399,7 +3524,7 @@ class HttpApiPhase:
                "app_handle_no_contexts_p50_ms": percentile_ms(no_contexts_ms, 50),
                "direct_p50_ms": percentile_ms(direct_ms, 50),
                "direct_p95_ms": percentile_ms(direct_ms, 95)}
-        for concurrency, n in BATCHER_RUNS[1:]:
+        for concurrency, n in API_LOAD_RUNS[1:]:
             batch = [self.request_body(i) for i in range(n)]
             t0 = time.perf_counter()
             with ThreadPoolExecutor(concurrency) as ex:
@@ -3408,11 +3533,12 @@ class HttpApiPhase:
         return out
 
     def profiled_run(self, port: int) -> dict:
-        """1,024 requests at concurrency 64 once under ``torch.profiler``
-        (device only): the share of the wall time the device is idle."""
+        """API_PROFILED_REQUESTS requests at concurrency 64 once under
+        ``torch.profiler`` (device only): the share of the wall time the
+        device is idle."""
         from torch.profiler import ProfilerActivity, profile
 
-        bodies = [self.request_body(i)[2] for i in range(1024)]
+        bodies = [self.request_body(i)[2] for i in range(API_PROFILED_REQUESTS)]
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             got = self.client_run(port, 64, bodies)
             torch.cuda.synchronize()
@@ -3420,7 +3546,7 @@ class HttpApiPhase:
         wall_ms = got["wall_s"] * 1e3
         self.smoke.check(all(r[0] == 200 for r in got["results"]),
                          "profiled HTTP run: every request 200")
-        return {"queries_per_s": 1024 / got["wall_s"], "device_busy_ms": busy_us / 1e3,
+        return {"queries_per_s": API_PROFILED_REQUESTS / got["wall_s"], "device_busy_ms": busy_us / 1e3,
                 "device_idle_share": 1 - busy_us / 1e3 / wall_ms if n_spans
                 else "not measured", "device_launches": n_spans}
 
@@ -3670,6 +3796,12 @@ class HttpApiPhase:
         return out
 
 
+# The ``ops.launch_counts`` name of the kernels-line rows that phases 5b, 6
+# and 6b count under another name than their own; a row whose name is in
+# neither the phase's counts nor this map prints null.
+PHASE_COUNTER = {"fused_encoder_layer_backward_resid": "fused_encoder_layer_backward.resid"}
+
+
 def training_wrappers() -> tuple:
     """Every kernel wrapper a training run may launch, on either route."""
     from instacart_next_order_recommendation_tpu_torch.ops import KERNEL_WRAPPERS
@@ -3682,11 +3814,13 @@ class TrainPhase:
 
     model_name = "minilm-l6"
     row_suffix = ""  # the kernels-line names of this tower's K1-train and K5 rows
+    dir_name = None  # its work directory's name, when not the model's
+    seq = 256  # the length its training batches bucket to
 
     def __init__(self, smoke: "Smoke", dev, workdir: Path, data=None):
         self.smoke = smoke
         self.dev = dev
-        self.workdir = workdir / self.model_name
+        self.workdir = workdir / (self.dir_name or self.model_name)
         self.data = data if data is not None else build_training_data(
             synthetic_users(np.random.default_rng(1))
         )
@@ -3723,13 +3857,10 @@ class TrainPhase:
         ]
 
     def run(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch import ops
         from instacart_next_order_recommendation_tpu_torch.ops import (
-            cosine_topk,
-            fused_encoder_layer,
             fused_encoder_layer_backward,
-            fused_encoder_layer_train,
             fused_layer,
-            masked_mean_pool_l2norm,
         )
         from instacart_next_order_recommendation_tpu_torch.serve.recommender import Recommender
         from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
@@ -3740,18 +3871,13 @@ class TrainPhase:
         ndcg_untrained = self.untrained(corpus_path)
 
         # ---- the main path, counted from zero
-        wrappers = (
-            fused_encoder_layer_train, fused_encoder_layer_backward, masked_mean_pool_l2norm,
-            fused_encoder_layer, cosine_topk,
-        )
-        for w in wrappers:
-            w.launches = 0
+        ops.reset_launch_counts()
         trainer = TwoTowerTrainer(self.config("trained"))
         t0 = time.perf_counter()
         result = trainer.train(data=self.data)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = ops.launch_counts()
         # ---- end of the main path
 
         losses = np.asarray(trainer.step_losses)
@@ -3783,7 +3909,14 @@ class TrainPhase:
             and counts["fused_encoder_layer_backward"] == 12 * steps,
             "12 train-form K1 and 12 K5 launches per step",
         )
-        smoke.check(all(v > 0 for v in counts.values()), "every kernel launched while training")
+        on_path = ("fused_encoder_layer_train", "fused_encoder_layer_backward",
+                   "masked_mean_pool_l2norm", "fused_encoder_layer", "cosine_topk")
+        smoke.check(all(counts[n] > 0 for n in on_path), "every kernel launched while training")
+        smoke.check(
+            counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
+            "no K6 or K7 while training at S=256",
+        )
+        self.check_form(counts, steps, 12)
 
         best = max(hist, key=lambda h: h["ndcg_at_10"])
         log(
@@ -3831,6 +3964,26 @@ class TrainPhase:
             "flagship_b512": flagship,
             "step_breakdown": breakdown,
         }
+
+    def check_form(self, counts: dict, steps: int, per_step: int, batch: int = 64) -> str:
+        """The form the training layers took (``saves_residuals`` at this
+        tower's shape): every K1-train and K5 launch in it. Returns it."""
+        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+            saves_residuals,
+        )
+        from instacart_next_order_recommendation_tpu_torch.train.trainer import _PRESETS
+
+        cfg = _PRESETS[self.model_name]
+        resid = saves_residuals(batch, self.seq, cfg.hidden_size, cfg.intermediate_size)
+        form = "resid" if resid else "recompute"
+        want = per_step * steps if resid else 0
+        log(f"{self.model_name} B={batch} S={self.seq}: the training layers' form is {form}")
+        self.smoke.check(
+            counts["fused_encoder_layer_train.resid"] == want
+            and counts["fused_encoder_layer_backward.resid"] == want,
+            f"{self.model_name} at S={self.seq}: every K1-train and K5 in the {form} form",
+        )
+        return form
 
     def untrained(self, corpus_path: Path) -> float:
         """Zero epochs export the initial params as ``untrained/final/`` (the
@@ -3896,11 +4049,18 @@ class TrainPhase:
         k1, k5, worst, finite = measure_train_kernels(x, a_mask, layer, masks, up, library, kw, 20, 3)
         self.smoke.check(finite and k1["max_abs_err"] <= K1_TOL, "K1-train at the training batch shape")
         self.smoke.check(finite and k5["max_rel_err"] <= K5_REL_TOL, "K5 at the training batch shape")
+        self.smoke.check(k5["resid_bitwise"], "K5-resid bitwise K5 at the training batch shape")
+        # K1-train and K5 rows: either form's launches; the resid row: the
+        # residual-saving form's.
         self.smoke.kernel_rows["fused_encoder_layer_train" + self.row_suffix] = {
             **k1, "launches": counts["fused_encoder_layer_train"]
         }
         self.smoke.kernel_rows["fused_encoder_layer_backward" + self.row_suffix] = {
-            **k5, "launches": counts["fused_encoder_layer_backward"]
+            **{k: v for k, v in k5.items() if k != "resid"},
+            "launches": counts["fused_encoder_layer_backward"],
+        }
+        self.smoke.kernel_rows["fused_encoder_layer_backward_resid" + self.row_suffix] = {
+            **k5["resid"], "launches": counts["fused_encoder_layer_backward.resid"]
         }
         log(
             f"K1-train/K5 rows measured at the training batch's shape B={x.shape[0]} "
@@ -3936,6 +4096,7 @@ class TrainPhase:
         readings and the faults': every fault above the gradient limit, one
         above the loss limit. ``counter`` must count ``per_step`` launches
         of the backward kernel per step."""
+        from instacart_next_order_recommendation_tpu_torch import ops
         from instacart_next_order_recommendation_tpu_torch.train.trainer import (
             TrainStep,
             build_optimizer,
@@ -3984,11 +4145,9 @@ class TrainPhase:
                 "k_b_max_abs": grads["layers/k_b"].abs().max().item(),
             }
 
-        wrappers = training_wrappers()
-        for w in wrappers:
-            w.launches = 0
+        ops.reset_launch_counts()
         sound = readings(*run())
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = ops.launch_counts()
         launched = counter.launches
 
         def planted(module, name, change):
@@ -3998,7 +4157,8 @@ class TrainPhase:
                 return change(*wrapper(*args, **kwargs))
 
             # Each wrapper counts its launches through its module-level name.
-            faulty.launches = 0
+            for attr in ops.counter_names(wrapper):
+                setattr(faulty, attr, 0)
             with mock.patch.object(module, name, faulty):
                 return readings(*run())
 
@@ -4139,6 +4299,7 @@ class MpnetTrainPhase(TrainPhase):
     row_suffix = "_hd64"
 
     def run(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch import ops
         from instacart_next_order_recommendation_tpu_torch.ops import (
             attention,
             fused_encoder_layer_backward,
@@ -4151,9 +4312,7 @@ class MpnetTrainPhase(TrainPhase):
         ndcg_untrained = self.untrained(self.workdir / "train_corpus.json")
 
         # ---- the main path, counted from zero
-        wrappers = training_wrappers()
-        for w in wrappers:
-            w.launches = 0
+        ops.reset_launch_counts()
         trainer = TwoTowerTrainer(
             self.config("trained", epochs=MPNET_EPOCHS, learning_rate=MPNET_LR)
         )
@@ -4161,7 +4320,7 @@ class MpnetTrainPhase(TrainPhase):
         result = trainer.train(data=self.data)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        counts = {w.__name__: w.launches for w in wrappers}
+        counts = ops.launch_counts()
         # ---- end of the main path
 
         losses = np.asarray(trainer.step_losses)
@@ -4199,6 +4358,7 @@ class MpnetTrainPhase(TrainPhase):
             and counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
             "mpnet: 24 K1-train and 24 K5 launches per step, 12 K1 per eval forward, no K6 or K7",
         )
+        self.check_form(counts, steps, 24)
         best = max(hist, key=lambda h: h["ndcg_at_10"])
         log(f"mpnet NDCG@10: trained {best['ndcg_at_10']:.4f}, untrained {ndcg_untrained:.4f}")
 
@@ -4285,7 +4445,7 @@ class MpnetTrainPhase(TrainPhase):
             f"K7 {json.dumps(self.smoke.kernel_rows['multi_head_attention_backward'])}"
         )
 
-    def remat_sample(self, seq: int, expect_remat: bool, n_steps: int = 5) -> dict:
+    def remat_sample(self, seq: int, expect_remat: bool, n_steps: int = 3) -> dict:
         """B=256 steps at ``seq`` with the remat that _resolve_remat chooses,
         timed, with the peak device memory and every wrapper's launches; they
         must fit and give finite losses. At S=256 the fused kernels take the
@@ -4360,6 +4520,143 @@ class MpnetTrainPhase(TrainPhase):
         self.smoke.check(
             out["launches"] == expected,
             f"mpnet B={REMAT_BATCH} S={seq} (remat {chosen}): launches over {n} steps {expected}",
+        )
+        return out
+
+
+# Phase 4c: training at S=512. The data prep's caps raised
+# (configs/data_prep.yaml's max_prior_orders and max_product_names) put more
+# order history into each context, past 256 tokens, so every batch pads to
+# max_seq_length 512.
+LONG_PRIOR_ORDERS = 8
+LONG_PRODUCT_NAMES = 40
+LONG_SEQ = 512
+LONG_PAIRS = 2_304  # the MiniLM-L6 run's pairs: 36 batches of 64 (35 without duplicates)
+LONG_MPNET_PAIRS = 512  # the mpnet-base-class run's: 8 batches of 64 (6 without duplicates)
+
+
+class LongContextTrainPhase(TrainPhase):
+    """Phase 4c: MNRL training of MiniLM-L6 at full width through
+    TwoTowerTrainer.train(data=...) with max_seq_length 512, on phase 4's
+    users in the data prep's form with more history (the last 8 prior
+    orders, at most 40 names): the contexts pass 256 tokens, so every batch
+    pads to S=512, which the fused layer takes (K1-train and K5 in the form
+    ``saves_residuals`` picks, no K6 or K7). One epoch at B=64 with its IR
+    eval; the 3-step kernels-against-plain check at S=512 with a planted K5
+    fault; then a short mpnet-base-class run at S=512, B=64."""
+
+    dir_name = "minilm-l6-s512"
+    row_suffix = "_s512"
+    seq = LONG_SEQ
+
+    def __init__(self, smoke: "Smoke", dev, workdir: Path, synthetic: dict):
+        anchors, positives, *rest = build_training_data(
+            synthetic, LONG_PRIOR_ORDERS, LONG_PRODUCT_NAMES
+        )
+        super().__init__(
+            smoke, dev, workdir, data=(anchors[:LONG_PAIRS], positives[:LONG_PAIRS], *rest)
+        )
+
+    def config(self, out: str, **kw):
+        return super().config(out, **{"max_seq_length": LONG_SEQ, "epochs": 1, **kw})
+
+    def run(self) -> dict:
+        from instacart_next_order_recommendation_tpu_torch import ops
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            fused_encoder_layer_backward,
+            fused_layer,
+        )
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+
+        smoke = self.smoke
+        ndcg_untrained = self.untrained(self.workdir / "train_corpus.json")
+
+        # ---- the main path, counted from zero
+        ops.reset_launch_counts()
+        trainer = TwoTowerTrainer(self.config("trained"))
+        t0 = time.perf_counter()
+        result = trainer.train(data=self.data)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        # ---- end of the main path
+
+        losses = np.asarray(trainer.step_losses)
+        steps = len(losses)
+        entry = result["history"][0]
+        out = {
+            "batch": 64, "seq": trainer.seq_len, "steps": steps, "train_seconds": train_s,
+            "step_ms": entry["epoch_seconds"] / max(steps, 1) * 1e3,
+            "train_loss": entry["train_loss"], "eval_loss": entry.get("eval_loss"),
+            "ndcg_at_10_trained": entry.get("ndcg_at_10"), "ndcg_at_10_untrained": ndcg_untrained,
+            "launches": counts,
+        }
+        log(f"S=512 train: {json.dumps(out)}")
+        log("S=512 train per-step loss: " + " ".join(f"{v:.4f}" for v in losses))
+        head, tail = losses[:10].mean(), losses[-10:].mean()
+        smoke.check(trainer.seq_len == LONG_SEQ, "the longer contexts bucket to S=512")
+        smoke.check(steps == sum(self.steps_per_epoch(64, 1)), "S=512: steps as the batches give")
+        smoke.check(bool(np.isfinite(losses).all()), "S=512 training losses finite")
+        smoke.check(tail < head, f"S=512 loss falls (first 10 mean {head:.4f}, last 10 {tail:.4f})")
+        smoke.check(
+            counts["fused_encoder_layer_train"] == 12 * steps
+            and counts["fused_encoder_layer_backward"] == 12 * steps
+            and counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
+            "S=512: 12 K1-train and 12 K5 launches per step, no K6 or K7",
+        )
+        out["form"] = self.check_form(counts, steps, 12)
+        self.kernel_rows(trainer, result["final_dir"], counts)
+        out["three_steps_kernels_vs_plain"] = self.kernels_against_plain_steps(
+            LONG_SEQ,
+            {"dx_negated": (
+                fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
+            )},
+            fused_encoder_layer_backward, 12,
+        )
+        out["mpnet"] = self.mpnet_run()
+        return out
+
+    def mpnet_run(self) -> dict:
+        """mpnet-base-class (lr 3e-5, as phase 5) at S=512 on the first
+        LONG_MPNET_PAIRS pairs, one epoch at B=64, no IR eval."""
+        from instacart_next_order_recommendation_tpu_torch import ops
+        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+            saves_residuals,
+        )
+        from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
+
+        anchors, positives, *rest = self.data
+        ops.reset_launch_counts()
+        trainer = TwoTowerTrainer(self.config(
+            "mpnet", model_name="mpnet-base", learning_rate=MPNET_LR,
+            run_information_retrieval_evaluator=False,
+        ))
+        t0 = time.perf_counter()
+        trainer.train(data=(anchors[:LONG_MPNET_PAIRS], positives[:LONG_MPNET_PAIRS], *rest))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        losses = np.asarray(trainer.step_losses)
+        steps = len(losses)
+        resid = saves_residuals(64, LONG_SEQ, *MPNET_WIDTHS[::2])
+        out = {
+            "seq": trainer.seq_len, "steps": steps, "train_seconds": train_s,
+            "losses": losses.tolist(), "form": "resid" if resid else "recompute",
+            "launches": counts,
+        }
+        log(f"mpnet S=512 train: {json.dumps(out)}")
+        self.smoke.check(
+            trainer.seq_len == LONG_SEQ and steps > 0 and bool(np.isfinite(losses).all()),
+            "mpnet at S=512: steps run, losses finite",
+        )
+        per_step = 24 * steps
+        self.smoke.check(
+            counts["fused_encoder_layer_train"] == counts["fused_encoder_layer_backward"] == per_step
+            and counts["fused_encoder_layer_train.resid"]
+            == counts["fused_encoder_layer_backward.resid"] == (per_step if resid else 0)
+            and counts["multi_head_attention"] == counts["multi_head_attention_backward"] == 0,
+            f"mpnet at S=512: 24 K1-train and 24 K5 launches per step in the {out['form']} "
+            f"form, no K6 or K7",
         )
         return out
 
@@ -4711,6 +5008,9 @@ class HfBaselinesPhase:
         epoch at B=64 on phase 4's pairs, with ``ITOR_PROFILE_DIR`` and
         ``ITOR_LOOP_TIMING=1``."""
         from instacart_next_order_recommendation_tpu_torch.models.checkpoint import load_tower
+        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
+            saves_residuals,
+        )
         from instacart_next_order_recommendation_tpu_torch.train import (
             TrainConfig,
             TwoTowerTrainer,
@@ -4746,10 +5046,13 @@ class HfBaselinesPhase:
         timing = [m.strip() for m in messages if "loop timing/dispatch" in m]
         timing_ms = [[int(v) for v in re.findall(r"(\d+) ms", t)] for t in timing]
         files, n_kernels, traced = trace_steps(trace_dir)
-        # Each K5 launch runs one dQ kernel and recomputes the forward's
-        # attention once; each K1-train launch runs that attention once
-        # (phase 2's launch-by-launch breakdowns at B=64 S=256 list them).
-        per_step = [(c["attn_fwd_one_pass_kernel"] - c["attn_bwd_dq_kernel"],
+        # Each K5 launch runs one dQ kernel, and in the recompute form runs
+        # the forward's attention once more; each K1-train launch runs that
+        # attention once (phase 2's launch-by-launch breakdowns at B=64 S=256
+        # list them). The form is the one saves_residuals picks here.
+        resid = saves_residuals(64, trainer.seq_len, h, MINILM_WIDTHS[2])
+        per_step = [(c["attn_fwd_one_pass_kernel"] + c["attn_fwd_two_pass_kernel"]
+                     - (0 if resid else c["attn_bwd_dq_kernel"]),
                      c["attn_bwd_dq_kernel"]) for c in traced]
         final, final_cfg, _ = load_tower(result["final_dir"])
         out = {
@@ -4864,6 +5167,7 @@ MESH_TEXT_TOL = K1_TOL  # TextEncoder over a mesh against one device: K1's state
 MESH_RECALL_TOL = 0.01  # IVF's mesh build against the one-device build, recall@10 at nprobe 8
 MULTI_GPU_TIMEOUT_S = 300
 DP_BATCH = 32  # train_batch_size per data rank: global 64, phase 4's batch
+DP_PAIRS = 3_072  # the DP run's pairs, the first of phase 4's: 48 steps of 64
 TP_PAIRS = 256  # the TP trainer's pairs: the longest distinct anchors, 4 steps of 64 an epoch
 TP_EPOCHS = 2
 # The TP trainer's rate: its 8 steps must show the loss falling on pairs it
@@ -4906,15 +5210,16 @@ class RankRuns:
         self.grads: dict = {}
 
     def counted(self, fn) -> tuple[object, dict[str, int], float]:
-        """``fn()``, its launches by wrapper from zero, and its seconds."""
-        wrappers = training_wrappers()
-        for w in wrappers:
-            w.launches = 0
+        """``fn()``, its launches (``ops.launch_counts``) from zero, and its
+        seconds."""
+        from instacart_next_order_recommendation_tpu_torch import ops
+
+        ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
-        return result, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+        return result, ops.launch_counts(), time.perf_counter() - t0
 
     def train_config(self, name: str, **kw):
         from instacart_next_order_recommendation_tpu_torch.train import TrainConfig
@@ -4995,8 +5300,9 @@ class RankRuns:
         return out
 
     def dp(self) -> dict:
-        """DP=2, MiniLM-L6 at full width: one epoch through the trainer at
-        train_batch_size 32 (global 64), warm-started from phase 4's
+        """DP=2, MiniLM-L6 at full width: one epoch over DP_PAIRS of phase 4's
+        pairs through the trainer at train_batch_size 32 (global 64),
+        warm-started from phase 4's
         untrained tower (the preset's seeded init and vocab, without
         training the vocab again), then the 3-step check with its two
         planted faults."""
@@ -5008,7 +5314,9 @@ class RankRuns:
         cfg = self.train_config("dp", model_name=self.inputs["minilm_untrained"], epochs=1,
                                 train_batch_size=DP_BATCH, learning_rate=2.0e-4, data_parallel=2)
         trainer = TwoTowerTrainer(cfg, device=self.dev)
-        result, counts, seconds = self.counted(lambda: trainer.train(data=self.inputs["data"]))
+        anchors, positives, *rest = self.inputs["data"]
+        data = (anchors[:DP_PAIRS], positives[:DP_PAIRS], *rest)
+        result, counts, seconds = self.counted(lambda: trainer.train(data=data))
         out = {"seconds": seconds, "seq": trainer.seq_len, "losses": trainer.step_losses,
                "history": result["history"], "final_dir": result["final_dir"],
                "launches": counts, "mesh": [trainer.mesh.dp, trainer.mesh.tp]}
@@ -5277,9 +5585,7 @@ class MultiGpuPhase:
         grads = [torch.load(work / f"grads{r}.pt", weights_only=False) for r in range(2)]
         out["dp"] = self.check_dp(ranks, grads)
         out["tp"] = self.check_tp(ranks, grads)
-        for name in ("fused_encoder_layer", "fused_encoder_layer_train",
-                     "fused_encoder_layer_backward", "masked_mean_pool_l2norm", "cosine_topk",
-                     "multi_head_attention", "multi_head_attention_backward"):
+        for name in ranks[0]["dp"]["launches"]:
             self.counts[name] = self.counts.get(name, 0) + sum(
                 r[part]["launches"][name] for r in ranks for part in ("dp", "tp")
             )
@@ -5430,8 +5736,6 @@ WORKFLOW_PRODUCTS = 2_000
 FEEDBACK_REQUESTS = 60  # /recommend calls a sample-feedback run sends
 GATE_FAIL_MARGIN = 1.0  # NDCG@10 lies in [0, 1]: no run beats the deployed one by 1.0
 GATE_PASS_MARGIN = -1.0  # and every run beats it less 1.0
-WORKFLOW_WRAPPERS = ("fused_encoder_layer_train", "fused_encoder_layer_backward",
-                     "fused_encoder_layer", "masked_mean_pool_l2norm", "cosine_topk")
 
 
 class WorkflowsPhase:
@@ -5457,24 +5761,24 @@ class WorkflowsPhase:
         self.root = workdir / "workflows"
         self.root.mkdir(parents=True)
         self.tol = serving["batcher"]["near_tie_tol"]
-        self.counts: dict[str, int] = dict.fromkeys(WORKFLOW_WRAPPERS, 0)
+        self.counts: dict[str, int] = {}  # by ``ops.launch_counts`` name
         self.seconds: dict[str, float] = {}
 
     def counted(self, what: str, fn, *args, **kwargs):
         """``fn(*args, **kwargs)`` with every kernel wrapper counted from
         zero; returns its result, the launches by wrapper, and its stdout
         (echoed). Adds the launches to the phase's totals."""
-        wrappers = {w.__name__: w for w in training_wrappers()}
-        for w in wrappers.values():
-            w.launches = 0
+        from instacart_next_order_recommendation_tpu_torch import ops
+
+        ops.reset_launch_counts()
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             result = fn(*args, **kwargs)
         self.seconds[what] = time.perf_counter() - t0
-        counts = {name: w.launches for name, w in wrappers.items()}
-        for name in WORKFLOW_WRAPPERS:
-            self.counts[name] += counts[name]
+        counts = ops.launch_counts()
+        for name, n in counts.items():
+            self.counts[name] = self.counts.get(name, 0) + n
         print(buf.getvalue(), end="", flush=True)
         log(f"{what}: {self.seconds[what]:.1f}s, launches {json.dumps(counts)}")
         return result, counts, buf.getvalue()
@@ -5541,6 +5845,7 @@ class WorkflowsPhase:
 
     def demo(self) -> dict:
         """(b) ``torch_run_demo.main`` at its defaults, stage by stage."""
+        from instacart_next_order_recommendation_tpu_torch import ops
         from scripts import torch_run_demo
 
         smoke = self.smoke
@@ -5548,13 +5853,12 @@ class WorkflowsPhase:
 
         def watched(name, fn):
             def run(*args, **kwargs):
-                before = {w.__name__: w.launches for w in training_wrappers()}
+                before = ops.launch_counts()
                 t0 = time.perf_counter()
                 result = fn(*args, **kwargs)
                 stages[name] = {
                     "seconds": time.perf_counter() - t0,
-                    "launches": {w.__name__: w.launches - before[w.__name__]
-                                 for w in training_wrappers()},
+                    "launches": {k: n - before[k] for k, n in ops.launch_counts().items()},
                 }
                 return result
             return run
@@ -5795,15 +6099,16 @@ class WorkflowsPhase:
 # (the dry run's ranks, the multi-process harness's workers) report their
 # counts, which are added in. Cuts, each to keep the run well inside its
 # time limit:
-# - the soak's phases last 5 s (its default is 20 s), and its server's
-#   socket timeout is 2 s (default 5 s), so the flood phase lasts 6 s;
+# - the soak's phases last 3 s (its default is 20 s), and its server's
+#   socket timeout is 2 s (default 5 s);
 # - the multi-process harness trains its tiny tower for 1 epoch (default 2)
-#   at its default sizes otherwise;
-# - the rehearsal runs 2,000 users (the reference's scale is 200,000) for 1
+#   and ranks a 5,000-product catalog (default 20,000), at its default
+#   sizes otherwise;
+# - the rehearsal runs 1,500 users (the reference's scale is 200,000) for 1
 #   epoch (default 5), over the reference's 50,000 products.
-TOOLS_SOAK_ARGS = ["--phase-seconds", "5", "--socket-timeout", "2", "--port", "0"]
-TOOLS_MULTIHOST_ARGS = ["--processes", "2", "--epochs", "1"]
-TOOLS_REHEARSAL_ARGS = ["--users", "2000", "--epochs", "1"]
+TOOLS_SOAK_ARGS = ["--phase-seconds", "3", "--socket-timeout", "2", "--port", "0"]
+TOOLS_MULTIHOST_ARGS = ["--processes", "2", "--epochs", "1", "--catalog", "5000"]
+TOOLS_REHEARSAL_ARGS = ["--users", "1500", "--epochs", "1"]
 NOTEBOOKS = ("torch_prepare_data", "torch_train_two_tower", "torch_serve_recommendations",
              "torch_run_baselines")
 # Every kernel phase 6b must launch: K1, K1-train, K5, K2, K3, K6 and K7.
@@ -5841,7 +6146,7 @@ class ToolsPhase:
     flood invariants must hold); (4) ``scripts/torch_launch_multihost.py``
     with 2 processes sharing the card (gloo), at model_parallel 1 (K1-train,
     K5) and 2 (K6, K7); (5) ``scripts/torch_rehearsal_real_shapes.py`` cut to
-    2,000 users and 1 epoch (the all-MiniLM-L6-v2 architecture at B=64,
+    1,500 users and 1 epoch (the all-MiniLM-L6-v2 architecture at B=64,
     S=256); (6) the four ``notebooks/torch_*.ipynb``, their code cells run
     in order in one namespace each, on the GPU their device cell names."""
 
@@ -5849,14 +6154,14 @@ class ToolsPhase:
         self.smoke, self.smi = smoke, smi
         self.root = workdir / "tools"
         self.root.mkdir(parents=True)
-        self.counts: dict[str, int] = dict.fromkeys(TOOLS_KERNELS, 0)
+        self.counts: dict[str, int] = {}  # by ``ops.launch_counts`` name
         self.seconds: dict[str, float] = {}
         self.launches: dict[str, dict[str, int]] = {}
 
     def add(self, what: str, counts: dict[str, int]) -> None:
         self.launches[what] = counts
-        for name in TOOLS_KERNELS:
-            self.counts[name] += counts.get(name, 0)
+        for name, n in counts.items():
+            self.counts[name] = self.counts.get(name, 0) + n
 
     def counted(self, what: str, fn, *args, **kwargs):
         """``fn(*args, **kwargs)`` with every launch counter from zero;
@@ -5897,7 +6202,7 @@ class ToolsPhase:
         out["seconds"] = self.seconds
         out["launches"] = self.launches
         self.smoke.launches_6b = self.counts
-        missing = [name for name in TOOLS_KERNELS if not self.counts[name]]
+        missing = [name for name in TOOLS_KERNELS if not self.counts.get(name)]
         self.smoke.check(not missing, f"phase 6b launched every kernel of its path (missing "
                                       f"{missing})")
         log(f"tools {json.dumps(out)} ({self.smi})")
@@ -6002,7 +6307,7 @@ class ToolsPhase:
         print(buf.getvalue(), end="", flush=True)
         multi = last_json(buf.getvalue())["multi"]
         n = {name: multi["train_launches"][name] + multi["retrieval_launches"][name]
-             for name in TOOLS_KERNELS}
+             for name in multi["train_launches"]}
         self.add(what, n)
         route = (("multi_head_attention", "multi_head_attention_backward") if mp > 1
                  else ("fused_encoder_layer_train", "fused_encoder_layer_backward"))
@@ -6105,10 +6410,12 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
     usage = _build.ptxas_usage(logs["attention"])
     log(f"ptxas (registers, spill stores) of the attention kernels: {json.dumps(usage)}")
-    on_path = [spill for key, (_, spill) in usage.items() if re.search(r"<(32|64)[,>]", key)]
     smoke.check(
-        bool(on_path) and not any(on_path),
-        "no ptxas spills in the attention kernels at head_dim 32 and 64",
+        all(any(key.startswith(f"{k}<{d}") for key in usage)
+            for k in ("attn_fwd_two_pass_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel")
+            for d in FUSED_HEAD_DIMS)
+        and not any(spill for _, spill in usage.values()),
+        "no ptxas spills in the attention kernels (K6, K7) at head_dim 16, 32, 64 and 128",
     )
     usage = _build.ptxas_usage(logs["topk"])
     log(f"ptxas (registers, spill stores) of the topk kernels: {json.dumps(usage)}")
@@ -6130,7 +6437,8 @@ def main() -> int:
             set(FUSED_LAYER_KERNELS[name]) <= {key.split("<")[0] for key in usage}
             and set(FUSED_LAYER_ATTENTION[name]) <= set(usage)
             and not any(spill for _, spill in usage.values()),
-            f"every {name} kernel in ptxas's report (head_dim 32 and 64), none spilling",
+            f"every {name} kernel in ptxas's report (head_dim 16-128, every form), none "
+            "spilling",
         )
 
     try:
@@ -6142,14 +6450,16 @@ def main() -> int:
                 dev, MPNET_WIDTHS, (1, 64, 256), hd64_seqs, torch.Generator().manual_seed(12),
                 timed={(BATCH, 192)},
             )
-        smoke.compare_train_kernels(
+        smoke.compare_train_kernels(  # timed at the grid's corners and the training shapes
             dev, MINILM_WIDTHS, (1, 64, 512), (32, 64, 128, 256), seed=2,
+            timed={(1, 32), (1, 256), (64, 256), (512, 32), (512, 256)},
             traced={(64, 256), (512, 256)},
         )
         smoke.compare_train_kernels(  # timed and traced at the mpnet training batch's shape
             dev, MPNET_WIDTHS, (1, 64, 256), hd64_seqs, seed=12,
             timed={(64, 256)}, traced={(64, 256)},
         )
+        smoke.compare_contract_shapes(dev)
         smoke.compare_attention_kernels(dev)
         smoke.time_topk(dev)
         smoke.compare_packed_topk(dev)
@@ -6201,6 +6511,10 @@ def main() -> int:
             log(f"phase 4b (baselines) {time.perf_counter() - t0:.1f}s; phase 4b in all "
                 f"{t_hf:.1f}s ({smi})")
             t0 = time.perf_counter()
+            long_train = LongContextTrainPhase(smoke, dev, Path(tmp), synthetic).run()
+            log("S=512 train " + json.dumps(long_train))
+            log(f"phase 4c (training at S=512) {time.perf_counter() - t0:.1f}s ({smi})")
+            t0 = time.perf_counter()
             mpnet = MpnetTrainPhase(smoke, dev, Path(tmp), data=minilm.data)
             train_mpnet = mpnet.run()
             log("mpnet train " + json.dumps(train_mpnet))
@@ -6230,6 +6544,12 @@ def main() -> int:
     if smoke.failures:
         log(f"FAILED: {smoke.failures}")
         return 1
+    # K1 at MiniLM-L6's widths, B=64 S=512 (phase 2, read in turns with its
+    # yardstick), with the launches of phase 3's S=512 serve run.
+    smoke.kernel_rows["fused_encoder_layer_s512"] = {
+        **smoke.phase2_rows[("forward", MINILM_WIDTHS, 64, LONG_SEQ)],
+        "launches": smoke.s512_serve_launches,
+    }
     rows = []
     sources = {
         "fused_encoder_layer": ("fused_layer.cu", "ops/fused_layer.py:135"),
@@ -6240,6 +6560,14 @@ def main() -> int:
         "fused_encoder_layer_hd64": ("fused_layer.cu", "ops/fused_layer.py:135"),
         "fused_encoder_layer_train_hd64": ("fused_layer.cu", "ops/fused_layer.py:135"),
         "fused_encoder_layer_backward_hd64": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
+        "fused_encoder_layer_backward_resid": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
+        "fused_encoder_layer_backward_resid_hd64": ("fused_layer_bwd.cu",
+                                                    "ops/fused_layer.py:718"),
+        "fused_encoder_layer_s512": ("fused_layer.cu", "ops/fused_layer.py:135"),
+        "fused_encoder_layer_train_s512": ("fused_layer.cu", "ops/fused_layer.py:135"),
+        "fused_encoder_layer_backward_s512": ("fused_layer_bwd.cu", "ops/fused_layer.py:718"),
+        "fused_encoder_layer_backward_resid_s512": ("fused_layer_bwd.cu",
+                                                    "ops/fused_layer.py:718"),
         "cosine_topk_packed": ("topk.cu", "ops/topk.py:75"),
         "cosine_topk_bf16": ("topk.cu", "ops/topk.py:154"),
         "cosine_topk_packed_bf16": ("topk.cu", "ops/topk.py:75"),
@@ -6253,9 +6581,9 @@ def main() -> int:
             "source": f"{PKG}/ops/csrc/{src}",
             "replaces": f"{JAX_PKG}/{tpu}",
             **smoke.kernel_rows[name],
-            "launches_phase_5b": smoke.launches_5b.get(name, 0),
-            "launches_phase_6": smoke.launches_6.get(name, 0),
-            "launches_phase_6b": smoke.launches_6b.get(name, 0),
+            **{f"launches_phase_{phase}": counts.get(PHASE_COUNTER.get(name, name))
+               for phase, counts in (("5b", smoke.launches_5b), ("6", smoke.launches_6),
+                                     ("6b", smoke.launches_6b))},
         })
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -86,8 +86,8 @@ class TowerConfig:
 MINILM_L6 = TowerConfig()
 
 # The mpnet-base-class preset (the JAX package's MPNET_BASE_CLASS): head_dim
-# 64, which the fused kernels take at 16 <= S <= 256 with S % 16 == 0, as
-# JAX's gate does; longer or ragged lengths take the unfused route.
+# 64, which the fused kernels take at 16 <= S <= 512 with S % 16 == 0, as
+# JAX's gate does; ragged lengths take the unfused route.
 MPNET_BASE_CLASS = TowerConfig(
     vocab_size=30527,
     hidden_size=768,

@@ -5,7 +5,9 @@ dispatches on the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel from ``csrc/`` or raises. There is no switch
 and no fallback. Each entry point counts its kernel launches in a plain
 integer attribute, ``<entry>.launches``, added to under a lock
-(``_build.count``) since several threads may launch at once.
+(``_build.count``) since several threads may launch at once. K1-train and
+K5 also count the launches of their residual-saving form, inside
+``.launches``, in ``<entry>.resid_launches``.
 """
 
 from instacart_next_order_recommendation_tpu_torch.ops.attention import (
@@ -37,19 +39,36 @@ KERNEL_WRAPPERS = (
 )
 
 
+# The wrappers that also count one form of their kernel apart, by the name
+# ``launch_counts`` gives that form: the launches of the residual-saving form
+# (``fused_layer.saves_residuals``), counted in ``.resid_launches``.
+RESID_COUNTED = (fused_encoder_layer_train, fused_encoder_layer_backward)
+
+
+def counter_names(wrapper) -> tuple[str, ...]:
+    """The attributes ``wrapper`` counts its launches in."""
+    return ("launches", "resid_launches") if wrapper in RESID_COUNTED else ("launches",)
+
+
 def launch_counts() -> dict[str, int]:
-    """Each kernel wrapper's launches since its counter was last reset."""
-    return {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    """Each kernel wrapper's launches since its counters were last reset, and
+    under ``<name>.resid`` those of K1-train's and K5's residual-saving form."""
+    counts = {w.__name__: w.launches for w in KERNEL_WRAPPERS}
+    counts.update({f"{w.__name__}.resid": w.resid_launches for w in RESID_COUNTED})
+    return counts
 
 
 def reset_launch_counts() -> None:
     for w in KERNEL_WRAPPERS:
-        w.launches = 0
+        for name in counter_names(w):
+            setattr(w, name, 0)
 
 
 __all__ = [
     "KERNEL_WRAPPERS",
+    "RESID_COUNTED",
     "cosine_topk",
+    "counter_names",
     "fused_encoder_layer",
     "fused_encoder_layer_backward",
     "fused_encoder_layer_train",

@@ -66,7 +66,7 @@
 //   one f32 accumulator, which keeps about 2^-17 of its relative precision.
 //   Their partners (dO, K, Q) are bf16 values already.
 //
-// The PTX wrappers, tile helpers and the one-pass forward live in
+// The PTX wrappers, tile helpers and both forward kernels live in
 // mma_common.cuh, which the fused encoder layer (K1, K5) shares.
 
 #include "mma_common.cuh"
@@ -74,99 +74,6 @@
 namespace {
 
 using namespace mmac;
-
-// Two passes over the key tiles, any S: online max and sum, then P V.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_two_pass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const float* __restrict__ key_bias,
-                         bf16* __restrict__ o, View vq, View vk, View vv, View vo, int S,
-                         float scale) {
-  constexpr int LD = row_stride<D>();
-  constexpr int TILE = tile_elems<D>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = Qs + TILE;                                 // two stages of (K, V)
-  float* Kb = reinterpret_cast<float*>(ring + 4 * TILE);  // n_tiles * 64 key biases
-  const int q0 = blockIdx.x * TQ;
-  const int hi = blockIdx.y;
-  const int bi = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int n_tiles = (S + TK - 1) / TK;
-  bf16* Qw = Qs + warp * 16 * LD;
-  const uint32_t qa = smem_addr(Qw) + lane_a<D>(lane);
-  const uint32_t kb = smem_addr(ring) + lane_bt<D>(lane);
-  const uint32_t vb = smem_addr(ring + TILE) + lane_a<D>(lane);
-
-  // Steps 0 .. n - 1 bring K tile `step` (pass one), n .. 2 n - 1 the K and
-  // V tiles `step - n` (pass two).
-  auto issue = [&](int step) {
-    bf16* dst = ring + (step & 1) * 2 * TILE;
-    if (step < n_tiles) {
-      load_tile<D>(dst, k, vk, bi, hi, step * TK, S, tid);
-    } else if (step < 2 * n_tiles) {
-      load_tile<D>(dst, k, vk, bi, hi, (step - n_tiles) * TK, S, tid);
-      load_tile<D>(dst + TILE, v, vv, bi, hi, (step - n_tiles) * TK, S, tid);
-    }
-    cp_commit();
-  };
-  load_tile<D>(Qs, q, vq, bi, hi, q0, S, tid);
-  issue(0);
-  load_bias(Kb, key_bias, bi, n_tiles, S, tid);
-
-  float x[8][4];
-  float m0 = INIT_MAX, m1 = INIT_MAX, l0 = 0.0f, l1 = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) {
-    issue(t + 1);
-    cp_wait<1>();
-    __syncthreads();
-    mma_abt<D>(x, qa, kb + (t & 1) * 2 * TILE * 2);
-    logits(x, Kb + t * TK, scale, lane);
-    float t0, t1;
-    tile_max(x, t0, t1);
-    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
-    float e0 = 0.0f, e1 = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      e0 += expf(x[j][0] - n0) + expf(x[j][1] - n0);
-      e1 += expf(x[j][2] - n1) + expf(x[j][3] - n1);
-    }
-    l0 = fmaf(l0, expf(m0 - n0), quad_sum(e0));
-    l1 = fmaf(l1, expf(m1 - n1), quad_sum(e1));
-    m0 = n0;
-    m1 = n1;
-    __syncthreads();
-  }
-  const float i0 = 1.0f / l0, i1 = 1.0f / l1;
-
-  float acc[D / 8][4];
-  zero<D>(acc);
-  for (int t = 0; t < n_tiles; ++t) {
-    issue(n_tiles + t + 1);
-    cp_wait<1>();
-    __syncthreads();
-    const uint32_t stage = ((n_tiles + t) & 1) * 2 * TILE * 2;
-    mma_abt<D>(x, qa, kb + stage);
-    logits(x, Kb + t * TK, scale, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      x[j][0] = expf(x[j][0] - m0);
-      x[j][1] = expf(x[j][1] - m0);
-      x[j][2] = expf(x[j][2] - m1);
-      x[j][3] = expf(x[j][3] - m1);
-    }
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[1][4];
-      a_operand(x, kc, i0, i1, a[0]);
-      mma_ab<D, 1>(acc, a, vb + stage, kc);
-    }
-    __syncthreads();
-  }
-  store_rows<D>(acc, 1.0f, Qw, o, vo, bi, hi, q0 + warp * 16, S, lane);
-}
 
 // ----------------------------------------------------------------- backward
 
@@ -370,36 +277,48 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float dk_acc[D / 8][4], dv_acc[D / 8][4];
   zero<D>(dk_acc);
   zero<D>(dv_acc);
-  float p[8][4], ds[8][4];
+  // A query tile goes in NJ 8-column groups at a time: the whole tile, or
+  // at head_dim 128 (whose dK and dV accumulators hold 128 f32 a lane) its
+  // quarters, one after the other, so that P^T and dS^T and their bf16
+  // pairs fit beside them: ptxas then does not spill. Each score is the
+  // same dot product either way, and the parts feed dK and dV in the same
+  // order.
+  constexpr int NJ = D <= 64 ? 8 : 2;
+  constexpr int ROW = row_stride<D>() * 2;  // bytes
   for (int t = 0; t < n_tiles; ++t) {
     issue(t + 1);
     cp_wait<1>();
     __syncthreads();
     const uint32_t stage = (t & 1) * 2 * TILE * 2;
-    mma_abt<D>(p, ka, qbt + stage);    // scores, keys by queries
-    mma_abt<D>(ds, va, dobt + stage);  // dP^T
+#pragma unroll 1
+    for (int h = 0; h < 8 / NJ; ++h) {
+      const uint32_t rows = stage + h * NJ * 8 * ROW;  // the part's first query
+      float p[NJ][4], ds[NJ][4];
+      mma_abt<D>(p, ka, qbt + rows);    // scores, keys by queries
+      mma_abt<D>(ds, va, dobt + rows);  // dP^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = t * TQ + j * 8 + 2 * (lane & 3);
-      const float2 m = *reinterpret_cast<const float2*>(Ms + c);
-      const float2 il = *reinterpret_cast<const float2*>(Is + c);
-      const float2 dr = *reinterpret_cast<const float2*>(Drs + c);
-      p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x) * il.x;
-      p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y) * il.y;
-      p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x) * il.x;
-      p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y) * il.y;
-      ds[j][0] = p[j][0] * (ds[j][0] - dr.x);
-      ds[j][1] = p[j][1] * (ds[j][1] - dr.y);
-      ds[j][2] = p[j][2] * (ds[j][2] - dr.x);
-      ds[j][3] = p[j][3] * (ds[j][3] - dr.y);
-    }
+      for (int j = 0; j < NJ; ++j) {
+        const int c = t * TQ + h * NJ * 8 + j * 8 + 2 * (lane & 3);
+        const float2 m = *reinterpret_cast<const float2*>(Ms + c);
+        const float2 il = *reinterpret_cast<const float2*>(Is + c);
+        const float2 dr = *reinterpret_cast<const float2*>(Drs + c);
+        p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x) * il.x;
+        p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y) * il.y;
+        p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x) * il.x;
+        p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y) * il.y;
+        ds[j][0] = p[j][0] * (ds[j][0] - dr.x);
+        ds[j][1] = p[j][1] * (ds[j][1] - dr.y);
+        ds[j][2] = p[j][2] * (ds[j][2] - dr.x);
+        ds[j][3] = p[j][3] * (ds[j][3] - dr.y);
+      }
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[2][4];
-      a_operand_split(p, kc, a);
-      mma_ab<D, 2>(dv_acc, a, dob + stage, kc);
-      a_operand_split(ds, kc, a);
-      mma_ab<D, 2>(dk_acc, a, qb + stage, kc);
+      for (int kc = 0; kc < NJ / 2; ++kc) {
+        uint32_t a[2][4];
+        a_operand_split(p, kc, a);
+        mma_ab<D, 2>(dv_acc, a, dob + stage, h * NJ / 2 + kc);
+        a_operand_split(ds, kc, a);
+        mma_ab<D, 2>(dk_acc, a, qb + stage, h * NJ / 2 + kc);
+      }
     }
     __syncthreads();
   }
@@ -444,10 +363,10 @@ cudaError_t launch_forward(const bf16* q, const bf16* k, const bf16* v, const fl
     }
   }
   const size_t smem = (size_t)5 * tile_elems<D>() * 2 + (size_t)n_tiles * TK * 4;
-  cudaError_t e = allow_smem(attn_fwd_two_pass_kernel<D>, smem);
+  cudaError_t e = allow_smem(attn_fwd_two_pass_kernel<D, NORMALISE_BEFORE_CAST>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(n_tiles, heads, B);
-  attn_fwd_two_pass_kernel<D><<<grid, THREADS, smem, stream>>>(
+  attn_fwd_two_pass_kernel<D, NORMALISE_BEFORE_CAST><<<grid, THREADS, smem, stream>>>(
       q, k, v, bias, o, view_of(st), view_of(st + 3), view_of(st + 6), view_of(st + 9), S, scale);
   return cudaGetLastError();
 }

@@ -31,12 +31,17 @@
 //   block tiles over 8 warps, tiles arriving by cp.async into a four-stage
 //   ring, and epilogues (bias, GELU) applied to the accumulators in
 //   registers and stored as bf16 pairs, with no staging tile.
-// - Attention in one pass on tensor cores: one block per (64-query tile,
-//   head, batch row) reads q, k and v in place from the packed projection;
-//   the whole score row (S <= 256, head_dim 32 or 64) stays in the mma
-//   accumulators, the exact row max and sum follow, P is rounded to bf16 in
-//   registers and multiplied by V, so the [S, S] scores never reach shared
-//   or device memory.
+// - Attention on tensor cores: one block per (64-query tile, head, batch
+//   row) reads q, k and v in place from the packed projection; where the
+//   whole score row fits in the mma accumulators (S <= 256, head_dim <= 64)
+//   it is computed once, the exact row max and sum follow, P is rounded to
+//   bf16 in registers and multiplied by V, so the [S, S] scores never reach
+//   shared or device memory. Past that (S up to 512, head_dim 128) two
+//   passes over the keys, the row max first: the same bits.
+// - The residual-saving form (save_resid) keeps attn, the post-dropout ao,
+//   x1 and the post-dropout f for the backward: ao and f get buffers of
+//   their own, and each LayerNorm row kernel writes the masked residual it
+//   reads back over its input.
 // - Residual + LayerNorm as one row kernel each (a warp per row).
 // Not wgmma with TMA: mma.sync keeps one core for the three operand forms
 // the forward and the backward need (X W, dY W^T, X^T dY); wgmma is for a
@@ -51,20 +56,29 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Shapes the wrapper has checked: H == num_heads * head_dim with head_dim
-// 32 or 64, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
-// 16 <= S <= 256, every pointer 16-byte aligned and contiguous. m1, m2: [B, S, H] bf16 or both null.
-// Scratch buffers come from the caller.
+// 16, 32, 64 or 128, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
+// 16 <= S <= 512, every pointer 16-byte aligned and contiguous. m1, m2:
+// [B, S, H] bf16 or both null. Scratch buffers come from the caller; ao and
+// f may be one buffer. With save_resid (the residual-saving form of the JAX
+// kernel, its save_resid=True) attn, ao, x1 and f are outputs: the
+// attention output, the post-dropout projection bf16(bf16(attn Wo + bo) *
+// m1), x1 and the post-dropout FFN output, each [B, S, H] bf16, the values
+// the backward would otherwise recompute; ao and f must then be two buffers.
 int fused_layer_forward(const void* x, const void* key_bias, const void* qkv_w,
                         const void* qkv_b, const void* o_w, const void* o_b, const void* ln1_s,
                         const void* ln1_b, const void* w1, const void* b1, const void* w2,
                         const void* b2, const void* ln2_s, const void* ln2_b, const void* m1,
-                        const void* m2, void* qkv, void* attn, void* tmp, void* x1, void* hid,
-                        void* y, int batch, int seq, int hidden, int num_heads, int inter,
-                        float scale, float eps, void* stream_ptr) {
+                        const void* m2, void* qkv, void* attn, void* ao, void* x1, void* hid,
+                        void* f, void* y, int save_resid, int batch, int seq, int hidden,
+                        int num_heads, int inter, float scale, float eps, void* stream_ptr) {
   using namespace fl;
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;
   const int H = hidden;
+  // The LayerNorms store the post-dropout residual over the pre-dropout one
+  // where it is kept and differs.
+  bf16* ao_out = save_resid && m1 != nullptr ? (bf16*)ao : nullptr;
+  bf16* f_out = save_resid && m2 != nullptr ? (bf16*)f : nullptr;
   cudaError_t e;
 
   e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)x, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
@@ -73,20 +87,20 @@ int fused_layer_forward(const void* x, const void* key_bias, const void* qkv_w,
   e = launch_attention((const bf16*)qkv, (const float*)key_bias, (bf16*)attn, batch, seq, H,
                        num_heads, scale, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)attn, (const bf16*)o_w, (const bf16*)o_b, tmp,
+  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)attn, (const bf16*)o_w, (const bf16*)o_b, ao,
                                    nullptr, nullptr, M, H, H, stream);
   if (e != cudaSuccess) return e;
-  e = launch_ln((const bf16*)x, (const bf16*)tmp, (const bf16*)m1, (const float*)ln1_s,
-                (const float*)ln1_b, (bf16*)x1, M, H, eps, stream);
+  e = launch_ln((const bf16*)x, (const bf16*)ao, (const bf16*)m1, (const float*)ln1_s,
+                (const float*)ln1_b, (bf16*)x1, M, H, eps, stream, ao_out);
   if (e != cudaSuccess) return e;
   e = launch_gemm<FORM_XW, EPI_BIAS_GELU>((const bf16*)x1, (const bf16*)w1, (const bf16*)b1, hid,
                                         nullptr, nullptr, M, inter, H, stream);
   if (e != cudaSuccess) return e;
-  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)hid, (const bf16*)w2, (const bf16*)b2, tmp,
+  e = launch_gemm<FORM_XW, EPI_BIAS>((const bf16*)hid, (const bf16*)w2, (const bf16*)b2, f,
                                    nullptr, nullptr, M, H, inter, stream);
   if (e != cudaSuccess) return e;
-  return launch_ln((const bf16*)x1, (const bf16*)tmp, (const bf16*)m2, (const float*)ln2_s,
-                   (const float*)ln2_b, (bf16*)y, M, H, eps, stream);
+  return launch_ln((const bf16*)x1, (const bf16*)f, (const bf16*)m2, (const float*)ln2_s,
+                   (const float*)ln2_b, (bf16*)y, M, H, eps, stream, f_out);
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 //
 // Replaces: the JAX package's ops/fused_layer.py::_bwd_kernel in its fully
 // fused form (wgrads=True, reached through _fused_backward from the
-// custom_vjp of fused_encoder_layer_train). Same function, same cast points:
+// custom_vjp of fused_encoder_layer_train), and its resid form (resid=True:
+// attn, ao, x1 and f read from the forward's saved residuals, as
+// _train_core's fwd_rule passes them). Same function, same cast points:
 //   forward recompute: qkv, attn, ao, x1 = LN1(x + ao*m1), hpre = x1 W1 + b1,
 //     hg = bf16(gelu(hpre)), f = bf16(hg W2 + b2)            (as _kernel)
 //   LN2 backward in f32 on res2 = bf16(x1 + f*m2), dy = f32(g) -> dres2,
@@ -37,11 +39,11 @@
 //   the gelu' product and its column partials, or the residual gradient,
 //   in the epilogue) and the four weight gradients (X^T dY over row splits,
 //   partial tiles summed in a fixed order by colsum_kernel).
-// - Attention backward in two kernels on tensor cores, no atomics. The dQ
-//   kernel, per 64-query tile, recomputes the scores in registers with the
-//   forward's exact max m and sum z (the whole row at once where it fits
-//   in registers, else the key tiles twice: head_dim 64 at S > 192, rule at
-//   dq_row_in_registers), forms dz and dU, writes dU over dA (it
+// - Attention backward in two kernels on tensor cores, no atomics, each
+//   streaming the other side's 64-row tiles through a cp.async ring (any S
+//   up to 512, head_dim 16 to 128). The dQ kernel, per 64-query tile,
+//   passes over the key tiles twice: first the scores' max m and sum z
+//   online, then the scores again, forms dz and dU, writes dU over dA (it
 //   is the dK/dV kernel's input; nothing else reads dA), computes dP, dL
 //   and dQ += dL K tile by tile, and leaves m, z and dz per row in an f32
 //   workspace [3, B, heads, S]. The dK/dV kernel, per 64-key tile, loops
@@ -50,6 +52,10 @@
 //   bf16(P)^T feeds dV += P^T dU and dL^T feeds dK += dL^T Q, with Q and dU
 //   read through ldmatrix.trans. Every operand is bf16 in JAX's kernel, so
 //   each product is one mma (no hi/lo split as in K7).
+// - The resid form reads the four residuals the forward kept (K1's
+//   save_resid) in place of four of the six recompute launches; it sums the
+//   same bf16 values in the same order, so its results are the recompute
+//   form's, bit for bit.
 // - The LayerNorm backwards are row kernels with the masks; bias and
 //   LayerNorm grads are f32 column sums in a fixed order. Every sum runs in
 //   a fixed order, so the result is the same, bit for bit, on every run.
@@ -157,18 +163,21 @@ cudaError_t launch_wgrad(const bf16* A, const bf16* B, float* out, float* wpart,
 
 // ------------------------------------------------ LayerNorm backward
 // One warp per row, 8 warps and 64 rows per block. For the row's residual
-// res = bf16(a + bf16(r * mask)) (LN input, recomputed) and upstream dy:
+// res = bf16(a + bf16(r * rmask)) (LN input, recomputed; r alone where
+// rmask is null: the residual-saving form passes r already masked) and
+// upstream dy:
 //   nh = (res - mean) * inv;  dnh = dy * scale
 //   dres = inv * (dnh - mean(dnh) - nh * mean(dnh * nh))          (f32 out)
-//   dmasked = bf16(dres * mask)                                   (bf16 out)
-// and per-block column partials [3][H] of dy * nh, dy and dres * mask.
+//   dmasked = bf16(dres * gmask)                                  (bf16 out)
+// and per-block column partials [3][H] of dy * nh, dy and dres * gmask.
 constexpr int LNB_WARPS = 8;
 constexpr int LNB_ROWS = 64;
 
 template <typename DyT>
 __global__ void __launch_bounds__(LNB_WARPS * 32)
 ln_bwd_kernel(const bf16* __restrict__ a, const bf16* __restrict__ r,
-              const bf16* __restrict__ mask, const DyT* __restrict__ dy,
+              const bf16* __restrict__ rmask, const bf16* __restrict__ gmask,
+              const DyT* __restrict__ dy,
               const float* __restrict__ scale, float* __restrict__ dres,
               bf16* __restrict__ dmasked, float* __restrict__ part, int M, int H, float eps) {
   extern __shared__ float acc_sm[];  // [LNB_WARPS][3][H]
@@ -189,7 +198,7 @@ ln_bwd_kernel(const bf16* __restrict__ a, const bf16* __restrict__ r,
 #pragma unroll
     for (int t = 0; t < LN_MAX_PER_LANE; ++t) {
       if (t < per_lane) {
-        v[t] = residual_in(a, r, mask, off + lane + 32 * t);
+        v[t] = residual_in(a, r, rmask, off + lane + 32 * t);
         sum += v[t];
       }
     }
@@ -224,7 +233,7 @@ ln_bwd_kernel(const bf16* __restrict__ a, const bf16* __restrict__ r,
         const float dnh = g[t] * scale[j];
         const float dr = inv * (dnh - mean_dnh - v[t] * mean_dnh_nh);
         dres[off + j] = dr;
-        const float dm = mask != nullptr ? dr * __bfloat162float(mask[off + j]) : dr;
+        const float dm = gmask != nullptr ? dr * __bfloat162float(gmask[off + j]) : dr;
         dmasked[off + j] = __float2bfloat16(dm);
         acc[j] += g[t] * v[t];
         acc[H + j] += g[t];
@@ -242,23 +251,27 @@ ln_bwd_kernel(const bf16* __restrict__ a, const bf16* __restrict__ r,
 }
 
 template <typename DyT>
-cudaError_t launch_ln_bwd(const bf16* a, const bf16* r, const bf16* mask, const DyT* dy,
-                          const float* scale, float* dres, bf16* dmasked, float* part, int M,
-                          int H, float eps, cudaStream_t stream) {
+cudaError_t launch_ln_bwd(const bf16* a, const bf16* r, const bf16* rmask, const bf16* gmask,
+                          const DyT* dy, const float* scale, float* dres, bf16* dmasked,
+                          float* part, int M, int H, float eps, cudaStream_t stream) {
   const size_t smem = (size_t)LNB_WARPS * 3 * H * 4;
   static std::atomic<unsigned long long> done{0};
   cudaError_t e = allow_smem_once(ln_bwd_kernel<DyT>, (size_t)LNB_WARPS * 3 * LN_MAX_H * 4, done);
   if (e != cudaSuccess) return e;
   ln_bwd_kernel<DyT><<<(M + LNB_ROWS - 1) / LNB_ROWS, LNB_WARPS * 32, smem, stream>>>(
-      a, r, mask, dy, scale, dres, dmasked, part, M, H, eps);
+      a, r, rmask, gmask, dy, scale, dres, dmasked, part, M, H, eps);
   return cudaGetLastError();
 }
 
 // ------------------------------------------------ attention backward
 // q, k, v at row stride 3H in the packed projection, A, dA and dU at row
-// stride H, head_dim HD in {32, 64}; NT = ceil(S / 64) key (or query)
-// tiles, all of a head's tiles resident in shared memory (S <= 256: 5 KB a
-// tile at HD 32, 9 KB at HD 64).
+// stride H, head_dim HD in {16, 32, 64, 128}, any S up to MAX_SEQ. Each
+// kernel holds one 64-row tile of its own side and streams the other
+// side's tiles through a two-stage cp.async ring, as K7 does, so shared
+// memory does not grow with S (a head's 16 tiles at S = 512 would take 272
+// KB at HD 128). A form that held all the other side's tiles in shared
+// memory (S <= 256) read 0.4-0.7% slower than these kernels on an H100
+// (MiniLM's widths, S = 256, PERF.md), and is gone.
 template <int HD>
 __device__ __forceinline__ View packed_view(int S, int H) {
   return View{(long long)S * 3 * H, HD, 3LL * H};
@@ -267,16 +280,6 @@ __device__ __forceinline__ View packed_view(int S, int H) {
 template <int HD>
 __device__ __forceinline__ View row_view(int S, int H) {
   return View{(long long)S * H, HD, (long long)H};
-}
-
-// Wait until at most n (0..3, known after unrolling) copy groups are pending.
-__device__ __forceinline__ void cp_wait_upto(int n) {
-  switch (n) {
-    case 0: cp_wait<0>(); break;
-    case 1: cp_wait<1>(); break;
-    case 2: cp_wait<2>(); break;
-    default: cp_wait<3>(); break;
-  }
 }
 
 // bf16(p * (dp + dz)) as the A operand over columns [16 kc, 16 kc + 16),
@@ -291,23 +294,14 @@ __device__ __forceinline__ void dl_operand(const float (&p)[8][4], const float (
                    p[2 * kc + 1][3] * (dp[2 * kc + 1][3] + dz1));
 }
 
-// Whether the dQ kernel keeps a warp's whole score row in registers: NT *
-// 32 f32 a lane, beside dQ (HD / 2) and dU (HD / 4). At 152 of these (HD
-// 32, S = 256) ptxas fits the kernel in 201 registers; at 176 (HD 64, S =
-// 256) it spilled at the 255 cap, even with dP formed 32 keys at a time.
-// Where the row does not fit, the kernel passes over the key tiles twice,
-// as K7's dQ kernel does.
-template <int HD, int NT>
-__host__ __device__ constexpr bool dq_row_in_registers() {
-  return NT * 32 + HD / 2 + HD / 4 <= 160;
-}
-
-// dQ of one 64-query tile; dA is replaced by dU = bf16(dA / z) in place,
-// and each row's m, z and dz go to stats ([3][B][heads][S] f32). One pass
-// where the score row fits in registers: the exact max m, then z = sum of
-// exp(x - m). Else two: the first keeps m and z online (z rescaled when m
-// grows), the second recomputes each key tile's scores.
-template <int HD, int NT>
+// dQ of one 64-query tile; dA is replaced by dU = bf16(dA / z) in place
+// (it is the dK/dV kernel's input; nothing else reads dA), and each row's
+// m, z and dz go to stats ([3][B][heads][S] f32). Two passes over the key
+// tiles: the first keeps m and z online (z rescaled when m grows), the
+// second recomputes each tile's scores, P = exp(x - m), dP = bf16(dU) V^T,
+// dL = bf16(P (dP + dz)) and dQ += dL K. The K tiles (pass one), then the
+// K and V tiles (pass two), come through the ring.
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
                    const bf16* __restrict__ attn, bf16* __restrict__ dattn,
@@ -320,9 +314,8 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dAs = Qs + ATILE;
   bf16* As = dAs + ATILE;
-  bf16* Ks = As + ATILE;
-  bf16* Vs = Ks + NT * ATILE;
-  float* Kb = reinterpret_cast<float*>(Vs + NT * ATILE);
+  bf16* ring = As + ATILE;                                 // two stages of (K, V)
+  float* Kb = reinterpret_cast<float*>(ring + 4 * ATILE);  // n_tiles * 64 key biases
   const int q0 = blockIdx.x * TQ;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
@@ -331,82 +324,57 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int c2 = 2 * (lane & 3);
+  const int n_tiles = (S + TK - 1) / TK;
   const View vqkv = packed_view<HD>(S, H);
   const View vh = row_view<HD>(S, H);
 
+  // Steps 0 .. n - 1 bring K tile `step` (pass one), n .. 2 n - 1 the K and
+  // V tiles `step - n` (pass two).
+  auto issue = [&](int step) {
+    bf16* dst = ring + (step & 1) * 2 * ATILE;
+    if (step < n_tiles) {
+      load_tile<HD>(dst, qkv + H, vqkv, bi, hi, step * TK, S, tid);
+    } else if (step < 2 * n_tiles) {
+      load_tile<HD>(dst, qkv + H, vqkv, bi, hi, (step - n_tiles) * TK, S, tid);
+      load_tile<HD>(dst + ATILE, qkv + 2 * H, vqkv, bi, hi, (step - n_tiles) * TK, S, tid);
+    }
+    cp_commit();
+  };
   load_tile<HD>(Qs, qkv, vqkv, bi, hi, q0, S, tid);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) load_tile<HD>(Ks + t * ATILE, qkv + H, vqkv, bi, hi, t * TK, S, tid);
-  cp_commit();
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-    load_tile<HD>(Vs + t * ATILE, qkv + 2 * H, vqkv, bi, hi, t * TK, S, tid);
   load_tile<HD>(dAs, dattn, vh, bi, hi, q0, S, tid);
   load_tile<HD>(As, attn, vh, bi, hi, q0, S, tid);
-  cp_commit();
-  load_bias(Kb, key_bias, bi, NT, S, tid);
-  cp_wait<1>();
-  __syncthreads();
+  issue(0);  // one group with Q, dA and A
+  load_bias(Kb, key_bias, bi, n_tiles, S, tid);
 
   bf16* Qw = Qs + warp * 16 * LD;
   const uint32_t qa = smem_addr(Qw) + lane_a<HD>(lane);
-  const uint32_t kbt = smem_addr(Ks) + lane_bt<HD>(lane);  // K as B^T (scores)
-  const uint32_t kb = smem_addr(Ks) + lane_a<HD>(lane);    // K as B (dQ)
-  const uint32_t vbt = smem_addr(Vs) + lane_bt<HD>(lane);  // V as B^T (dP)
+  const uint32_t kbt = smem_addr(ring) + lane_bt<HD>(lane);          // K as B^T (scores)
+  const uint32_t kb = smem_addr(ring) + lane_a<HD>(lane);            // K as B (dQ)
+  const uint32_t vbt = smem_addr(ring + ATILE) + lane_bt<HD>(lane);  // V as B^T (dP)
 
-  // Scores, the exact max m and the sum z of P = exp(x - m), as the
-  // forward: the whole row at once, or online over the key tiles.
-  constexpr bool ROW = dq_row_in_registers<HD, NT>();
-  float x[ROW ? NT : 1][8][4];
+  float x[8][4];
   float m0 = INIT_MAX, m1 = INIT_MAX, z0 = 0.0f, z1 = 0.0f;
-  if constexpr (ROW) {
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    mma_abt<HD>(x, qa, kbt + (t & 1) * 2 * ATILE * 2);
+    logits(x, Kb + t * TK, scale, lane);
+    float t0, t1;
+    tile_max(x, t0, t1);
+    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+    float e0 = 0.0f, e1 = 0.0f;
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      mma_abt<HD>(x[t], qa, kbt + t * ATILE * 2);
-      logits(x[t], Kb + t * TK, scale, lane);
+    for (int j = 0; j < 8; ++j) {
+      e0 += expf(x[j][0] - n0) + expf(x[j][1] - n0);
+      e1 += expf(x[j][2] - n1) + expf(x[j][3] - n1);
     }
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      float t0, t1;
-      tile_max(x[t], t0, t1);
-      m0 = fmaxf(m0, t0);
-      m1 = fmaxf(m1, t1);
-    }
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        x[t][j][0] = expf(x[t][j][0] - m0);
-        x[t][j][1] = expf(x[t][j][1] - m0);
-        x[t][j][2] = expf(x[t][j][2] - m1);
-        x[t][j][3] = expf(x[t][j][3] - m1);
-        z0 += x[t][j][0] + x[t][j][1];
-        z1 += x[t][j][2] + x[t][j][3];
-      }
-    z0 = quad_sum(z0);
-    z1 = quad_sum(z1);
-  } else {
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      mma_abt<HD>(x[0], qa, kbt + t * ATILE * 2);
-      logits(x[0], Kb + t * TK, scale, lane);
-      float t0, t1;
-      tile_max(x[0], t0, t1);
-      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
-      float e0 = 0.0f, e1 = 0.0f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        e0 += expf(x[0][j][0] - n0) + expf(x[0][j][1] - n0);
-        e1 += expf(x[0][j][2] - n1) + expf(x[0][j][3] - n1);
-      }
-      z0 = fmaf(z0, expf(m0 - n0), quad_sum(e0));
-      z1 = fmaf(z1, expf(m1 - n1), quad_sum(e1));
-      m0 = n0;
-      m1 = n1;
-    }
+    z0 = fmaf(z0, expf(m0 - n0), quad_sum(e0));
+    z1 = fmaf(z1, expf(m1 - n1), quad_sum(e1));
+    m0 = n0;
+    m1 = n1;
+    __syncthreads();
   }
-  cp_wait<0>();
-  __syncthreads();
 
   // dz and dU from dA and A, read in the A-operand layout (rows g, g + 8;
   // columns 16 kk + 8 hh + c2, + 1).
@@ -452,23 +420,22 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
     }
   }
 
-  // Per key tile: dP = bf16(dU) V^T, dL = bf16(P (dP + dz)), dQ += dL K.
   float dq[HD / 8][4];
   zero<HD>(dq);
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(n_tiles + t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    const uint32_t stage = ((n_tiles + t) & 1) * 2 * ATILE * 2;
+    mma_abt<HD>(x, qa, kbt + stage);  // this tile's P = exp(x - m) again
+    logits(x, Kb + t * TK, scale, lane);
 #pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    if constexpr (!ROW) {  // this tile's P = exp(x - m) again
-      mma_abt<HD>(x[0], qa, kbt + t * ATILE * 2);
-      logits(x[0], Kb + t * TK, scale, lane);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        x[0][j][0] = expf(x[0][j][0] - m0);
-        x[0][j][1] = expf(x[0][j][1] - m0);
-        x[0][j][2] = expf(x[0][j][2] - m1);
-        x[0][j][3] = expf(x[0][j][3] - m1);
-      }
+    for (int j = 0; j < 8; ++j) {
+      x[j][0] = expf(x[j][0] - m0);
+      x[j][1] = expf(x[j][1] - m0);
+      x[j][2] = expf(x[j][2] - m1);
+      x[j][3] = expf(x[j][3] - m1);
     }
-    const float(&p)[8][4] = x[ROW ? t : 0];
     float dp[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -479,58 +446,76 @@ attn_bwd_dq_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_b
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         uint32_t b[4];
-        ldsm_x4(b, vbt + t * ATILE * 2 + jj * 16 * AROW + kk * 32);
+        ldsm_x4(b, vbt + stage + jj * 16 * AROW + kk * 32);
         mma(dp[2 * jj], du[kk], b[0], b[1]);
         mma(dp[2 * jj + 1], du[kk], b[2], b[3]);
       }
 #pragma unroll
     for (int kc = 0; kc < 4; ++kc) {
       uint32_t a[1][4];
-      dl_operand(p, dp, kc, dz0, dz1, a[0]);
-      mma_ab<HD, 1>(dq, a, kb + t * ATILE * 2, kc);
+      dl_operand(x, dp, kc, dz0, dz1, a[0]);
+      mma_ab<HD, 1>(dq, a, kb + stage, kc);
     }
+    __syncthreads();
   }
   store_rows<HD>(dq, scale, Qw, dqkv, vqkv, bi, hi, q0 + warp * 16, S, lane);
 }
 
-// dK and dV of one 64-key tile, looping over the query tiles. A warp owns
-// 16 keys: its accumulator tiles are K Q^T and V dU^T (keys by queries).
-template <int HD, int NT>
-__global__ void __launch_bounds__(THREADS)
+// dK and dV of one 64-key tile, looping over the query tiles, whose Q and dU
+// tiles come through the ring. A warp owns 16 keys: its accumulator tiles
+// are K Q^T and V dU^T (keys by queries), so that P^T and dL^T are
+// accumulators in the A layout, from the saved m and dz; bf16(P)^T feeds
+// dV += P^T dU and dL^T feeds dK += dL^T Q. A query tile goes in NJ
+// 8-column groups at a time: the whole tile, or at head_dim 128 (whose dK
+// and dV accumulators hold 128 f32 a lane) its two halves, one after the
+// other (not unrolled, so that ptxas does not hoist the second half's
+// scores), which keeps P^T and dL^T at 32 registers: no spill. Each score
+// is the same dot product either way, and the halves feed dK and dV in the
+// same order. At head_dim 32
+// ptxas's own choice trims the kernel to 128 registers (a fourth block per
+// SM) and spills, as K7's dK/dV kernel; asked for three blocks it keeps what
+// it needs; at head_dim 16 it picks 80 and spills, and asked for four it
+// does not.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, HD == 16 ? 4 : HD == 32 ? 3 : 0)
 attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
                      const bf16* __restrict__ du, const float* __restrict__ stats,
                      bf16* __restrict__ dqkv, int S, int H, float scale) {
   constexpr int LD = row_stride<HD>();
   constexpr int ATILE = tile_elems<HD>();
+  constexpr int NJ = HD <= 64 ? 8 : 4;
+  constexpr int ROW = row_stride<HD>() * 2;  // bytes
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + ATILE;
-  bf16* Qs = Vs + ATILE;
-  bf16* dUs = Qs + NT * ATILE;
-  float* Ms = reinterpret_cast<float*>(dUs + NT * ATILE);  // per query: m, dz
-  float* Dzs = Ms + NT * TQ;
+  bf16* ring = Vs + ATILE;                                 // two stages of (Q, dU)
+  float* Ms = reinterpret_cast<float*>(ring + 4 * ATILE);  // per query: m, dz
   const int k0 = blockIdx.x * TK;
   const int hi = blockIdx.y;
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int n_tiles = (S + TQ - 1) / TQ;
+  float* Dzs = Ms + n_tiles * TQ;
   const View vqkv = packed_view<HD>(S, H);
   const View vh = row_view<HD>(S, H);
 
+  auto issue = [&](int step) {  // Q and dU tile `step`
+    if (step < n_tiles) {
+      bf16* dst = ring + (step & 1) * 2 * ATILE;
+      load_tile<HD>(dst, qkv, vqkv, bi, hi, step * TQ, S, tid);
+      load_tile<HD>(dst + ATILE, du, vh, bi, hi, step * TQ, S, tid);
+    }
+    cp_commit();
+  };
   load_tile<HD>(Ks, qkv + H, vqkv, bi, hi, k0, S, tid);
   load_tile<HD>(Vs, qkv + 2 * H, vqkv, bi, hi, k0, S, tid);
-  cp_commit();
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    load_tile<HD>(Qs + t * ATILE, qkv, vqkv, bi, hi, t * TQ, S, tid);
-    load_tile<HD>(dUs + t * ATILE, du, vh, bi, hi, t * TQ, S, tid);
-    cp_commit();
-  }
+  issue(0);  // one group with K and V
   {
     const size_t plane = (size_t)gridDim.z * gridDim.y * S;
     const size_t row = ((size_t)bi * gridDim.y + hi) * S;
-    for (int j = tid; j < NT * TQ; j += THREADS) {
+    for (int j = tid; j < n_tiles * TQ; j += THREADS) {
       const bool ok = j < S;  // queries past S: P = exp(x - 3e38) = 0
       Ms[j] = ok ? stats[row + j] : -PAD_BIAS;
       Dzs[j] = ok ? stats[2 * plane + row + j] : 0.0f;
@@ -544,81 +529,78 @@ attn_bwd_dkdv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key
   bf16* Vw = Vs + warp * 16 * LD;
   const uint32_t ka = smem_addr(Kw) + lane_a<HD>(lane);
   const uint32_t va = smem_addr(Vw) + lane_a<HD>(lane);
-  const uint32_t qbt = smem_addr(Qs) + lane_bt<HD>(lane);  // Q, dU as B^T
-  const uint32_t dubt = smem_addr(dUs) + lane_bt<HD>(lane);
-  const uint32_t qb = smem_addr(Qs) + lane_a<HD>(lane);    // Q, dU as B
-  const uint32_t dub = smem_addr(dUs) + lane_a<HD>(lane);
+  const uint32_t qbt = smem_addr(ring) + lane_bt<HD>(lane);  // Q, dU as B^T
+  const uint32_t dubt = smem_addr(ring + ATILE) + lane_bt<HD>(lane);
+  const uint32_t qb = smem_addr(ring) + lane_a<HD>(lane);    // Q, dU as B
+  const uint32_t dub = smem_addr(ring + ATILE) + lane_a<HD>(lane);
 
   float dk[HD / 8][4], dv[HD / 8][4];
   zero<HD>(dk);
   zero<HD>(dv);
-#pragma unroll
-  for (int t = 0; t < NT; ++t) {
-    cp_wait_upto(NT - 1 - t);
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
     __syncthreads();
-    float p[8][4], dl[8][4];
-    mma_abt<HD>(p, ka, qbt + t * ATILE * 2);    // scores, keys by queries
-    mma_abt<HD>(dl, va, dubt + t * ATILE * 2);  // dP^T
+    const uint32_t stage = (t & 1) * 2 * ATILE * 2;
+#pragma unroll 1
+    for (int h = 0; h < 8 / NJ; ++h) {
+      const uint32_t rows = stage + h * NJ * 8 * ROW;  // the part's first query
+      float p[NJ][4], dl[NJ][4];
+      mma_abt<HD>(p, ka, qbt + rows);    // scores, keys by queries
+      mma_abt<HD>(dl, va, dubt + rows);  // dP^T
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = t * TQ + j * 8 + 2 * (lane & 3);
-      const float2 m = *reinterpret_cast<const float2*>(Ms + c);
-      const float2 dz = *reinterpret_cast<const float2*>(Dzs + c);
-      p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x);
-      p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y);
-      p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x);
-      p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y);
-      dl[j][0] = p[j][0] * (dl[j][0] + dz.x);
-      dl[j][1] = p[j][1] * (dl[j][1] + dz.y);
-      dl[j][2] = p[j][2] * (dl[j][2] + dz.x);
-      dl[j][3] = p[j][3] * (dl[j][3] + dz.y);
-    }
+      for (int j = 0; j < NJ; ++j) {
+        const int c = t * TQ + h * NJ * 8 + j * 8 + 2 * (lane & 3);
+        const float2 m = *reinterpret_cast<const float2*>(Ms + c);
+        const float2 dz = *reinterpret_cast<const float2*>(Dzs + c);
+        p[j][0] = expf(__fadd_rn(__fmul_rn(p[j][0], scale), b0) - m.x);
+        p[j][1] = expf(__fadd_rn(__fmul_rn(p[j][1], scale), b0) - m.y);
+        p[j][2] = expf(__fadd_rn(__fmul_rn(p[j][2], scale), b1) - m.x);
+        p[j][3] = expf(__fadd_rn(__fmul_rn(p[j][3], scale), b1) - m.y);
+        dl[j][0] = p[j][0] * (dl[j][0] + dz.x);
+        dl[j][1] = p[j][1] * (dl[j][1] + dz.y);
+        dl[j][2] = p[j][2] * (dl[j][2] + dz.x);
+        dl[j][3] = p[j][3] * (dl[j][3] + dz.y);
+      }
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t a[1][4];
-      a_operand(p, kc, 1.0f, 1.0f, a[0]);
-      mma_ab<HD, 1>(dv, a, dub + t * ATILE * 2, kc);  // dV += bf16(P)^T dU
-      a_operand(dl, kc, 1.0f, 1.0f, a[0]);
-      mma_ab<HD, 1>(dk, a, qb + t * ATILE * 2, kc);   // dK += dL^T Q
+      for (int kc = 0; kc < NJ / 2; ++kc) {
+        uint32_t a[1][4];
+        a_operand(p, kc, 1.0f, 1.0f, a[0]);
+        mma_ab<HD, 1>(dv, a, dub + stage, h * NJ / 2 + kc);  // dV += bf16(P)^T dU
+        a_operand(dl, kc, 1.0f, 1.0f, a[0]);
+        mma_ab<HD, 1>(dk, a, qb + stage, h * NJ / 2 + kc);   // dK += dL^T Q
+      }
     }
+    __syncthreads();
   }
   store_rows<HD>(dk, scale, Kw, dqkv + H, vqkv, bi, hi, k0 + warp * 16, S, lane);
   store_rows<HD>(dv, 1.0f, Vw, dqkv + 2 * H, vqkv, bi, hi, k0 + warp * 16, S, lane);
-}
-
-template <int HD, int NT>
-cudaError_t launch_attention_bwd_nt(const bf16* qkv, const float* key_bias, const bf16* attn,
-                                    bf16* dattn, bf16* dqkv, float* stats, int batch, int seq,
-                                    int H, int heads, float scale, cudaStream_t stream) {
-  constexpr int ATILE = tile_elems<HD>();
-  const size_t dq_smem = (size_t)(3 + 2 * NT) * ATILE * 2 + (size_t)NT * TK * 4;
-  const size_t dkdv_smem = (size_t)(2 + 2 * NT) * ATILE * 2 + (size_t)2 * NT * TQ * 4;
-  static std::atomic<unsigned long long> dq_done{0}, dkdv_done{0};
-  cudaError_t e = allow_smem_once(attn_bwd_dq_kernel<HD, NT>, dq_smem, dq_done);
-  if (e != cudaSuccess) return e;
-  e = allow_smem_once(attn_bwd_dkdv_kernel<HD, NT>, dkdv_smem, dkdv_done);
-  if (e != cudaSuccess) return e;
-  const dim3 grid(NT, heads, batch);
-  attn_bwd_dq_kernel<HD, NT><<<grid, THREADS, dq_smem, stream>>>(qkv, key_bias, attn, dattn,
-                                                                  dqkv, stats, seq, H, scale);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  attn_bwd_dkdv_kernel<HD, NT><<<grid, THREADS, dkdv_smem, stream>>>(qkv, key_bias, dattn,
-                                                                      stats, dqkv, seq, H, scale);
-  return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch_attention_bwd_hd(const bf16* qkv, const float* key_bias, const bf16* attn,
                                     bf16* dattn, bf16* dqkv, float* stats, int batch, int seq,
                                     int H, int heads, float scale, cudaStream_t stream) {
-  switch ((seq + TK - 1) / TK) {
-    case 1: return launch_attention_bwd_nt<HD, 1>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 2: return launch_attention_bwd_nt<HD, 2>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 3: return launch_attention_bwd_nt<HD, 3>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    case 4: return launch_attention_bwd_nt<HD, 4>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  if (seq < 1 || seq > fl::MAX_SEQ) return cudaErrorInvalidValue;
+  constexpr int ATILE = tile_elems<HD>();
+  constexpr int MAX_TILES = fl::MAX_SEQ / TK;
+  // Fixed sizes (the longest S), so that one allowance per device serves
+  // every S.
+  const size_t dq_smem = (size_t)7 * ATILE * 2 + (size_t)MAX_TILES * TK * 4;
+  const size_t dkdv_smem = (size_t)6 * ATILE * 2 + (size_t)2 * MAX_TILES * TQ * 4;
+  static std::atomic<unsigned long long> dq_done{0}, dkdv_done{0};
+  cudaError_t e = allow_smem_once(attn_bwd_dq_kernel<HD>, dq_smem, dq_done);
+  if (e != cudaSuccess) return e;
+  e = allow_smem_once(attn_bwd_dkdv_kernel<HD>, dkdv_smem, dkdv_done);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((seq + TK - 1) / TK, heads, batch);
+  attn_bwd_dq_kernel<HD><<<grid, THREADS, dq_smem, stream>>>(qkv, key_bias, attn, dattn, dqkv,
+                                                              stats, seq, H, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  attn_bwd_dkdv_kernel<HD><<<grid, THREADS, dkdv_smem, stream>>>(qkv, key_bias, dattn, stats,
+                                                                  dqkv, seq, H, scale);
+  return cudaGetLastError();
 }
 
 cudaError_t launch_attention_bwd(const bf16* qkv, const float* key_bias, const bf16* attn,
@@ -626,20 +608,24 @@ cudaError_t launch_attention_bwd(const bf16* qkv, const float* key_bias, const b
                                  int heads, float scale, cudaStream_t stream) {
   if (heads <= 0 || H % heads) return cudaErrorInvalidValue;
   switch (H / heads) {
+    case 16: return launch_attention_bwd_hd<16>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
     case 32: return launch_attention_bwd_hd<32>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
     case 64: return launch_attention_bwd_hd<64>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
+    case 128: return launch_attention_bwd_hd<128>(qkv, key_bias, attn, dattn, dqkv, stats, batch, seq, H, heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // --------------------------------------------------------- workspace
+// The recompute form's attn, ao, x1 and f take no space in the resid form,
+// which reads the forward's.
 struct Layout {
   size_t qkv, attn, ao, x1, hg, f, dfc, dhpre, daoc, dattn, dqkv;      // bf16
   size_t gp, dres, dx1, part_ln, part_b1, red_tmp, wpart, out3, stats;  // f32
   size_t total;
 };
 
-Layout make_layout(int batch, int seq, int H, int heads, int I, int sms) {
+Layout make_layout(int batch, int seq, int H, int heads, int I, int sms, bool resid) {
   const size_t M = (size_t)batch * seq;
   size_t n = 0;
   auto take = [&n](size_t bytes) {
@@ -647,13 +633,14 @@ Layout make_layout(int batch, int seq, int H, int heads, int I, int sms) {
     n += (bytes + 255) / 256 * 256;
     return o;
   };
+  const size_t recomputed = resid ? 0 : M * H * 2;
   Layout L;
   L.qkv = take(M * 3 * H * 2);
-  L.attn = take(M * H * 2);
-  L.ao = take(M * H * 2);
-  L.x1 = take(M * H * 2);
+  L.attn = take(recomputed);
+  L.ao = take(recomputed);
+  L.x1 = take(recomputed);
   L.hg = take(M * I * 2);
-  L.f = take(M * H * 2);
+  L.f = take(recomputed);
   L.dfc = take(M * H * 2);
   L.dhpre = take(M * I * 2);
   L.daoc = take(M * H * 2);
@@ -687,47 +674,58 @@ extern "C" {
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // Bytes of device scratch fused_layer_backward needs at these shapes on the
-// current device.
+// current device, in the recompute form (resid 0) or the resid form.
 int fused_layer_backward_workspace(int batch, int seq, int hidden, int num_heads, int inter,
-                                   unsigned long long* bytes) {
+                                   int resid, unsigned long long* bytes) {
   int sms = 0;
   const cudaError_t e = device_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  *bytes = (unsigned long long)make_layout(batch, seq, hidden, num_heads, inter, sms).total;
+  *bytes = (unsigned long long)make_layout(batch, seq, hidden, num_heads, inter, sms, resid != 0)
+               .total;
   return 0;
 }
 
 // Shapes the wrapper has checked: H == num_heads * head_dim with head_dim
-// 32 or 64, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
-// 16 <= S <= 256, every pointer 16-byte aligned and contiguous. g, dx: [B, S, H] bf16; m1, m2: [B, S, H]
-// bf16 or both null; the twelve grads are f32 in the weights' shapes
-// (Wqkv [H, 3H], bqkv [3H], Wo [H, H], bo, ln1 scale/shift [H], W1 [H, I],
-// b1 [I], W2 [I, H], b2, ln2 scale/shift [H]); workspace holds
-// fused_layer_backward_workspace(...) bytes.
+// 16, 32, 64 or 128, H % 64 == 0, H <= 1024, I % 64 == 0, S % 16 == 0,
+// 16 <= S <= 512, every pointer 16-byte aligned and contiguous. g, dx: [B,
+// S, H] bf16; m1, m2: [B, S, H] bf16 or both null; the twelve grads are f32
+// in the weights' shapes (Wqkv [H, 3H], bqkv [3H], Wo [H, H], bo, ln1
+// scale/shift [H], W1 [H, I], b1 [I], W2 [I, H], b2, ln2 scale/shift [H]);
+// workspace holds fused_layer_backward_workspace(...) bytes.
+// r_attn, r_ao, r_x1, r_f: all null (the recompute form), or the four
+// residuals the forward saved with save_resid (the JAX _bwd_kernel's resid
+// form: attn, the post-dropout ao, x1, the post-dropout f, [B, S, H] bf16),
+// which replace the attention forward, the o-projection, LN1 and the W2
+// GEMM of the recompute; the qkv and W1 GEMMs run as in the recompute form.
+// The two forms read the same bf16 values and give the same bits.
 int fused_layer_backward(const void* x, const void* key_bias, const void* g, const void* m1,
                          const void* m2, const void* qkv_w, const void* qkv_b, const void* o_w,
                          const void* o_b, const void* ln1_s, const void* ln1_b, const void* w1,
                          const void* b1, const void* w2, const void* b2, const void* ln2_s,
-                         const void* ln2_b, void* dx, void* d_qkv_w, void* d_qkv_b, void* d_o_w,
-                         void* d_o_b, void* d_ln1_s, void* d_ln1_b, void* d_w1, void* d_b1,
-                         void* d_w2, void* d_b2, void* d_ln2_s, void* d_ln2_b, void* workspace,
-                         int batch, int seq, int hidden, int num_heads, int inter, float scale,
-                         float eps, void* stream_ptr) {
+                         const void* ln2_b, const void* r_attn, const void* r_ao,
+                         const void* r_x1, const void* r_f, void* dx, void* d_qkv_w,
+                         void* d_qkv_b, void* d_o_w, void* d_o_b, void* d_ln1_s, void* d_ln1_b,
+                         void* d_w1, void* d_b1, void* d_w2, void* d_b2, void* d_ln2_s,
+                         void* d_ln2_b, void* workspace, int batch, int seq, int hidden,
+                         int num_heads, int inter, float scale, float eps, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = batch * seq;
   const int H = hidden;
   const int I = inter;
+  const bool resid = r_attn != nullptr;
+  if (resid != (r_ao != nullptr) || resid != (r_x1 != nullptr) || resid != (r_f != nullptr))
+    return (int)cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = device_sm_count(&sms);
   if (e != cudaSuccess) return (int)e;
-  const Layout L = make_layout(batch, seq, H, num_heads, I, sms);
+  const Layout L = make_layout(batch, seq, H, num_heads, I, sms, resid);
   unsigned char* ws = reinterpret_cast<unsigned char*>(workspace);
   bf16* qkv = reinterpret_cast<bf16*>(ws + L.qkv);
-  bf16* attn = reinterpret_cast<bf16*>(ws + L.attn);
-  bf16* ao = reinterpret_cast<bf16*>(ws + L.ao);
-  bf16* x1 = reinterpret_cast<bf16*>(ws + L.x1);
+  bf16* attn = resid ? (bf16*)r_attn : reinterpret_cast<bf16*>(ws + L.attn);
+  bf16* ao = resid ? (bf16*)r_ao : reinterpret_cast<bf16*>(ws + L.ao);
+  bf16* x1 = resid ? (bf16*)r_x1 : reinterpret_cast<bf16*>(ws + L.x1);
   bf16* hg = reinterpret_cast<bf16*>(ws + L.hg);
-  bf16* f = reinterpret_cast<bf16*>(ws + L.f);
+  bf16* f = resid ? (bf16*)r_f : reinterpret_cast<bf16*>(ws + L.f);
   bf16* dfc = reinterpret_cast<bf16*>(ws + L.dfc);
   bf16* dhpre = reinterpret_cast<bf16*>(ws + L.dhpre);
   bf16* daoc = reinterpret_cast<bf16*>(ws + L.daoc);
@@ -746,6 +744,10 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
   const bf16* xb = (const bf16*)x;
   const bf16* mask1 = (const bf16*)m1;
   const bf16* mask2 = (const bf16*)m2;
+  // The saved ao and f are post-dropout: their LayerNorm residuals take no
+  // mask (the gradients still do).
+  const bf16* rmask1 = resid ? nullptr : mask1;
+  const bf16* rmask2 = resid ? nullptr : mask2;
   const int ln_blocks = (M + LNB_ROWS - 1) / LNB_ROWS;
 #define FLB_CHECK(call)            \
   do {                             \
@@ -753,23 +755,28 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
     if (e != cudaSuccess) return e; \
   } while (0)
 
-  // ---- forward recompute (K1's kernels)
+  // ---- forward recompute (K1's kernels); the resid form keeps the qkv and
+  // W1 GEMMs only
   FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(xb, (const bf16*)qkv_w, (const bf16*)qkv_b, qkv,
                                           nullptr, nullptr, M, 3 * H, H, stream)));
-  FLB_CHECK(launch_attention(qkv, (const float*)key_bias, attn, batch, seq, H, num_heads, scale,
-                             stream));
-  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(attn, (const bf16*)o_w, (const bf16*)o_b, ao, nullptr,
-                                          nullptr, M, H, H, stream)));
-  FLB_CHECK(launch_ln(xb, ao, mask1, (const float*)ln1_s, (const float*)ln1_b, x1, M, H, eps,
-                      stream));
+  if (!resid) {
+    FLB_CHECK(launch_attention(qkv, (const float*)key_bias, attn, batch, seq, H, num_heads,
+                               scale, stream));
+    FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(attn, (const bf16*)o_w, (const bf16*)o_b, ao,
+                                            nullptr, nullptr, M, H, H, stream)));
+    FLB_CHECK(launch_ln(xb, ao, mask1, (const float*)ln1_s, (const float*)ln1_b, x1, M, H, eps,
+                        stream));
+  }
   FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS_GELU_GRAD>(x1, (const bf16*)w1, (const bf16*)b1, hg,
                                                     nullptr, gp, M, I, H, stream)));
-  FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(hg, (const bf16*)w2, (const bf16*)b2, f, nullptr,
-                                          nullptr, M, H, I, stream)));
+  if (!resid) {
+    FLB_CHECK((launch_gemm<FORM_XW, EPI_BIAS>(hg, (const bf16*)w2, (const bf16*)b2, f, nullptr,
+                                            nullptr, M, H, I, stream)));
+  }
 
   // ---- second LayerNorm, FFN
-  FLB_CHECK(launch_ln_bwd<bf16>(x1, f, mask2, (const bf16*)g, (const float*)ln2_s, dres, dfc,
-                                part_ln, M, H, eps, stream));
+  FLB_CHECK(launch_ln_bwd<bf16>(x1, f, rmask2, mask2, (const bf16*)g, (const float*)ln2_s, dres,
+                                dfc, part_ln, M, H, eps, stream));
   FLB_CHECK(reduce_columns<float>(part_ln, ln_blocks, 3 * H, out3, red_tmp, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln2_s, out3, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln2_b, out3 + H, H * 4, cudaMemcpyDeviceToDevice, stream));
@@ -783,8 +790,8 @@ int fused_layer_backward(const void* x, const void* key_bias, const void* g, con
                                                 nullptr, M, H, I, stream)));
 
   // ---- first LayerNorm, output projection
-  FLB_CHECK(launch_ln_bwd<float>(xb, ao, mask1, dx1, (const float*)ln1_s, dres, daoc, part_ln, M,
-                                 H, eps, stream));
+  FLB_CHECK(launch_ln_bwd<float>(xb, ao, rmask1, mask1, dx1, (const float*)ln1_s, dres, daoc,
+                                 part_ln, M, H, eps, stream));
   FLB_CHECK(reduce_columns<float>(part_ln, ln_blocks, 3 * H, out3, red_tmp, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln1_s, out3, H * 4, cudaMemcpyDeviceToDevice, stream));
   FLB_CHECK(cudaMemcpyAsync(d_ln1_b, out3 + H, H * 4, cudaMemcpyDeviceToDevice, stream));

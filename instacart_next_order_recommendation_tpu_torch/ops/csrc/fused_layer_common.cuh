@@ -354,15 +354,18 @@ static cudaError_t launch_gemm(const bf16* A, const bf16* W, const bf16* bias, v
 __host__ __device__ constexpr int gemm_row_tiles(int M) { return (M + GBM - 1) / GBM; }
 
 // ----------------------------------------------------------- attention
-// Forward: the one-pass kernel of mma_common.cuh with the JAX _kernel's
+// Forward: the attention kernels of mma_common.cuh with the JAX _kernel's
 // cast point (P = exp(x - m) rounded to bf16 unnormalised, 1/z applied to
 // the f32 P V product), reading q, k and v in place from the packed
 // [B * S, 3 H] projection and writing [B * S, H]. One block per (64-query
-// tile, head, batch row), 4 warps of 16 query rows; every score row stays
-// in the mma accumulators (head_dim HD in {32, 64}, S <= 256: at most 128
-// f32 per thread), K and V stream through a two-stage cp.async ring of
-// 64-key tiles, and no score touches shared memory. K6 runs the same
-// template at head_dim 64 without a spill.
+// tile, head, batch row), 4 warps of 16 query rows. Where the score row fits
+// in registers (head_dim HD <= 64 and S <= 256: at most 128 f32 per thread)
+// it is computed once, K and V streaming through a two-stage cp.async ring
+// of 64-key tiles, and no score touches shared memory. Elsewhere (S > 256,
+// or HD 128, whose 64 output registers leave no room for the row) the
+// two-pass kernel runs: the exact row max first, then the scores again with
+// P V; the same bits as the one-pass form where both apply. K6 takes the
+// same rule.
 template <int HD, int NT>
 static cudaError_t launch_attention_nt(const bf16* qkv, const float* key_bias, bf16* out,
                                        int batch, int seq, int H, int num_heads, float scale,
@@ -379,28 +382,58 @@ static cudaError_t launch_attention_nt(const bf16* qkv, const float* key_bias, b
   return cudaGetLastError();
 }
 
+// Largest S the forward takes: the tower's position table (max_position
+// 512) caps it; the two-pass kernel's key biases, S * 4 bytes of shared
+// memory, are what grows with it.
+constexpr int MAX_SEQ = 512;
+
+template <int HD>
+static cudaError_t launch_attention_two_pass(const bf16* qkv, const float* key_bias, bf16* out,
+                                             int batch, int seq, int H, int num_heads,
+                                             float scale, cudaStream_t stream) {
+  const int n_tiles = (seq + TK - 1) / TK;
+  const size_t smem = (size_t)5 * tile_elems<HD>() * 2 + (size_t)(MAX_SEQ / TK) * TK * 4;
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem_once(attn_fwd_two_pass_kernel<HD, DIVIDE_AFTER_PV>, smem, done);
+  if (e != cudaSuccess) return e;
+  const View vqkv{(long long)seq * 3 * H, HD, 3LL * H};
+  const View vo{(long long)seq * H, HD, (long long)H};
+  dim3 grid(n_tiles, num_heads, batch);
+  attn_fwd_two_pass_kernel<HD, DIVIDE_AFTER_PV><<<grid, THREADS, smem, stream>>>(
+      qkv, qkv + H, qkv + 2 * H, key_bias, out, vqkv, vqkv, vqkv, vo, seq, scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 static cudaError_t launch_attention_hd(const bf16* qkv, const float* key_bias, bf16* out,
                                        int batch, int seq, int H, int num_heads, float scale,
                                        cudaStream_t stream) {
-  switch ((seq + TK - 1) / TK) {
-    case 1: return launch_attention_nt<HD, 1>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 2: return launch_attention_nt<HD, 2>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 3: return launch_attention_nt<HD, 3>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    case 4: return launch_attention_nt<HD, 4>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
-    default: return cudaErrorInvalidValue;
+  if (seq < 1 || seq > MAX_SEQ) return cudaErrorInvalidValue;
+  if constexpr (HD <= 64) {  // the one-pass rule: S <= 256 at HD <= 64
+    switch ((seq + TK - 1) / TK) {
+      case 1: return launch_attention_nt<HD, 1>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+      case 2: return launch_attention_nt<HD, 2>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+      case 3: return launch_attention_nt<HD, 3>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+      case 4: return launch_attention_nt<HD, 4>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+      default: break;
+    }
   }
+  return launch_attention_two_pass<HD>(qkv, key_bias, out, batch, seq, H, num_heads, scale,
+                                       stream);
 }
 
-// The head_dim comes from hidden / num_heads: 32 (MiniLM-class) or 64
-// (mpnet-base-class).
+// The head_dim comes from hidden / num_heads: 16, 32 (MiniLM-class), 64
+// (mpnet-base-class) or 128, every head_dim that divides 128 as the JAX
+// kernel's gate admits.
 static inline cudaError_t launch_attention(const bf16* qkv, const float* key_bias, bf16* out,
                                            int batch, int seq, int H, int num_heads, float scale,
                                            cudaStream_t stream) {
   if (num_heads <= 0 || H % num_heads) return cudaErrorInvalidValue;
   switch (H / num_heads) {
+    case 16: return launch_attention_hd<16>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
     case 32: return launch_attention_hd<32>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
     case 64: return launch_attention_hd<64>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
+    case 128: return launch_attention_hd<128>(qkv, key_bias, out, batch, seq, H, num_heads, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -408,23 +441,29 @@ static inline cudaError_t launch_attention(const bf16* qkv, const float* key_bia
 // ------------------------------------------------ residual + LayerNorm
 // y = bf16(LN(float(bf16(x + r')))) per row, r' = bf16(r * mask) when a
 // dropout mask ({0, 1/keep} in bf16) is given, else r. One warp per row,
-// H <= 1024.
+// H <= 1024. With r_out (the residual-saving forward), r' is also stored
+// there: r_out may be r itself, each element read before the same thread
+// writes it.
 constexpr int LN_ROWS = 4;
 constexpr int LN_MAX_PER_LANE = 32;
 constexpr int LN_MAX_H = 32 * LN_MAX_PER_LANE;
 
+__device__ __forceinline__ float masked_residual(const bf16* r, const bf16* mask, size_t idx) {
+  const float rv = __bfloat162float(r[idx]);
+  return mask != nullptr ? __bfloat162float(__float2bfloat16(rv * __bfloat162float(mask[idx])))
+                         : rv;
+}
+
 __device__ __forceinline__ float residual_in(const bf16* x, const bf16* r, const bf16* mask,
                                              size_t idx) {
-  float rv = __bfloat162float(r[idx]);
-  if (mask != nullptr) rv = __bfloat162float(__float2bfloat16(rv * __bfloat162float(mask[idx])));
-  return __bfloat162float(__float2bfloat16(__bfloat162float(x[idx]) + rv));
+  return __bfloat162float(__float2bfloat16(__bfloat162float(x[idx]) + masked_residual(r, mask, idx)));
 }
 
 __global__ void __launch_bounds__(LN_ROWS * 32)
-residual_layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r,
+residual_layernorm_kernel(const bf16* __restrict__ x, const bf16* r,
                           const bf16* __restrict__ mask, const float* __restrict__ scale,
-                          const float* __restrict__ shift, bf16* __restrict__ y, int M, int H,
-                          float eps) {
+                          const float* __restrict__ shift, bf16* __restrict__ y, bf16* r_out,
+                          int M, int H, float eps) {
   const int row = blockIdx.x * LN_ROWS + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (row >= M) return;
@@ -435,7 +474,10 @@ residual_layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r
 #pragma unroll
   for (int t = 0; t < LN_MAX_PER_LANE; ++t) {
     if (t < per_lane) {
-      v[t] = residual_in(x, r, mask, off + lane + 32 * t);
+      const size_t idx = off + lane + 32 * t;
+      const float rm = masked_residual(r, mask, idx);
+      if (r_out != nullptr) r_out[idx] = __float2bfloat16(rm);
+      v[t] = __bfloat162float(__float2bfloat16(__bfloat162float(x[idx]) + rm));
       sum += v[t];
     }
   }
@@ -460,9 +502,9 @@ residual_layernorm_kernel(const bf16* __restrict__ x, const bf16* __restrict__ r
 
 inline cudaError_t launch_ln(const bf16* x, const bf16* r, const bf16* mask, const float* s,
                              const float* b, bf16* y, int M, int H, float eps,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, bf16* r_out = nullptr) {
   residual_layernorm_kernel<<<(M + LN_ROWS - 1) / LN_ROWS, LN_ROWS * 32, 0, stream>>>(
-      x, r, mask, s, b, y, M, H, eps);
+      x, r, mask, s, b, y, r_out, M, H, eps);
   return cudaGetLastError();
 }
 

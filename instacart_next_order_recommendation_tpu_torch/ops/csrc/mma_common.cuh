@@ -4,8 +4,8 @@
 // cp.async, ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulation) and
 // m16n8k8 (TF32 in, f32 accumulation), the tile helpers of 64-row tiles whose rows
 // are padded by 16 bytes (every ldmatrix phase hits 32 distinct banks), and
-// the one-pass attention forward that K6 and K1 both run, each with its own
-// cast point for the probabilities.
+// the attention forward kernels (one pass, two passes) that K6 and K1 both
+// run, each with its own cast point for the probabilities.
 //
 // Accumulator layout of one m16n8k16 product: lane (g = lane / 4,
 // t = lane % 4) holds rows g (c[0], c[1]) and g + 8 (c[2], c[3]), columns
@@ -185,12 +185,13 @@ __device__ __forceinline__ uint32_t lane_bt(int lane) {
 
 // c = A B^T over D: a is the lane's lane_a address in the warp's 16 rows of
 // a shared tile, b its lane_bt address in the 64 rows of another (Q K^T,
-// dO V^T, K Q^T, V dO^T).
-template <int D>
-__device__ __forceinline__ void mma_abt(float (&c)[8][4], uint32_t a_addr, uint32_t b_addr) {
+// dO V^T, K Q^T, V dO^T); c's NJ 8-column groups (8: the whole 64-row tile
+// of b; fewer: its first 8 NJ rows).
+template <int D, int NJ>
+__device__ __forceinline__ void mma_abt(float (&c)[NJ][4], uint32_t a_addr, uint32_t b_addr) {
   constexpr int ROW = row_stride<D>() * 2;  // bytes
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NJ; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) c[j][e] = 0.0f;
 #pragma unroll
@@ -198,7 +199,7 @@ __device__ __forceinline__ void mma_abt(float (&c)[8][4], uint32_t a_addr, uint3
     uint32_t a[4];
     ldsm_x4(a, a_addr + kk * 32);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
+    for (int jj = 0; jj < NJ / 2; ++jj) {
       uint32_t b[4];
       ldsm_x4(b, b_addr + jj * 16 * ROW + kk * 32);
       mma(c[2 * jj], a, b[0], b[1]);
@@ -207,8 +208,10 @@ __device__ __forceinline__ void mma_abt(float (&c)[8][4], uint32_t a_addr, uint3
   }
 }
 
-// The A operand over columns [16 kc, 16 kc + 16) of an accumulator tile.
-__device__ __forceinline__ void a_operand(const float (&c)[8][4], int kc, float mul0, float mul1,
+// The A operand over columns [16 kc, 16 kc + 16) of an accumulator tile of
+// N 8-column groups.
+template <int N>
+__device__ __forceinline__ void a_operand(const float (&c)[N][4], int kc, float mul0, float mul1,
                                           uint32_t (&a)[4]) {
   a[0] = pack_bf16(c[2 * kc][0] * mul0, c[2 * kc][1] * mul0);
   a[1] = pack_bf16(c[2 * kc][2] * mul1, c[2 * kc][3] * mul1);
@@ -217,7 +220,8 @@ __device__ __forceinline__ void a_operand(const float (&c)[8][4], int kc, float 
 }
 
 // The same, split: a[0] the bf16 value, a[1] the bf16 remainder.
-__device__ __forceinline__ void a_operand_split(const float (&c)[8][4], int kc,
+template <int N>
+__device__ __forceinline__ void a_operand_split(const float (&c)[N][4], int kc,
                                                 uint32_t (&a)[2][4]) {
   split_bf16(c[2 * kc][0], c[2 * kc][1], a[0][0], a[1][0]);
   split_bf16(c[2 * kc][2], c[2 * kc][3], a[0][1], a[1][1]);
@@ -415,6 +419,128 @@ attn_fwd_one_pass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
   if (CAST == DIVIDE_AFTER_PV) {
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] /= l0;
+      acc[n][1] /= l0;
+      acc[n][2] /= l1;
+      acc[n][3] /= l1;
+    }
+  }
+  store_rows<D>(acc, 1.0f, Qw, o, vo, bi, hi, q0 + warp * 16, S, lane);
+}
+
+// Two passes over the key tiles, any S (the tile count is a runtime value):
+// the scores are computed twice, K and V stream through a two-stage ring.
+// NORMALISE_BEFORE_CAST (K6): pass one keeps each row's max and sum online,
+// pass two rounds P = exp(x - m) / l to bf16. DIVIDE_AFTER_PV (K1): pass one
+// keeps only the exact row max (P is cast after it, so it must be final);
+// pass two sums exp(x - m) in the one-pass kernel's order, tile by tile and
+// column by column, and divides the f32 P V product by it at the end, so
+// K1's output is the one-pass form's, bit for bit, where both apply.
+template <int D, int CAST>
+__global__ void __launch_bounds__(THREADS)
+attn_fwd_two_pass_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, const float* __restrict__ key_bias,
+                         bf16* __restrict__ o, View vq, View vk, View vv, View vo, int S,
+                         float scale) {
+  constexpr int LD = row_stride<D>();
+  constexpr int TILE = tile_elems<D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = Qs + TILE;                                 // two stages of (K, V)
+  float* Kb = reinterpret_cast<float*>(ring + 4 * TILE);  // n_tiles * 64 key biases
+  const int q0 = blockIdx.x * TQ;
+  const int hi = blockIdx.y;
+  const int bi = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int n_tiles = (S + TK - 1) / TK;
+  bf16* Qw = Qs + warp * 16 * LD;
+  const uint32_t qa = smem_addr(Qw) + lane_a<D>(lane);
+  const uint32_t kb = smem_addr(ring) + lane_bt<D>(lane);
+  const uint32_t vb = smem_addr(ring + TILE) + lane_a<D>(lane);
+
+  // Steps 0 .. n - 1 bring K tile `step` (pass one), n .. 2 n - 1 the K and
+  // V tiles `step - n` (pass two).
+  auto issue = [&](int step) {
+    bf16* dst = ring + (step & 1) * 2 * TILE;
+    if (step < n_tiles) {
+      load_tile<D>(dst, k, vk, bi, hi, step * TK, S, tid);
+    } else if (step < 2 * n_tiles) {
+      load_tile<D>(dst, k, vk, bi, hi, (step - n_tiles) * TK, S, tid);
+      load_tile<D>(dst + TILE, v, vv, bi, hi, (step - n_tiles) * TK, S, tid);
+    }
+    cp_commit();
+  };
+  load_tile<D>(Qs, q, vq, bi, hi, q0, S, tid);
+  issue(0);
+  load_bias(Kb, key_bias, bi, n_tiles, S, tid);
+
+  float x[8][4];
+  float m0 = INIT_MAX, m1 = INIT_MAX, l0 = 0.0f, l1 = 0.0f;
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    mma_abt<D>(x, qa, kb + (t & 1) * 2 * TILE * 2);
+    logits(x, Kb + t * TK, scale, lane);
+    float t0, t1;
+    tile_max(x, t0, t1);
+    const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+    if (CAST == NORMALISE_BEFORE_CAST) {
+      float e0 = 0.0f, e1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        e0 += expf(x[j][0] - n0) + expf(x[j][1] - n0);
+        e1 += expf(x[j][2] - n1) + expf(x[j][3] - n1);
+      }
+      l0 = fmaf(l0, expf(m0 - n0), quad_sum(e0));
+      l1 = fmaf(l1, expf(m1 - n1), quad_sum(e1));
+    }
+    m0 = n0;
+    m1 = n1;
+    __syncthreads();
+  }
+  const float i0 = CAST == NORMALISE_BEFORE_CAST ? 1.0f / l0 : 1.0f;
+  const float i1 = CAST == NORMALISE_BEFORE_CAST ? 1.0f / l1 : 1.0f;
+  if (CAST == DIVIDE_AFTER_PV) {
+    l0 = 0.0f;
+    l1 = 0.0f;
+  }
+
+  float acc[D / 8][4];
+  zero<D>(acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    issue(n_tiles + t + 1);
+    cp_wait<1>();
+    __syncthreads();
+    const uint32_t stage = ((n_tiles + t) & 1) * 2 * TILE * 2;
+    mma_abt<D>(x, qa, kb + stage);
+    logits(x, Kb + t * TK, scale, lane);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      x[j][0] = expf(x[j][0] - m0);
+      x[j][1] = expf(x[j][1] - m0);
+      x[j][2] = expf(x[j][2] - m1);
+      x[j][3] = expf(x[j][3] - m1);
+      if (CAST == DIVIDE_AFTER_PV) {
+        l0 += x[j][0] + x[j][1];
+        l1 += x[j][2] + x[j][3];
+      }
+    }
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t a[1][4];
+      a_operand(x, kc, i0, i1, a[0]);
+      mma_ab<D, 1>(acc, a, vb + stage, kc);
+    }
+    __syncthreads();
+  }
+  if (CAST == DIVIDE_AFTER_PV) {
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {
       acc[n][0] /= l0;

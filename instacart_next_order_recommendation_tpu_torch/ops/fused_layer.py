@@ -3,18 +3,23 @@
 Counterpart of the JAX package's ``ops/fused_layer.py``: ``fused_encoder_layer``
 there runs the Pallas TPU kernel ``_kernel``, ``fused_encoder_layer_train``
 runs it with two dropout-mask inputs under a custom_vjp whose backward is
-the kernel ``_bwd_kernel``, and ``_oracle`` is the jnp mirror of both.
+the kernel ``_bwd_kernel``, and ``_oracle`` is the jnp mirror of both. With
+``save_resid`` the forward also keeps four residuals (attn, the post-dropout
+ao, x1, the post-dropout f) and ``_bwd_kernel``'s resid form reads them in
+place of four of its recompute steps.
 
 Here ``fused_encoder_layer_reference`` / ``fused_encoder_layer_train_reference``
 are the plain PyTorch versions of the same math (the latter's autograd
-gradient is the plain backward, ``fused_encoder_layer_backward_reference``),
-and the entry points launch the hand-written CUDA kernels for a tensor on the
-GPU: ``csrc/fused_layer.cu`` (K1, forward, with or without masks) and
-``csrc/fused_layer_bwd.cu`` (K5, dx and the twelve weight grads), both at
-head_dim 32 (MiniLM-class) and 64 (mpnet-base-class). Cast points follow
-``_kernel``: matmuls accumulate in f32 over compute-dtype operands, the
-softmax is f32 with 1/sum applied after the PV product, residual adds and the
-dropout products happen in the compute dtype, and LayerNorm runs in f32.
+gradient is the plain backward, ``fused_encoder_layer_backward_reference``,
+which with the residuals chains the same steps from the saved values), and
+the entry points launch the hand-written CUDA kernels for a tensor on the
+GPU: ``csrc/fused_layer.cu`` (K1, forward, with or without masks, with or
+without the residuals) and ``csrc/fused_layer_bwd.cu`` (K5, dx and the twelve
+weight grads, recomputing the forward or reading the residuals), at every
+shape JAX's gate admits (``supports``). Cast points follow ``_kernel``:
+matmuls accumulate in f32 over compute-dtype operands, the softmax is f32
+with 1/sum applied after the PV product, residual adds and the dropout
+products happen in the compute dtype, and LayerNorm runs in f32.
 """
 
 from __future__ import annotations
@@ -26,8 +31,8 @@ import torch
 from instacart_next_order_recommendation_tpu_torch.ops import _build
 
 _NEG_INF = -1e9  # key bias at padded keys: finite, so all-pad rows stay finite
-HEAD_DIMS = (32, 64)
-MAX_SEQ = 256
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_SEQ = 512  # the towers' max_position
 # Kernel-layout weights in the order the CUDA entry points take them.
 WEIGHT_NAMES = (
     "qkv_w", "qkv_b", "o_w", "o_b", "ln1_s", "ln1_b",
@@ -78,17 +83,17 @@ def _layer_norm(res: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, eps
     return cent * torch.rsqrt(var + eps) * scale + shift
 
 
-def _reference_core(x, bias, w, m1=None, m2=None, *, num_heads, scale, eps):
-    cdt = x.dtype
+def _dot(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.float32) @ m.to(torch.float32)
+
+
+def _attention(x2, bias, w, *, b, s, num_heads, scale):
+    """attn ``[B*S, H]`` in the compute dtype from the layer input's rows."""
+    cdt = x2.dtype
     f32 = torch.float32
-    b, s, h = x.shape
+    h = x2.shape[1]
     hd = h // num_heads
-    x2 = x.reshape(b * s, h)
-
-    def dot(a, m):
-        return a.to(f32) @ m.to(f32)
-
-    qkv = (dot(x2, w["qkv_w"]) + w["qkv_b"].to(f32)).to(cdt).reshape(b, s, 3 * h)
+    qkv = (_dot(x2, w["qkv_w"]) + w["qkv_b"].to(f32)).to(cdt).reshape(b, s, 3 * h)
 
     def heads(t):
         return t.reshape(b, s, num_heads, hd).permute(0, 2, 1, 3).to(f32)
@@ -100,18 +105,42 @@ def _reference_core(x, bias, w, m1=None, m2=None, *, num_heads, scale, eps):
     p = torch.exp(logits - logits.amax(dim=-1, keepdim=True).detach())
     z = p.sum(dim=-1, keepdim=True)
     out = (p.to(cdt).to(f32) @ v) / z
-    attn = out.permute(0, 2, 1, 3).reshape(b * s, h).to(cdt)
+    return out.permute(0, 2, 1, 3).reshape(b * s, h).to(cdt)
 
-    ao = (dot(attn, w["o_w"]) + w["o_b"].to(f32)).to(cdt)
-    if m1 is not None:
-        ao = ao * m1.reshape(b * s, h)
-    x1 = _layer_norm((x2 + ao).to(f32), w["ln1_s"], w["ln1_b"], eps).to(cdt)
-    hid = _gelu_exact(dot(x1, w["w1"]) + w["b1"].to(f32)).to(cdt)
-    f = (dot(hid, w["w2"]) + w["b2"].to(f32)).to(cdt)
-    if m2 is not None:
-        f = f * m2.reshape(b * s, h)
-    y = _layer_norm((x1 + f).to(f32), w["ln2_s"], w["ln2_b"], eps).to(cdt)
-    return y.reshape(b, s, h)
+
+def _projection(attn, w, m1):
+    """ao after dropout: bf16(bf16(attn Wo + bo) * m1)."""
+    ao = (_dot(attn, w["o_w"]) + w["o_b"].to(torch.float32)).to(attn.dtype)
+    return ao if m1 is None else ao * m1
+
+
+def _ffn(x1, w, m2):
+    """f after dropout: bf16(bf16(gelu(x1 W1 + b1)) W2 + b2) * m2."""
+    f32 = torch.float32
+    hid = _gelu_exact(_dot(x1, w["w1"]) + w["b1"].to(f32)).to(x1.dtype)
+    f = (_dot(hid, w["w2"]) + w["b2"].to(f32)).to(x1.dtype)
+    return f if m2 is None else f * m2
+
+
+def _add_norm(a, r, scale, shift, eps):
+    """bf16(LN(float(bf16(a + r)))): the residual add in the compute dtype."""
+    return _layer_norm((a + r).to(torch.float32), scale, shift, eps).to(a.dtype)
+
+
+def _reference_core(x, bias, w, m1=None, m2=None, *, num_heads, scale, eps, keep=False):
+    """The layer; with ``keep``, also its four residuals ``(attn, ao, x1,
+    f)``, each ``[B, S, H]``, as the JAX kernel's save_resid writes them."""
+    b, s, h = x.shape
+    x2 = x.reshape(b * s, h)
+    m1, m2 = (None if m is None else m.reshape(b * s, h) for m in (m1, m2))
+    attn = _attention(x2, bias, w, b=b, s=s, num_heads=num_heads, scale=scale)
+    ao = _projection(attn, w, m1)
+    x1 = _add_norm(x2, ao, w["ln1_s"], w["ln1_b"], eps)
+    f = _ffn(x1, w, m2)
+    y = _add_norm(x1, f, w["ln2_s"], w["ln2_b"], eps).reshape(b, s, h)
+    if keep:
+        return y, tuple(t.reshape(b, s, h) for t in (attn, ao, x1, f))
+    return y
 
 
 def fused_encoder_layer_reference(
@@ -155,10 +184,21 @@ def fused_encoder_layer_backward_reference(
     num_heads: int,
     scale: float,
     eps: float,
+    resids: tuple | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Plain backward: autograd of the plain forward with respect to ``x``
     and the twelve kernel-layout weights, for upstream gradient ``g``.
-    Returns ``(dx, {name: grad})``, each grad in its input's dtype."""
+    Returns ``(dx, {name: grad})``, each grad in its input's dtype.
+
+    With ``resids`` (the forward's ``(attn, ao, x1, f)``) it runs the resid
+    form's data flow, step by step from the saved values as K5 does: LN2 on
+    the saved x1 and f, the FFN from the saved x1 (its W1 product
+    recomputed), LN1 on x and the saved ao, the projection from the saved
+    attn, and the attention from x (its qkv product recomputed)."""
+    if resids is not None:
+        return _resid_backward_reference(
+            x, bias, g, masks, weights, resids, num_heads=num_heads, scale=scale, eps=eps
+        )
     m1, m2 = masks if masks is not None else (None, None)
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
@@ -168,14 +208,46 @@ def fused_encoder_layer_backward_reference(
     return grads[0], dict(zip(WEIGHT_NAMES, grads[1:]))
 
 
+def _resid_backward_reference(x, bias, g, masks, weights, resids, *, num_heads, scale, eps):
+    b, s, h = x.shape
+    x2, g2, attn, ao, x1, f = (t.reshape(b * s, h) for t in (x, g, *resids))
+    m1, m2 = (None, None) if masks is None else (m.reshape(b * s, h) for m in masks)
+    dw = {}
+
+    def vjp(fn, inputs: dict, upstream):
+        """Gradients of ``fn(**inputs)`` for ``upstream``; the weights among
+        the inputs go to ``dw``, the rest are returned by name."""
+        with torch.enable_grad():
+            leaves = {n: t.detach().requires_grad_(True) for n, t in inputs.items()}
+            grads = torch.autograd.grad(fn(**leaves), list(leaves.values()), upstream)
+        out = dict(zip(leaves, grads))
+        dw.update({n: out.pop(n) for n in list(out) if n in WEIGHT_NAMES})
+        return out
+
+    w = lambda *names: {n: weights[n] for n in names}  # noqa: E731
+    d = vjp(lambda x1, f, ln2_s, ln2_b: _add_norm(x1, f, ln2_s, ln2_b, eps),
+            {"x1": x1, "f": f, **w("ln2_s", "ln2_b")}, g2)
+    dx1 = d["x1"] + vjp(lambda x1, **ws: _ffn(x1, ws, m2),
+                        {"x1": x1, **w("w1", "b1", "w2", "b2")}, d["f"])["x1"]
+    d = vjp(lambda x, ao, ln1_s, ln1_b: _add_norm(x, ao, ln1_s, ln1_b, eps),
+            {"x": x2, "ao": ao, **w("ln1_s", "ln1_b")}, dx1)
+    dattn = vjp(lambda attn, **ws: _projection(attn, ws, m1),
+                {"attn": attn, **w("o_w", "o_b")}, d["ao"])["attn"]
+    dx = d["x"] + vjp(
+        lambda x, **ws: _attention(x, bias, ws, b=b, s=s, num_heads=num_heads, scale=scale),
+        {"x": x2, **w("qkv_w", "qkv_b")}, dattn,
+    )["x"]
+    return dx.reshape(b, s, h), {n: dw[n] for n in WEIGHT_NAMES}
+
+
 _SIGNATURES = {
-    "fused_layer_forward": [ctypes.c_void_p] * 22
-    + [ctypes.c_int] * 5
+    "fused_layer_forward": [ctypes.c_void_p] * 23
+    + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
 _BWD_SIGNATURES = {
-    "fused_layer_backward_workspace": [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_ulonglong)],
-    "fused_layer_backward": [ctypes.c_void_p] * 31
+    "fused_layer_backward_workspace": [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_ulonglong)],
+    "fused_layer_backward": [ctypes.c_void_p] * 35
     + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
 }
@@ -183,11 +255,12 @@ _BWD_SIGNATURES = {
 
 def supports(hidden: int, num_heads: int, seq: int, inter: int) -> bool:
     """Whether the fused-layer kernels (K1 and K5) take this shape: head_dim
-    32 or 64 (hidden == num_heads * head_dim), hidden % 64 == 0 and at most
-    1024, intermediate % 64 == 0, and 16 <= S <= 256 with S % 16 == 0.
-    Named after the JAX package's gate, but this is the port kernels' own
-    envelope: JAX's also admits head_dim 16 and 128 and any S % 16 == 0.
-    ``encode`` sends every other shape to the unfused layer."""
+    16, 32, 64 or 128 (hidden == num_heads * head_dim: every head_dim that
+    divides 128, as the JAX package's gate admits), hidden % 64 == 0 and at
+    most 1024 (the LayerNorm row kernel's width), intermediate % 64 == 0, and
+    16 <= S <= 512 with S % 16 == 0 (JAX's gate sets no top; the towers'
+    max_position of 512 does). ``encode`` sends every other shape to the
+    unfused layer."""
     return (
         num_heads > 0
         and hidden % num_heads == 0
@@ -207,7 +280,7 @@ def _check_kernel_inputs(x: torch.Tensor, bias: torch.Tensor, w: dict, num_heads
         raise ValueError(f"fused_encoder_layer kernel takes bfloat16, got {x.dtype}")
     if not supports(h, num_heads, s, inter):
         raise ValueError(
-            f"fused_encoder_layer kernel takes head_dim 32 or 64, hidden % 64 == 0 "
+            f"fused_encoder_layer kernel takes head_dim {HEAD_DIMS}, hidden % 64 == 0 "
             f"(<= 1024), intermediate % 64 == 0 and 16 <= S <= {MAX_SEQ} with S % 16 == 0; "
             f"got hidden={h}, heads={num_heads}, intermediate={inter}, S={s}"
         )
@@ -256,15 +329,16 @@ def _check_masks(x: torch.Tensor, masks) -> tuple:
     return m1, m2
 
 
-def _launch(x, bias, w, masks=None, *, num_heads, scale, eps):
+def _launch(x, bias, w, masks=None, *, num_heads, scale, eps, save_resid=False):
+    """K1 on checked inputs: ``y``, or with ``save_resid`` ``(y, (attn, ao,
+    x1, f))``, the four residuals ``[B, S, H]`` that K5's resid form reads."""
     b, s, h = x.shape
     inter = w["w1"].shape[1]
     m = b * s
     new = {"dtype": x.dtype, "device": x.device}
     qkv = torch.empty((m, 3 * h), **new)
-    attn = torch.empty((m, h), **new)
-    tmp = torch.empty((m, h), **new)
-    x1 = torch.empty((m, h), **new)
+    attn, ao, x1 = (torch.empty((m, h), **new) for _ in range(3))
+    f = torch.empty((m, h), **new) if save_resid else ao
     hid = torch.empty((m, inter), **new)
     y = torch.empty_like(x)
     m1, m2 = _check_masks(x, masks)
@@ -273,10 +347,12 @@ def _launch(x, bias, w, masks=None, *, num_heads, scale, eps):
     err = lib.fused_layer_forward(
         p(x), p(bias), *(p(w[n]) for n in WEIGHT_NAMES),
         None if m1 is None else p(m1), None if m2 is None else p(m2),
-        p(qkv), p(attn), p(tmp), p(x1), p(hid), p(y),
+        p(qkv), p(attn), p(ao), p(x1), p(hid), p(f), p(y), int(save_resid),
         b, s, h, num_heads, inter, scale, eps, _build.stream_of(x),
     )
     _build.check(lib, err, "fused_layer_forward")
+    if save_resid:
+        return y, tuple(t.view(b, s, h) for t in (attn, ao, x1, f))
     return y
 
 
@@ -309,25 +385,34 @@ def fused_encoder_layer_backward(
     num_heads: int,
     scale: float,
     eps: float,
+    resids: tuple | None = None,
 ) -> tuple[torch.Tensor, dict]:
     """Backward of the training-form layer: ``(dx, {name: grad})`` for
     upstream gradient ``g``, each grad in its weight's dtype (summed in f32).
+    ``resids``: the forward's ``(attn, ao, x1, f)`` (the residual-saving
+    form, as JAX's ``_call_bwd(resids=...)``), or None to recompute them.
     A CPU tensor takes the plain version; a CUDA tensor launches K5 or
-    raises on what it does not take."""
+    raises on what it does not take. Launches of the resid form are also
+    counted in ``.resid_launches``."""
     if x.device.type == "cpu":
         return fused_encoder_layer_backward_reference(
-            x, bias, g, masks, weights, num_heads=num_heads, scale=scale, eps=eps
+            x, bias, g, masks, weights, num_heads=num_heads, scale=scale, eps=eps,
+            resids=resids,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_encoder_layer_backward: no kernel for device {x.device}")
     _check_kernel_inputs(x, bias, weights, num_heads)
     _check_like_x(x, "g", g)
+    for name, r in zip(("attn", "ao", "x1", "f"), resids or ()):
+        _check_like_x(x, name, r)
     m1, m2 = _check_masks(x, masks)
     b, s, h = x.shape
     inter = weights["w1"].shape[1]
     lib = _build.load("fused_layer_bwd", _BWD_SIGNATURES)
     n_bytes = ctypes.c_ulonglong(0)
-    err = lib.fused_layer_backward_workspace(b, s, h, num_heads, inter, ctypes.byref(n_bytes))
+    err = lib.fused_layer_backward_workspace(
+        b, s, h, num_heads, inter, int(resids is not None), ctypes.byref(n_bytes)
+    )
     _build.check(lib, err, "fused_layer_backward_workspace")
     workspace = torch.empty(n_bytes.value, dtype=torch.uint8, device=x.device)
     dx = torch.empty_like(x)
@@ -336,50 +421,95 @@ def fused_encoder_layer_backward(
     p = _build.ptr
     err = lib.fused_layer_backward(
         p(x), p(bias), p(g), None if m1 is None else p(m1), None if m2 is None else p(m2),
-        *(p(weights[n]) for n in WEIGHT_NAMES), p(dx), *(p(grads[n]) for n in WEIGHT_NAMES),
+        *(p(weights[n]) for n in WEIGHT_NAMES),
+        *((None,) * 4 if resids is None else (p(r) for r in resids)),
+        p(dx), *(p(grads[n]) for n in WEIGHT_NAMES),
         p(workspace), b, s, h, num_heads, inter, scale, eps, _build.stream_of(x),
     )
     _build.check(lib, err, "fused_layer_backward")
     _build.count(fused_encoder_layer_backward)
+    if resids is not None:
+        _build.count(fused_encoder_layer_backward, "resid_launches")
     return dx, {n: grads[n].to(weights[n].dtype) for n in WEIGHT_NAMES}
 
 
 fused_encoder_layer_backward.launches = 0
+fused_encoder_layer_backward.resid_launches = 0
+
+
+# The residuals' bytes a layer up to which the training layer keeps them:
+# the four [B, S, H] bf16 tensors stay alive from each layer's forward to
+# its backward, so a tower holds layers x this. 768 MiB is the largest size
+# at which whole training steps of both presets were read to fit (PERF.md).
+RESID_BYTES_PER_LAYER = 768 << 20
+
+
+def saves_residuals(batch: int, seq: int, hidden: int, inter: int) -> bool:
+    """Whether the training-form layer keeps its four residuals for the
+    backward (K1's save_resid, K5's resid form) at this shape, or keeps only
+    its inputs and recomputes them. A rule of shape alone, so that the CPU
+    and the card take the same form. From H100 readings
+    (``scripts/torch_fused_resid_rule.py``, PERF.md):
+
+    - speed: one layer's step (K1-train + K5) was 4-11% faster in the resid
+      form at MiniLM's and mpnet's widths from B=64 to 512 and S=64 to 512;
+      whole ``TrainStep``s at S=512 9.3-9.4% faster (MiniLM B=512 and 1024,
+      mpnet B=256). At B=1 (six turns) it was 5-7% slower at MiniLM's widths
+      (K1-train's resid form 0.022-0.028 ms slower, K5's no faster) and 5-6%
+      faster at mpnet's; a batch of 1 holds no in-batch negative, so MNRL
+      learns nothing there, and the rule does not split on it.
+    - memory: what the form costs is memory held across the tower,
+      4*B*S*H*2 bytes a layer. Kept up to ``RESID_BYTES_PER_LAYER``: at 768
+      MiB a layer (MiniLM B=512, mpnet B=256, both at S=512) the whole step
+      fit, mpnet's at a 44.7 GB peak against the recompute form's 26.2; at
+      1.5 GiB a layer mpnet B=512 S=512 did not fit in 80 GB, where the
+      recompute form's step peaked at 50.7 GB (MiniLM B=1024 did fit: a
+      per-layer cap cannot see the layer count). ``inter`` does not enter:
+      the FFN's hidden layer is recomputed in both forms."""
+    return 4 * batch * seq * hidden * 2 <= RESID_BYTES_PER_LAYER
 
 
 class _TrainLayer(torch.autograd.Function):
     """The training-form layer: K1 with masks forward, K5 backward (the
-    plain versions on the CPU). Saves only the layer inputs, as the JAX
-    custom_vjp does; the backward recomputes the forward."""
+    plain versions on the CPU). Saves the layer inputs and, where
+    ``saves_residuals`` says so, the four residuals; else the backward
+    recomputes the forward, as the JAX custom_vjp does by default."""
 
     @staticmethod
     def forward(ctx, x, bias, m1, m2, opts, *weights):
         num_heads, scale, eps = opts
         w = dict(zip(WEIGHT_NAMES, weights))
         masks = None if m1 is None else (m1, m2)
+        b, s, h = x.shape
+        keep = saves_residuals(b, s, h, w["w1"].shape[1])
+        kw = dict(num_heads=num_heads, scale=scale, eps=eps)
         if x.device.type == "cpu":
-            y = _reference_core(x, bias, w, m1, m2, num_heads=num_heads, scale=scale, eps=eps)
+            out = _reference_core(x, bias, w, m1, m2, keep=keep, **kw)
         elif x.device.type == "cuda":
             _check_kernel_inputs(x, bias, w, num_heads)
-            y = _launch(x, bias, w, masks, num_heads=num_heads, scale=scale, eps=eps)
+            out = _launch(x, bias, w, masks, save_resid=keep, **kw)
             _build.count(fused_encoder_layer_train)
+            if keep:
+                _build.count(fused_encoder_layer_train, "resid_launches")
         else:
             raise ValueError(f"fused_encoder_layer_train: no kernel for device {x.device}")
+        y, resids = out if keep else (out, ())
         ctx.opts = opts
-        ctx.has_masks = masks is not None
-        ctx.save_for_backward(x, bias, *(masks or ()), *weights)
+        ctx.n_masks = 0 if masks is None else 2
+        ctx.n_resids = len(resids)
+        ctx.save_for_backward(x, bias, *(masks or ()), *resids, *weights)
         return y
 
     @staticmethod
     def backward(ctx, g):
         num_heads, scale, eps = ctx.opts
-        saved = ctx.saved_tensors
-        x, bias = saved[:2]
-        n_masks = 2 if ctx.has_masks else 0
-        masks = tuple(saved[2 : 2 + n_masks]) or None
-        weights = dict(zip(WEIGHT_NAMES, saved[2 + n_masks :]))
+        x, bias, *rest = ctx.saved_tensors
+        masks = tuple(rest[: ctx.n_masks]) or None
+        resids = tuple(rest[ctx.n_masks : ctx.n_masks + ctx.n_resids]) or None
+        weights = dict(zip(WEIGHT_NAMES, rest[ctx.n_masks + ctx.n_resids :]))
         dx, dw = fused_encoder_layer_backward(
-            x, bias, g.contiguous(), masks, weights, num_heads=num_heads, scale=scale, eps=eps
+            x, bias, g.contiguous(), masks, weights, num_heads=num_heads, scale=scale, eps=eps,
+            resids=resids,
         )
         return (dx, None, None, None, None, *(dw[n] for n in WEIGHT_NAMES))
 
@@ -417,7 +547,8 @@ def fused_encoder_layer_train(
     The masks are ``masks`` when given, else drawn from ``generator`` (m1
     then m2). ``dropout_rate <= 0`` runs the maskless variant. ``layer`` is
     a raw layer dict or a ``prepare_layer`` one; gradients reach whatever
-    tensors it was made from through ``prepare_layer``'s casts.
+    tensors it was made from through ``prepare_layer``'s casts. Launches
+    that keep the residuals are also counted in ``.resid_launches``.
     """
     bias, w = _prep_inputs(x, mask, layer)
     if 1.0 - float(dropout_rate) >= 1.0:
@@ -433,3 +564,4 @@ def fused_encoder_layer_train(
 
 
 fused_encoder_layer_train.launches = 0
+fused_encoder_layer_train.resid_launches = 0

@@ -162,8 +162,8 @@ class TrainConfig:
         # Layer rematerialization; None = auto (``_resolve_remat``): on at
         # batch >= 256 for a tower the fused kernels do not take, whose
         # unfused layers would otherwise keep every activation for the
-        # backward. The fused backward keeps only the layer inputs, so
-        # there remat changes nothing.
+        # backward. The fused backward keeps only the layer inputs (and at
+        # most four residuals), so there remat changes nothing.
         self.remat = raw.get("remat")
 
     @classmethod
@@ -354,15 +354,20 @@ class TwoTowerTrainer:
         """Remat policy: an explicit ``remat`` wins; below batch 256 it is
         off; at 256 and above it is on exactly when the fused kernels do not
         take the tower at ``seq``, the longest sequence a batch may run at
-        (their backward keeps only the layer inputs).
+        (their backward keeps only the layer inputs, or the four residuals
+        that ``fused_layer.saves_residuals`` asks for). They take head_dim
+        16, 32, 64 and 128 at 16 <= S <= 512 with S % 16 == 0
+        (``fused_layer.supports``), so remat stays on only for a ragged
+        ``seq`` or a head_dim that does not divide 128.
 
         Two differences from the JAX trainer's policy. JAX also asks its
         backward kernel's VMEM gate (``bwd_supports``), which refuses
-        mpnet-base-class on a v5e, so it keeps remat on for mpnet at
-        B >= 256 where the port, whose K5 takes head_dim 64, turns it off:
-        a TPU limit, not the function's. And JAX tests its gate at ``seq``
-        rounded down to a multiple of 16, though a batch that fills ``seq``
-        then takes the unfused layer; the port tests ``seq`` itself."""
+        mpnet-base-class on a v5e, and MiniLM-L6 at S = 512, so it keeps
+        remat on for them at B >= 256 where the port, whose K5 takes both,
+        turns it off: a TPU limit, not the function's. And JAX tests its
+        gate at ``seq`` rounded down to a multiple of 16, though a batch
+        that fills ``seq`` then takes the unfused layer; the port tests
+        ``seq`` itself."""
         if self.cfg.remat is not None:
             return bool(self.cfg.remat)
         if self.cfg.train_batch_size < 256:

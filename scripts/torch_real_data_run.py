@@ -20,7 +20,9 @@ p5_mp20_ef0.1, a 5-epoch warm start at batch 64 / seq 256 / lr 5e-5 / MNRL
 scale 30 with per-epoch IR eval, the content-based and item-item CF
 baselines, and the untrained-vs-trained collapse diagnostics; it prints the
 side-by-side per-epoch table against the reference's published numbers and
-writes it to ``--results`` (REAL_RESULTS.md).
+writes it to ``--results`` (by default ``REAL_RESULTS.md`` in ``--workdir``,
+``torch_real_ws/``: names of the port's own, apart from the JAX runbook's
+``real_ws/`` and ``REAL_RESULTS.md``).
 
 ``--check`` validates the prerequisites and exits without running anything.
 """
@@ -133,7 +135,11 @@ def format_table(history: list[dict]) -> str:
     return "\n".join(lines)
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX runbook's flags. The work directory and the results file
+    default to names of the port's own (``torch_real_ws/``, the results in
+    it), so that a port run never overwrites a JAX run's ``real_ws/`` or
+    ``REAL_RESULTS.md``."""
     parser = argparse.ArgumentParser(description="Real-data parity run")
     parser.add_argument(
         "--data-dir",
@@ -147,7 +153,7 @@ def main(argv: list[str] | None = None) -> int:
         default=Path(os.getenv("ITOR_BASE_MODEL_DIR", "models/all-MiniLM-L6-v2")),
         help="all-MiniLM-L6-v2 checkpoint dir (HF or sentence-transformers format)",
     )
-    parser.add_argument("--workdir", type=Path, default=Path("real_ws"))
+    parser.add_argument("--workdir", type=Path, default=Path("torch_real_ws"))
     parser.add_argument("--epochs", type=int, default=5)
     parser.add_argument("--train-batch-size", type=int, default=64)
     parser.add_argument("--max-seq-length", type=int, default=256)
@@ -160,8 +166,8 @@ def main(argv: list[str] | None = None) -> int:
         help="batches taken per group (a ragged trailing group is dropped)",
     )
     parser.add_argument(
-        "--results", type=Path, default=Path("REAL_RESULTS.md"),
-        help="where to write the side-by-side table",
+        "--results", type=Path, default=None,
+        help="where to write the side-by-side table (default: <workdir>/REAL_RESULTS.md)",
     )
     parser.add_argument(
         "--check", action="store_true",
@@ -180,7 +186,13 @@ def main(argv: list[str] | None = None) -> int:
         help="subsample eval queries for the collapse compare (full set by default)",
     )
     parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.results is None:
+        args.results = args.workdir / "REAL_RESULTS.md"
 
     problems = check_prerequisites(args.data_dir, args.base_model)
     if problems:

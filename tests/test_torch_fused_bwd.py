@@ -4,9 +4,9 @@ the same bf16 casts, written out in f32 torch, held against the JAX
 package's ``_bwd_kernel`` (Pallas, interpret mode) and against the port's
 plain backward. The CUDA kernel cannot run here; this pins its algebra:
 
-- the dQ pass, per 64-query tile: the scores with the forward's exact row
-  max m and sum z (online over the key tiles where the kernel's score row
-  does not fit in registers: head_dim 64 at S > 192),
+- the dQ pass, per 64-query tile: the scores' row max m and sum z, kept
+  online over the key tiles (z rescaled as m grows), as the kernel's
+  first pass over its streamed key tiles does,
   dz = -sum_d(dA * A) / z, dU = bf16(dA / z),
   dP = dU V^T, dL = bf16(P * (dP + dz)) with P = exp(x - m) unnormalised,
   dQ = scale * dL K summed tile by tile; it leaves m, z and dz per row (and
@@ -48,12 +48,6 @@ def _scale(head_dim):
     return 1.0 / head_dim**0.5
 
 
-def _row_in_registers(head_dim, n_tiles):
-    """K5's dQ kernel keeps the whole score row in registers by this rule
-    (``dq_row_in_registers``), else it sums z online over the key tiles."""
-    return n_tiles * 32 + head_dim // 2 + head_dim // 4 <= 160
-
-
 def _layer_np(rng):
     def w(*shape):
         return (0.05 * rng.standard_normal(shape)).astype(np.float32)
@@ -84,7 +78,6 @@ def tiled_attention_backward(qkv, attn, dattn, bias, bf16, head_dim, cast_dl=Tru
     a, da = _heads(attn, head_dim), _heads(dattn, head_dim)
     kb = bias[:, None, None, :]
     tiles = [(t0, min(s, t0 + TILE)) for t0 in range(0, s, TILE)]
-    online = not _row_in_registers(head_dim, len(tiles))
 
     # dQ pass, per query tile.
     dq = torch.zeros_like(q)
@@ -94,15 +87,14 @@ def tiled_attention_backward(qkv, attn, dattn, bias, bf16, head_dim, cast_dl=Tru
         x = (q[:, :, q0:q1] @ k.transpose(-1, -2)) * scale + kb
         m_t = x.amax(dim=-1, keepdim=True)
         p = torch.exp(x - m_t)
-        z_t = p.sum(dim=-1, keepdim=True)
-        if online:  # the first of two passes: z rescaled as the max grows
-            m_run = torch.full_like(m_t, -3.0e38)
-            z_t = torch.zeros_like(m_t)
-            for k0, k1 in tiles:
-                m_new = torch.maximum(m_run, x[..., k0:k1].amax(dim=-1, keepdim=True))
-                e = torch.exp(x[..., k0:k1] - m_new).sum(dim=-1, keepdim=True)
-                z_t = z_t * torch.exp(m_run - m_new) + e
-                m_run = m_new
+        # The first of two passes: z rescaled as the max grows.
+        m_run = torch.full_like(m_t, -3.0e38)
+        z_t = torch.zeros_like(m_t)
+        for k0, k1 in tiles:
+            m_new = torch.maximum(m_run, x[..., k0:k1].amax(dim=-1, keepdim=True))
+            e = torch.exp(x[..., k0:k1] - m_new).sum(dim=-1, keepdim=True)
+            z_t = z_t * torch.exp(m_run - m_new) + e
+            m_run = m_new
         dz_t = -(da[:, :, q0:q1] * a[:, :, q0:q1]).sum(dim=-1, keepdim=True) / z_t
         du_t = r(da[:, :, q0:q1] / z_t)
         acc = torch.zeros_like(q[:, :, q0:q1])

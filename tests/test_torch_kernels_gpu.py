@@ -35,7 +35,7 @@ from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
     _launch as pool_launch,
     masked_mean_pool_l2norm_reference,
 )
-from instacart_next_order_recommendation_tpu_torch.ops import _build
+from instacart_next_order_recommendation_tpu_torch.ops import _build, fused_layer
 from instacart_next_order_recommendation_tpu_torch.ops.topk import (
     _SIGNATURES as TOPK_SIGNATURES,
     cosine_topk_packed_reference,
@@ -48,8 +48,10 @@ from instacart_next_order_recommendation_tpu_torch.ops.topk import (
 
 H, INTER, HEADS = 384, 1536, 12
 KW = dict(num_heads=HEADS, scale=1 / 32**0.5, eps=1e-12)
-# The fused kernels take head_dim 32 (MiniLM-class) and 64 (mpnet-base-class).
+# The fused kernels take head_dim 32 (MiniLM-class) and 64 (mpnet-base-class),
+# and 16 and 128, the other head_dims that divide 128 (JAX's gate).
 HEAD_DIMS = (32, 64)
+ALL_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _kw(head_dim, hidden=H):
@@ -88,8 +90,8 @@ def _mask(batch, seq, dev, seed=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
-@pytest.mark.parametrize("batch,seq", [(1, 16), (3, 48), (8, 256)])
+@pytest.mark.parametrize("head_dim", ALL_HEAD_DIMS)
+@pytest.mark.parametrize("batch,seq", [(1, 16), (3, 48), (8, 256), (2, 272), (3, 512)])
 def test_fused_layer_matches_plain(dev, batch, seq, head_dim):
     layer = _layer(dev)
     kw = _kw(head_dim)
@@ -114,12 +116,11 @@ def test_fused_layer_rejects_shapes_it_does_not_take(dev):
         fused_encoder_layer(x, torch.ones((2, 40), device=dev), layer, **KW)
     with pytest.raises(ValueError):  # f32 has no kernel
         fused_encoder_layer(x[:, :32].float(), torch.ones((2, 32), device=dev), layer, **KW)
-    for head_dim in (16, 128):  # JAX's gate admits them; the port's kernels do not
-        with pytest.raises(ValueError):
-            fused_encoder_layer(x[:, :32], torch.ones((2, 32), device=dev), layer, **_kw(head_dim))
-    long = torch.zeros((1, 272, H), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):  # S > 256
-        fused_encoder_layer(long, torch.ones((1, 272), device=dev), layer, **KW)
+    with pytest.raises(ValueError):  # head_dim 48 does not divide 128
+        fused_encoder_layer(x[:, :32], torch.ones((2, 32), device=dev), layer, **_kw(48))
+    long = torch.zeros((1, 528, H), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # S > 512
+        fused_encoder_layer(long, torch.ones((1, 528), device=dev), layer, **KW)
 
 
 @pytest.mark.cuda
@@ -636,8 +637,8 @@ def _dropout(batch, seq, dev, seed=5, h=H):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
-@pytest.mark.parametrize("batch,seq", [(2, 48), (3, 256)])
+@pytest.mark.parametrize("head_dim", ALL_HEAD_DIMS)
+@pytest.mark.parametrize("batch,seq", [(2, 48), (3, 256), (2, 400)])
 def test_train_form_matches_plain(dev, batch, seq, head_dim):
     layer = _layer(dev)
     kw = _kw(head_dim)
@@ -665,8 +666,10 @@ GRAD_REL_TOL = 2e-2
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", HEAD_DIMS)
-@pytest.mark.parametrize("batch,seq,dropout", [(2, 48, True), (4, 256, False)])
+@pytest.mark.parametrize("head_dim", ALL_HEAD_DIMS)
+@pytest.mark.parametrize(
+    "batch,seq,dropout", [(2, 48, True), (4, 256, False), (2, 320, True), (2, 512, False)]
+)
 def test_backward_matches_plain(dev, batch, seq, dropout, head_dim):
     layer = _layer(dev)
     kw = _kw(head_dim)
@@ -765,6 +768,76 @@ def test_backward_is_deterministic(dev, head_dim):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", ALL_HEAD_DIMS)
+@pytest.mark.parametrize("batch,seq,dropout", [(3, 48, True), (2, 256, False), (2, 512, True)])
+def test_resid_forms_against_the_recompute_forms(dev, batch, seq, dropout, head_dim):
+    # K1's save_resid gives the same y, bit for bit, and residuals within two
+    # bf16 ulps of the plain forward's; K5's resid form reads the same bf16
+    # values as its recompute and gives the same bits.
+    layer = _layer(dev, 30)
+    kw = _kw(head_dim)
+    g = torch.Generator().manual_seed(31)
+    x, up = (torch.randn((batch, seq, H), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    mask = _mask(batch, seq, dev)
+    bias = ((1.0 - mask.float()) * -1e9).contiguous()
+    masks = _dropout(batch, seq, dev) if dropout else None
+    y = fused_layer._launch(x, bias, layer, masks, **kw)
+    y_r, resids = fused_layer._launch(x, bias, layer, masks, **kw, save_resid=True)
+    y_ref, resids_ref = fused_layer._reference_core(
+        x, bias, layer, *(masks or (None, None)), **kw, keep=True
+    )
+    before = fused_encoder_layer_backward.resid_launches
+    dx, dw = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw)
+    dx_r, dw_r = fused_encoder_layer_backward(x, bias, up, masks, layer, **kw, resids=resids)
+    torch.cuda.synchronize()
+    assert fused_encoder_layer_backward.resid_launches == before + 1
+    assert torch.equal(y.view(torch.int16), y_r.view(torch.int16))
+    for name, a, b in zip(("attn", "ao", "x1", "f"), resids, resids_ref):
+        assert a.shape == (batch, seq, H) and torch.isfinite(a.float()).all(), name
+        assert (a.float() - b.float()).abs().max().item() <= 0.0625, name
+    assert torch.equal(dx.view(torch.int16), dx_r.view(torch.int16))
+    for name in WEIGHT_NAMES:
+        assert torch.equal(dw[name].view(torch.int16), dw_r[name].view(torch.int16)), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", HEAD_DIMS)
+def test_two_pass_attention_gives_the_one_pass_bits(dev, head_dim):
+    # K1 at S = 272 runs the two-pass attention; with keys 256-271 masked
+    # out (every row has a real key) its first 256 positions are K1's one-pass
+    # output at S = 256, bit for bit: the exact row max before P's cast, and
+    # the same sums in the same order (the masked keys add exact zeros).
+    layer = _layer(dev, 32)
+    kw = _kw(head_dim)
+    g = torch.Generator().manual_seed(33)
+    x = torch.randn((3, 272, H), generator=g).to(dev, torch.bfloat16)
+    mask = _mask(3, 256, dev)
+    mask[:, 0] = 1
+    long_mask = torch.cat([mask, torch.zeros((3, 16), dtype=mask.dtype, device=dev)], dim=1)
+    short = fused_encoder_layer(x[:, :256].contiguous(), mask, layer, **kw)
+    long = fused_encoder_layer(x, long_mask, layer, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(short.view(torch.int16), long[:, :256].view(torch.int16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", (16, 128))
+def test_backward_is_deterministic_at_s512(dev, head_dim):
+    layer = _layer(dev)
+    kw = _kw(head_dim)
+    g = torch.Generator().manual_seed(36)
+    x, up = (torch.randn((8, 512, H), generator=g).to(dev, torch.bfloat16) for _ in range(2))
+    mask = _mask(8, 512, dev)
+    bias = ((1.0 - mask.float()) * -1e9).contiguous()
+    first = fused_encoder_layer_backward(x, bias, up, None, layer, **kw)
+    second = fused_encoder_layer_backward(x, bias, up, None, layer, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0].view(torch.int16), second[0].view(torch.int16))
+    for name in WEIGHT_NAMES:
+        assert torch.equal(first[1][name].view(torch.int16), second[1][name].view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_train_layer_gradients_reach_the_f32_params(dev):
     # Through prepare_layer's casts: the autograd backward launches K5.
     g = torch.Generator().manual_seed(9)
@@ -801,12 +874,15 @@ def test_backward_rejects_what_it_does_not_take(dev):
 
     with pytest.raises(ValueError):  # f32 has no kernel
         call(2, 32, torch.float32)
-    with pytest.raises(ValueError):  # S > 256
-        call(1, 272)
-    for head_dim in (16, 128):  # JAX's gate admits them; the port's kernels do not
-        with pytest.raises(ValueError):
-            call(2, 32, **_kw(head_dim))
+    with pytest.raises(ValueError):  # S > 512
+        call(1, 528)
+    with pytest.raises(ValueError):  # head_dim 48 does not divide 128
+        call(2, 32, **_kw(48))
     x = torch.zeros((2, 32, H), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # residuals of another shape
+        fused_encoder_layer_backward(
+            x, torch.zeros((2, 32), device=dev), x, None, layer, **KW, resids=(x[:1],) * 4
+        )
     with pytest.raises(ValueError):  # a mask of another shape
         fused_encoder_layer_backward(
             x, torch.zeros((2, 32), device=dev), x, (x[:1], x[:1]), layer, **KW

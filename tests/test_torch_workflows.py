@@ -433,6 +433,33 @@ def _tiny_bert_dir(path: Path, data_dir: Path) -> Path:
     return path
 
 
+def test_real_data_defaults_are_not_the_jax_runbooks(monkeypatch):
+    # The JAX runbook's parser, as its main builds it (captured before it
+    # parses), against the port's: a port run with the defaults writes
+    # nothing where a JAX run with its defaults does.
+    import argparse
+
+    built = []
+
+    def capture(parser, *args, **kwargs):
+        built.append(parser)
+        raise SystemExit(0)
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(SystemExit):
+            jax_rd.main([])
+    theirs = built[0].parse_known_args([])[0]
+    ours = rd.build_parser().parse_args([])
+    assert (theirs.workdir, theirs.results) == (Path("real_ws"), Path("REAL_RESULTS.md"))
+    assert ours.workdir == Path("torch_real_ws") and ours.results is None
+    assert ours.workdir != theirs.workdir
+    assert ours.workdir / "REAL_RESULTS.md" != theirs.results
+    # The same flags, and --device.
+    ours_flags = {a.dest for a in rd.build_parser()._actions}
+    assert ours_flags - {"device"} == {a.dest for a in built[0]._actions}
+
+
 def test_real_data_runbook_end_to_end_tiny(world, tmp_path, capsys):
     model_dir = _tiny_bert_dir(tmp_path / "minilm", world["data"])
     results = tmp_path / "out" / "REAL_RESULTS.md"
