@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import functools
 import json
-import socket
 import sys
 import tempfile
 import time
@@ -171,12 +170,6 @@ def _rank(rank: int, world: int, device: str, init_method: str, out_dir: str) ->
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -> dict:
     """Run the train step and the sharded retrieval on ``n_devices`` gloo
     ranks; raises when a rank fails or a check does not hold. Returns the
@@ -187,7 +180,9 @@ def dryrun_multichip(n_devices: int, device: str | torch.device | None = None) -
 
     dev = resolve_device(device)
     with tempfile.TemporaryDirectory(prefix="dryrun_") as tmp:
-        init = f"tcp://127.0.0.1:{_free_port()}"
+        # A file in the run's own directory: no port to find free and then
+        # lose to another socket of a busy host before rank 0 binds it.
+        init = f"file://{tmp}/rendezvous"
         ctx = mp.start_processes(_rank, args=(n_devices, str(dev), init, tmp),
                                  nprocs=n_devices, join=False, start_method="spawn")
         deadline = time.monotonic() + DRYRUN_TIMEOUT_S

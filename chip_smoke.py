@@ -11,8 +11,19 @@ Run from the repository root, with no arguments:
    128), in any kernel of the fused layer (K1, K5), in any top-k kernel (K3,
    K4) or in any pool kernel (K2), or if an instance of the fused layer's
    attention kernels (one-pass forward at head_dim 16, 32 and 64, two-pass
-   forward and backward at 16 to 128) or of the top-k or pool kernel is
-   missing.
+   forward and backward at 16 to 128) or of the top-k or pool kernel, or
+   an instance of the fused layer's GEMM core (``gemm_wgmma_kernel<form,
+   epilogue>``, every pair K1 and K5 run), is missing, or if ptxas dropped
+   the core's setmaxnreg or serialized its wgmma.
+2a. K1's and K5's GEMM core alone (``fused_layer.gemm_core``: wgmma fed by
+   TMA through mbarriers): every (form, epilogue) pair at ragged shapes (a
+   single query's 64 rows, M past a tile edge with N = 960, K = 1472), and
+   every product of K1 (four) and K5 (four dgrad, four weight gradients)
+   at the MiniLM-L6 and mpnet-base-class serve batches (B=256, S=192) and
+   training batches (MiniLM B=64 and 512, mpnet B=64; S=256), each held
+   to its plain version (f32 products of the same bf16 operands) with the
+   tolerance stated, two launches bitwise equal, and timed in turns with
+   ``torch.matmul`` on the same operands beside its bound.
 2. Each kernel against its plain PyTorch version on the card, with the
    tolerance stated, timed with CUDA events: K1, K2 and K3 (and K4, the
    packed top-k, on the same grid values) at the serve path's shapes; the
@@ -176,7 +187,7 @@ Run from the repository root, with no arguments:
    one-device encode. Then two gloo ranks share cuda:0 (NCCL refuses two
    ranks on one GPU), spawned by this script, each with its own launch
    counts: DP=2 MiniLM-L6 through ``TwoTowerTrainer.train`` for one epoch
-   over 3,072 of phase 4's pairs at train_batch_size 32 (global 64; 12
+   over 2,048 of phase 4's pairs at train_batch_size 32 (global 64; 12
    K1-train and 12 K5 a rank a step;
    the loss falls; only rank 0 writes; ``final/`` serves), TP=2
    mpnet-base-class for two epochs at B=64, S=256 (24 K6 and 24 K7 a rank
@@ -211,7 +222,7 @@ Run from the repository root, with no arguments:
    (6 K1 and 1 K2, held to the plain forward) and ``dryrun_multichip(2)``
    (two gloo ranks on cuda:0: a train step with global-batch MNRL, the
    sharded and masked top-k); ``scripts/torch_profile_serve.py`` at its
-   defaults; ``scripts/torch_bench_soak.py`` with 3 s phases (no batch-1
+   defaults; ``scripts/torch_bench_soak.py`` with 2 s phases (no batch-1
    latch, no window latch, the flood survived); ``scripts/torch_launch_multihost.py``
    with two processes sharing the card over gloo at model_parallel 1 and 2;
    ``scripts/torch_rehearsal_real_shapes.py`` at 1,500 users for 1 epoch;
@@ -335,15 +346,37 @@ K5_REL_TOL = 2e-2
 # must appear in its report, and none may spill.
 FUSED_LAYER_KERNELS = {
     "fused_layer": (
-        "gemm_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
+        "gemm_wgmma_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
         "residual_layernorm_kernel",
     ),
     "fused_layer_bwd": (
-        "gemm_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
+        "gemm_wgmma_kernel", "attn_fwd_one_pass_kernel", "attn_fwd_two_pass_kernel",
         "residual_layernorm_kernel", "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
         "ln_bwd_kernel", "colsum_kernel",
     ),
 }
+# The GEMM core's instances, <form, epilogue> (fused_layer_common.cuh's
+# enums): K1's X W with bias and with GELU; K5's, and the core's test entry
+# (fused_gemm), every pair the layer runs.
+_GEMM = "gemm_wgmma_kernel"
+FUSED_LAYER_GEMMS = {
+    "fused_layer": [f"{_GEMM}<0,0>", f"{_GEMM}<0,1>"],
+    "fused_layer_bwd": [f"{_GEMM}<{f},{e}>" for f, e in
+                        ((0, 0), (0, 1), (0, 2), (1, 3), (1, 4), (1, 0), (1, 5), (2, 6))],
+}
+# What ptxas says where it drops setmaxnreg or makes the wgmma of a kernel
+# wait for each other: the core must show neither.
+PTXAS_CORE_WARNINGS = ("setmaxnreg ignored", "wgmma.mma_async instructions are serialized")
+# The GEMM core alone (phase 2, ``fused_layer.gemm_core``) against the f32
+# products of the same bf16 operands on the card: bf16 outputs within one
+# bf16 ulp of the largest magnitude (another summation order may round a
+# value near a boundary the other way), f32 outputs and column sums within
+# 1e-4 of it (the summation order alone).
+GEMM_BF16_TOL = 2.0**-7
+GEMM_F32_TOL = 1e-4
+# Its ragged shapes (M rows, N, K): a single query's QKV (64 rows), M past a
+# tile edge with 3H = 960 at H = 320, K = 1472 (intermediate 1472).
+GEMM_RAGGED = ((64, 1152, 384), (1000, 960, 320), (777, 320, 1472))
 # The attention instances of each fused-layer library: the one-pass forward
 # at head_dim 16, 32 and 64 over one to four 64-key tiles (S <= 256); the
 # two-pass forward and the (streamed) backward at every head_dim.
@@ -372,6 +405,13 @@ POOL_KERNELS = [
 # mpnet-base-class (12 heads of 64).
 MINILM_WIDTHS = (384, 12, 1536)
 MPNET_WIDTHS = (768, 12, 3072)
+# The layers whose GEMM products phase 2 checks and times: (name, B, S,
+# widths), the serve batches and the training batches.
+GEMM_CONFIGS = (
+    ("MiniLM serve", BATCH, 192, MINILM_WIDTHS), ("mpnet serve", BATCH, 192, MPNET_WIDTHS),
+    ("MiniLM train", 64, 256, MINILM_WIDTHS), ("MiniLM flagship", 512, 256, MINILM_WIDTHS),
+    ("mpnet train", 64, 256, MPNET_WIDTHS),
+)
 # Three training steps, kernels against plain versions at dropout 0 and a
 # constant lr (five times the B=64 recipe's peak, so that each update moves
 # the next loss further than bf16 does): the losses, relative, and the first
@@ -766,6 +806,81 @@ def topk_reading(q, c, k: int, packed: bool, iters: int = 20) -> dict:
     row["split"] = topk_split(lambda: cosine_topk(q, c, k, packed=packed))
     if not packed:
         row["ok"] = row["max_abs_err"] <= 1e-5 and row["ids_identical"] >= 0.99
+    return row
+
+
+def gemm_products(b: int, s: int, h: int, inter: int) -> list[tuple]:
+    """One layer's products on the GEMM core at B*S rows: K1's four (X W)
+    and K5's four dgrad (dY W^T) and four weight-gradient (X^T dY) products,
+    as (label, form, epilogue, M, N, K). "atb" reads (M, N, K) as the
+    weight gradient over M rows: X [M, K], dY [M, N], out [K, N]. K5 also
+    runs K1's products again (all four in the recompute form, qkv and W1 in
+    the resid form), not listed again."""
+    m = b * s
+    return [
+        ("K1 qkv", "xw", "bias", m, 3 * h, h),
+        ("K1 o-proj", "xw", "bias", m, h, h),
+        ("K1 W1", "xw", "bias_gelu", m, inter, h),
+        ("K1 W2", "xw", "bias", m, h, inter),
+        ("K5 dhpre", "xwt", "mul_aux", m, inter, h),
+        ("K5 dx1", "xwt", "add_aux_f32", m, h, inter),
+        ("K5 dattn", "xwt", "bias", m, h, h),
+        ("K5 dx", "xwt", "add_aux_bf16", m, h, 3 * h),
+        ("K5 dW2", "atb", "partial", m, h, inter),
+        ("K5 dW1", "atb", "partial", m, inter, h),
+        ("K5 dWo", "atb", "partial", m, h, h),
+        ("K5 dWqkv", "atb", "partial", m, 3 * h, h),
+    ]
+
+
+def gemm_inputs(dev, form: str, epilogue: str, m: int, n: int, k: int, g: torch.Generator):
+    """Seeded operands of one core product (drawn on the card from ``g``, a
+    generator of ``dev``), its keyword arguments (K5's split plan on this
+    card for "atb") and the one torch.matmul call on the same operands that
+    is its yardstick."""
+    from instacart_next_order_recommendation_tpu_torch.ops import fused_layer
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    a = randn(m, k).to(torch.bfloat16)
+    w_shape = {"xw": (k, n), "xwt": (n, k), "atb": (m, n)}[form]
+    w = (randn(*w_shape) / k**0.5).to(torch.bfloat16)
+    kw = {}
+    if epilogue.startswith("bias"):
+        kw["bias"] = randn(n).to(torch.bfloat16)
+    if epilogue in ("mul_aux", "add_aux_f32", "add_aux_bf16"):
+        kw["aux"] = randn(m, n)
+    if form == "atb":
+        kw["splits"], kw["rows_per_split"] = fused_layer.wgrad_split_plan(m, k, n)
+    yardstick = {
+        "xw": lambda: torch.matmul(a, w),
+        "xwt": lambda: torch.matmul(a, w.T),
+        "atb": lambda: torch.matmul(a.T, w),
+    }[form]
+    return a, w, kw, yardstick
+
+
+def gemm_reading(form: str, epilogue: str, a, w, kw) -> dict:
+    """The core against its plain version (f32 products of the same bf16
+    operands, on the card): the worst error of each output relative to its
+    largest magnitude, within GEMM_BF16_TOL / GEMM_F32_TOL, and two launches
+    bitwise equal."""
+    from instacart_next_order_recommendation_tpu_torch.ops import fused_layer
+
+    first = fused_layer.gemm_core(form, epilogue, a, w, **kw)
+    second = fused_layer.gemm_core(form, epilogue, a, w, **kw)
+    ref = fused_layer.gemm_core_reference(form, epilogue, a, w, **kw)
+    row, ok = {}, True
+    for name, got, again, want in zip(("c", "aux_out"), first, second, ref):
+        if want is None:
+            continue
+        err = rel_err(got, want)
+        tol = GEMM_BF16_TOL if got.dtype == torch.bfloat16 else GEMM_F32_TOL
+        row[f"{name}_rel_err"] = err
+        ok = ok and got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+        ok = ok and bitwise_equal(got, again)
+    row["ok"] = ok
     return row
 
 
@@ -1315,6 +1430,7 @@ class Smoke:
         # Phase 2's timed K1 rows ("forward", widths, B, S) and K1-train and
         # K5 rows ("train", widths, B, S), for the kernels line.
         self.phase2_rows: dict[tuple, object] = {}
+        self.smi = ""  # the card's name and power limit, beside every number logged
 
     def check(self, ok: bool, what: str) -> None:
         if not ok:
@@ -1378,6 +1494,54 @@ class Smoke:
                 )
                 del x, y, p, p_ref
                 torch.cuda.empty_cache()
+
+    def compare_gemm_core(self, dev) -> list[dict]:
+        """K1's and K5's GEMM core alone (``fused_layer.gemm_core``): every
+        (form, epilogue) pair the layer runs at the ragged shapes, then every
+        product of each of GEMM_CONFIGS' layers, each against its plain
+        version (``gemm_reading``) and timed in turns with torch.matmul on
+        the same operands (the yardstick only: the port never calls it),
+        beside its bound (2 M N K at the bf16 peak). An "atb" product is the
+        core's split partials alone, without K5's sum of the splits. Returns
+        the timed rows."""
+        from instacart_next_order_recommendation_tpu_torch.ops import fused_layer
+
+        g = torch.Generator(device=dev).manual_seed(40)
+        for form, epilogue in fused_layer.GEMM_PAIRS:
+            for m, n, k in GEMM_RAGGED:
+                a, w, kw, _ = gemm_inputs(dev, form, epilogue, m, n, k, g)
+                row = gemm_reading(form, epilogue, a, w, kw)
+                log(f"GEMM core {form}/{epilogue} M={m} N={n} K={k}: {json.dumps(row)}")
+                self.check(row["ok"], f"GEMM core {form}/{epilogue} at M={m} N={n} K={k} within "
+                                      f"{GEMM_BF16_TOL:g} (bf16) / {GEMM_F32_TOL:g} (f32), two "
+                                      "launches bitwise equal")
+        rows = []
+        for name, b, s, (h, _, inter) in GEMM_CONFIGS:
+            for label, form, epilogue, m, n, k in gemm_products(b, s, h, inter):
+                a, w, kw, yardstick = gemm_inputs(dev, form, epilogue, m, n, k, g)
+                row = gemm_reading(form, epilogue, a, w, kw)
+                self.check(row["ok"], f"GEMM core {name} {label} ({form}/{epilogue}, M={m} "
+                                      f"N={n} K={k}) against its plain version, bitwise twice")
+                row = dict(config=name, product=label, form=form, epilogue=epilogue, m=m, n=n,
+                           k=k, splits=kw.get("splits"), **row)
+                t = ms_in_turns({
+                    "core": lambda: fused_layer.gemm_core(form, epilogue, a, w, **kw),
+                    "matmul": yardstick,
+                }, 10 if m * n * k > 2**34 else 20)
+                row.update(ms=t["core"], matmul_ms=t["matmul"],
+                           bound_ms=2 * m * n * k / PEAK_BF16 * 1e3)
+                log(f"GEMM core {name} {label}: {json.dumps(row)}")
+                rows.append(row)
+                del a, w, kw, yardstick
+            torch.cuda.empty_cache()
+        for name, *_ in GEMM_CONFIGS:
+            for part in ("K1", "K5"):
+                sel = [r for r in rows if r["config"] == name and r["product"].startswith(part)]
+                log(f"GEMM core {name}, {part}'s {len(sel)} products: core "
+                    f"{sum(r['ms'] for r in sel):.4f} ms, torch.matmul "
+                    f"{sum(r['matmul_ms'] for r in sel):.4f} ms, bound "
+                    f"{sum(r['bound_ms'] for r in sel):.4f} ms ({self.smi})")
+        return rows
 
     def compare_kernels(self, dev) -> None:
         """K1 and K2 at MiniLM-L6 widths over B in {1, 256, 512} and S in
@@ -5167,10 +5331,10 @@ MESH_TEXT_TOL = K1_TOL  # TextEncoder over a mesh against one device: K1's state
 MESH_RECALL_TOL = 0.01  # IVF's mesh build against the one-device build, recall@10 at nprobe 8
 MULTI_GPU_TIMEOUT_S = 300
 DP_BATCH = 32  # train_batch_size per data rank: global 64, phase 4's batch
-DP_PAIRS = 3_072  # the DP run's pairs, the first of phase 4's: 48 steps of 64
-TP_PAIRS = 256  # the TP trainer's pairs: the longest distinct anchors, 4 steps of 64 an epoch
+DP_PAIRS = 2_048  # the DP run's pairs, the first of phase 4's: 32 steps of 64
+TP_PAIRS = 192  # the TP trainer's pairs: the longest distinct anchors, 3 steps of 64 an epoch
 TP_EPOCHS = 2
-# The TP trainer's rate: its 8 steps must show the loss falling on pairs it
+# The TP trainer's rate: its 6 steps must show the loss falling on pairs it
 # has seen once (MPNET_LR's 3e-5 is set for a 96-step epoch).
 TP_LR = 1e-4
 
@@ -6099,14 +6263,14 @@ class WorkflowsPhase:
 # (the dry run's ranks, the multi-process harness's workers) report their
 # counts, which are added in. Cuts, each to keep the run well inside its
 # time limit:
-# - the soak's phases last 3 s (its default is 20 s), and its server's
+# - the soak's phases last 2 s (its default is 20 s), and its server's
 #   socket timeout is 2 s (default 5 s);
 # - the multi-process harness trains its tiny tower for 1 epoch (default 2)
 #   and ranks a 5,000-product catalog (default 20,000), at its default
 #   sizes otherwise;
 # - the rehearsal runs 1,500 users (the reference's scale is 200,000) for 1
 #   epoch (default 5), over the reference's 50,000 products.
-TOOLS_SOAK_ARGS = ["--phase-seconds", "3", "--socket-timeout", "2", "--port", "0"]
+TOOLS_SOAK_ARGS = ["--phase-seconds", "2", "--socket-timeout", "2", "--port", "0"]
 TOOLS_MULTIHOST_ARGS = ["--processes", "2", "--epochs", "1", "--catalog", "5000"]
 TOOLS_REHEARSAL_ARGS = ["--users", "1500", "--epochs", "1"]
 NOTEBOOKS = ("torch_prepare_data", "torch_train_two_tower", "torch_serve_recommendations",
@@ -6115,14 +6279,6 @@ NOTEBOOKS = ("torch_prepare_data", "torch_train_two_tower", "torch_serve_recomme
 TOOLS_KERNELS = ("fused_encoder_layer", "fused_encoder_layer_train",
                  "fused_encoder_layer_backward", "masked_mean_pool_l2norm", "cosine_topk",
                  "multi_head_attention", "multi_head_attention_backward")
-
-
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def last_json(text: str) -> dict:
@@ -6300,7 +6456,7 @@ class ToolsPhase:
         with contextlib.redirect_stdout(buf):
             rc = torch_launch_multihost.main([
                 *TOOLS_MULTIHOST_ARGS, "--model-parallel", str(mp),
-                "--workspace", str(self.root / "multihost"), "--port", str(free_port()),
+                "--workspace", str(self.root / "multihost"), "--port", "0",
                 "--timeout", "300",
             ])
         self.seconds[what] = time.perf_counter() - t0
@@ -6401,6 +6557,7 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {torch.cuda.get_device_name(0)}")
 
     smoke = Smoke()
+    smoke.smi = smi
     t_start = t0 = time.perf_counter()
     logs = _build.build()  # nvcc's output, this build's or the one kept beside a library
     log(f"build in {time.perf_counter() - t0:.1f}s")
@@ -6436,15 +6593,20 @@ def main() -> int:
         smoke.check(
             set(FUSED_LAYER_KERNELS[name]) <= {key.split("<")[0] for key in usage}
             and set(FUSED_LAYER_ATTENTION[name]) <= set(usage)
+            and set(FUSED_LAYER_GEMMS[name]) <= set(usage)
             and not any(spill for _, spill in usage.values()),
-            f"every {name} kernel in ptxas's report (head_dim 16-128, every form), none "
-            "spilling",
+            f"every {name} kernel in ptxas's report (head_dim 16-128, every form, every GEMM "
+            "core instance), none spilling",
         )
+        smoke.check(not any(w in logs[name] for w in PTXAS_CORE_WARNINGS),
+                    f"ptxas kept setmaxnreg and left the wgmma of {name} unserialized")
 
     try:
         t0 = time.perf_counter()
         hd64_seqs = (32, 64, 128, 192, 256)
         with torch.inference_mode():
+            smoke.compare_gemm_core(dev)
+            log(f"phase 2a (the GEMM core alone) {time.perf_counter() - t0:.1f}s")
             smoke.compare_kernels(dev)
             smoke.compare_forward_kernels(  # timed at the mpnet serve batch's shape
                 dev, MPNET_WIDTHS, (1, 64, 256), hd64_seqs, torch.Generator().manual_seed(12),

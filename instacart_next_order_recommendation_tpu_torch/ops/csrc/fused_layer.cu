@@ -24,13 +24,25 @@
 // serve batch (B=256, S=192), 0.29 ms at 3.35 TB/s against the operations'
 // 0.19 ms: with this many launches, bytes are the floor.
 //
-// What the design does about it (the kernels live in fused_layer_common.cuh
-// and mma_common.cuh, which the backward shares):
-// - One GEMM core for the four products: mma.sync m16n8k16 tensor-core
-//   products fed by ldmatrix from 16-byte-padded shared tiles, 128 x 128
-//   block tiles over 8 warps, tiles arriving by cp.async into a four-stage
-//   ring, and epilogues (bias, GELU) applied to the accumulators in
-//   registers and stored as bf16 pairs, with no staging tile.
+// What the design does about it (the kernels live in fused_layer_common.cuh,
+// wgmma_common.cuh and mma_common.cuh, which the backward shares):
+// - One GEMM core for the four products, on Hopper's asynchronous path
+//   (GemmShape in fused_layer_common.cuh): wgmma.mma_async (m64n128k16,
+//   both operands from shared memory) on two consumer warpgroups, fed by
+//   TMA loads of 128-byte swizzled tiles that one producer thread keeps
+//   coming through full/empty mbarriers. These four products, whose
+//   epilogues store bf16 alone, take 256 x 128 x 64 tiles (128 rows a
+//   consumer) in a ring of three 48 KB stages; the backward's products
+//   with f32 epilogues and its X^T dY take 128 x 128 x 64 in four 32 KB
+//   stages. Persistent blocks (one an SM) walk the output tiles, the
+//   producer loading the next tile's stages during this one's epilogue.
+//   The epilogue (bias, GELU) applies to the accumulators in registers,
+//   writes the tile into a swizzled shared-memory buffer, and one thread
+//   stores it by TMA while the next tile's products run. bf16 wgmma reads
+//   either major-ness from shared memory, so the one core also takes the
+//   backward's dY W^T and X^T dY. It replaced an mma.sync core (ldmatrix,
+//   cp.async ring), whose issue rate held the products well under the
+//   tensor cores' peak.
 // - Attention on tensor cores: one block per (64-query tile, head, batch
 //   row) reads q, k and v in place from the packed projection; where the
 //   whole score row fits in the mma accumulators (S <= 256, head_dim <= 64)
@@ -43,10 +55,7 @@
 //   their own, and each LayerNorm row kernel writes the masked residual it
 //   reads back over its input.
 // - Residual + LayerNorm as one row kernel each (a warp per row).
-// Not wgmma with TMA: mma.sync keeps one core for the three operand forms
-// the forward and the backward need (X W, dY W^T, X^T dY); wgmma is for a
-// later change, if the measured GEMM times show the issue rate as the
-// limit. The TPU layout (block-diagonal head groups, 128-padded K/V, batch
+// The TPU layout (block-diagonal head groups, 128-padded K/V, batch
 // blocking for VMEM) is not carried over.
 
 #include "fused_layer_common.cuh"

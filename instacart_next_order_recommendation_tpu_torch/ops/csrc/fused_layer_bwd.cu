@@ -33,12 +33,13 @@
 // operations' 0.2 ms.
 //
 // Design:
-// - Every product runs on the GEMM core of fused_layer_common.cuh (mma.sync
-//   tensor cores, cp.async ring, epilogues in registers): the forward
-//   recompute as K1 does it (X W), the three dgrad products (dY W^T, with
-//   the gelu' product and its column partials, or the residual gradient,
-//   in the epilogue) and the four weight gradients (X^T dY over row splits,
-//   partial tiles summed in a fixed order by colsum_kernel).
+// - Every product runs on the GEMM core of fused_layer_common.cuh (wgmma
+//   fed by TMA through mbarriers, persistent blocks, epilogues stored by
+//   TMA): the forward recompute as K1 does it (X W), the four dgrad
+//   products (dY W^T, with the gelu' product and its column partials, or
+//   the residual gradient, in the epilogue) and the four weight gradients
+//   (X^T dY over row splits, partial tiles summed in a fixed order by
+//   colsum_kernel).
 // - Attention backward in two kernels on tensor cores, no atomics, each
 //   streaming the other side's 64-row tiles through a cp.async ring (any S
 //   up to 512, head_dim 16 to 128). The dQ kernel, per 64-query tile,
@@ -117,27 +118,12 @@ cudaError_t reduce_columns(const T* X, int rows, int cols, float* out, float* tm
 }
 
 // ------------------------------------------------- weight-gradient GEMM
-// The current device's SM count, read once per device (132 on an H100 SXM).
-cudaError_t device_sm_count(int* sms) {
-  static std::atomic<int> known[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  int n = known[dev & 63].load(std::memory_order_relaxed);
-  if (n == 0) {
-    e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    known[dev & 63].store(n, std::memory_order_relaxed);
-  }
-  *sms = n;
-  return cudaSuccess;
-}
-
-// Weight-gradient splits: about two blocks per SM over the 128 x 128
-// output tiles, at least 512 rows a split. The split count fixes the order
-// of the sums, so a card gives the same bits on every run.
+// Weight-gradient splits: about two work items (128 x 128 output tiles of
+// one split) per SM, at least 512 rows a split. The split count fixes the
+// order of the sums, so a card gives the same bits on every run.
 int wgrad_splits(int M, int K1, int N, int sms) {
-  const int tiles = ((K1 + GBM - 1) / GBM) * ((N + GBN - 1) / GBN);
+  constexpr int BM = GemmShape<FORM_ATB, EPI_PARTIAL>::BM;
+  const int tiles = ((K1 + BM - 1) / BM) * ((N + GBN - 1) / GBN);
   int s = (2 * sms + tiles - 1) / tiles;
   const int max_s = (M + 511) / 512;
   if (s > max_s) s = max_s;
@@ -672,6 +658,53 @@ Layout make_layout(int batch, int seq, int H, int heads, int I, int sms, bool re
 extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// The GEMM core alone, for tests and timings (not on the layer's path):
+// one launch of a (form, epilogue) pair the layer runs, the arguments as
+// launch_gemm takes them: (FORM_XW, EPI_BIAS / EPI_BIAS_GELU /
+// EPI_BIAS_GELU_GRAD), (FORM_XWT, EPI_MUL_AUX / EPI_ADD_AUX_F32 / EPI_BIAS /
+// EPI_ADD_AUX_BF16), (FORM_ATB, EPI_PARTIAL). Shapes as the layer's: N % 8
+// == 0, K % 8 == 0 (the row count of FORM_ATB anything), pointers 16-byte
+// aligned.
+int fused_gemm(int form, int epi, const void* a, const void* w, const void* bias, void* c,
+               const void* aux, void* aux_out, int M, int N, int K, int splits,
+               int rows_per_split, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  const bf16* A = (const bf16*)a;
+  const bf16* W = (const bf16*)w;
+  const bf16* b = (const bf16*)bias;
+  const float* x = (const float*)aux;
+  float* xo = (float*)aux_out;
+  if (form == FORM_XW && epi == EPI_BIAS)
+    return launch_gemm<FORM_XW, EPI_BIAS>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XW && epi == EPI_BIAS_GELU)
+    return launch_gemm<FORM_XW, EPI_BIAS_GELU>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XW && epi == EPI_BIAS_GELU_GRAD)
+    return launch_gemm<FORM_XW, EPI_BIAS_GELU_GRAD>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XWT && epi == EPI_MUL_AUX)
+    return launch_gemm<FORM_XWT, EPI_MUL_AUX>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XWT && epi == EPI_ADD_AUX_F32)
+    return launch_gemm<FORM_XWT, EPI_ADD_AUX_F32>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XWT && epi == EPI_BIAS)
+    return launch_gemm<FORM_XWT, EPI_BIAS>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_XWT && epi == EPI_ADD_AUX_BF16)
+    return launch_gemm<FORM_XWT, EPI_ADD_AUX_BF16>(A, W, b, c, x, xo, M, N, K, stream);
+  if (form == FORM_ATB && epi == EPI_PARTIAL)
+    return launch_gemm<FORM_ATB, EPI_PARTIAL>(A, W, b, c, x, xo, M, N, K, stream, splits,
+                                              rows_per_split);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split count and rows a split that K5 gives the weight gradient
+// out[k1, n] = A[rows, k1]^T B[rows, n] on the current device.
+int fused_gemm_wgrad_splits(int rows, int k1, int n, int* splits, int* rows_per_split) {
+  int sms = 0;
+  const cudaError_t e = device_sm_count(&sms);
+  if (e != cudaSuccess) return (int)e;
+  *splits = wgrad_splits(rows, k1, n, sms);
+  *rows_per_split = wgrad_rows_per_split(rows, *splits);
+  return 0;
+}
 
 // Bytes of device scratch fused_layer_backward needs at these shapes on the
 // current device, in the recompute form (resid 0) or the resid form.

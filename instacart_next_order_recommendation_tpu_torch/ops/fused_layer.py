@@ -250,6 +250,9 @@ _BWD_SIGNATURES = {
     "fused_layer_backward": [ctypes.c_void_p] * 35
     + [ctypes.c_int] * 5
     + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p],
+    "fused_gemm": [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    "fused_gemm_wgrad_splits": [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2,
 }
 
 
@@ -565,3 +568,131 @@ def fused_encoder_layer_train(
 
 fused_encoder_layer_train.launches = 0
 fused_encoder_layer_train.resid_launches = 0
+
+
+# ------------------------------------------------------------ GEMM core
+# The (form, epilogue) pairs K1 and K5 run on their one GEMM core
+# (csrc/fused_layer_common.cuh), with the C enums' values: forms X W
+# ("xw", W [K, N]), X W^T ("xwt", W [N, K]) and the split weight gradient
+# X^T dY ("atb", X [K, M], dY [K, N]).
+GEMM_FORMS = {"xw": 0, "xwt": 1, "atb": 2}
+GEMM_EPILOGUES = {
+    "bias": 0, "bias_gelu": 1, "bias_gelu_grad": 2, "mul_aux": 3, "add_aux_f32": 4,
+    "add_aux_bf16": 5, "partial": 6,
+}
+GEMM_PAIRS = (
+    ("xw", "bias"), ("xw", "bias_gelu"), ("xw", "bias_gelu_grad"), ("xwt", "mul_aux"),
+    ("xwt", "add_aux_f32"), ("xwt", "bias"), ("xwt", "add_aux_bf16"), ("atb", "partial"),
+)
+GEMM_ROW_TILE = 128  # the core's block rows: EPI_MUL_AUX writes one column-sum row per tile
+
+
+def _gemm_shape(form: str, a: torch.Tensor, w: torch.Tensor) -> tuple[int, int, int]:
+    """(M, N, K) of one product of the core."""
+    if form == "atb":
+        return a.shape[1], w.shape[1], a.shape[0]
+    return a.shape[0], (w.shape[0] if form == "xwt" else w.shape[1]), a.shape[1]
+
+
+def gemm_core_reference(form, epilogue, a, w, *, bias=None, aux=None, splits=1,
+                        rows_per_split=0):
+    """The plain version of ``gemm_core``: f32 products of the bf16
+    operands and the same epilogue."""
+    m, n, _ = _gemm_shape(form, a, w)
+    af, wf = a.float(), w.float()
+    if form == "atb":
+        parts = [af[z * rows_per_split:(z + 1) * rows_per_split].T
+                 @ wf[z * rows_per_split:(z + 1) * rows_per_split] for z in range(splits)]
+        return torch.stack(parts), None
+    acc = af @ (wf.T if form == "xwt" else wf)
+    if epilogue in ("bias", "bias_gelu", "bias_gelu_grad") and bias is not None:
+        acc = acc + bias.float()
+    if epilogue == "bias":
+        return acc.to(torch.bfloat16), None
+    if epilogue == "bias_gelu":
+        return _gelu_exact(acc).to(torch.bfloat16), None
+    if epilogue == "bias_gelu_grad":
+        cdf = 0.5 * (1.0 + torch.erf(acc * 0.7071067811865476))
+        pdf = torch.exp(-0.5 * acc * acc) * 0.3989422804014327
+        return _gelu_exact(acc).to(torch.bfloat16), cdf + acc * pdf
+    if epilogue == "mul_aux":
+        d = acc * aux
+        tiles = -(-m // GEMM_ROW_TILE)
+        pad = torch.zeros((tiles * GEMM_ROW_TILE - m, n), dtype=d.dtype, device=d.device)
+        sums = torch.cat([d, pad]).view(tiles, GEMM_ROW_TILE, n).sum(dim=1)
+        return d.to(torch.bfloat16), sums
+    if epilogue == "add_aux_f32":
+        return acc + aux, None
+    return (acc + aux).to(torch.bfloat16), None
+
+
+def gemm_core(form: str, epilogue: str, a: torch.Tensor, w: torch.Tensor, *,
+              bias: torch.Tensor | None = None, aux: torch.Tensor | None = None,
+              splits: int = 1, rows_per_split: int = 0):
+    """One product of K1's and K5's GEMM core alone, for tests and timings
+    (the layer's entry points launch the core themselves): ``(c, aux_out)``.
+    ``c`` is bf16 ``[M, N]`` (f32 for "add_aux_f32", f32 ``[splits, M, N]``
+    partials for "atb"); ``aux_out`` is the f32 gelu' of "bias_gelu_grad",
+    the f32 column sums ``[ceil(M / 128), N]`` of "mul_aux", else None.
+    ``aux``: f32 ``[M, N]``. A CPU tensor takes the plain version; a CUDA
+    tensor launches the core, or raises on what it does not take."""
+    if (form, epilogue) not in GEMM_PAIRS:
+        raise ValueError(f"gemm_core: the layer runs no ({form}, {epilogue}) product")
+    if form == "atb" and (splits < 1 or rows_per_split < 1):
+        raise ValueError("gemm_core: the atb form takes splits and rows_per_split")
+    m, n, k = _gemm_shape(form, a, w)
+    if a.device.type == "cpu":
+        return gemm_core_reference(form, epilogue, a, w, bias=bias, aux=aux, splits=splits,
+                                   rows_per_split=rows_per_split)
+    if a.device.type != "cuda":
+        raise ValueError(f"gemm_core: no kernel for device {a.device}")
+    for name, t in (("a", a), ("w", w), ("bias", bias)):
+        if t is not None and (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                              or t.data_ptr() % 16 or t.device != a.device):
+            raise ValueError(f"gemm_core: {name} must be contiguous 16-byte aligned bfloat16")
+    if aux is not None and (aux.shape != (m, n) or aux.dtype != torch.float32
+                            or not aux.is_contiguous()):
+        raise ValueError(f"gemm_core: aux must be contiguous float32 [{m}, {n}]")
+    if n % 8 or (form != "atb" and k % 8) or (form == "atb" and m % 8):
+        raise ValueError("gemm_core: N and the contiguous extents must be multiples of 8")
+    if form != "atb" and (w.shape[1] if form == "xwt" else w.shape[0]) != k:
+        raise ValueError("gemm_core: a and w disagree on the depth")
+    new = {"device": a.device}
+    if form == "atb":
+        if rows_per_split % 64 or splits * rows_per_split < k or w.shape[0] != k:
+            raise ValueError("gemm_core: rows_per_split a multiple of 64 covering the rows")
+        c = torch.empty((splits, m, n), dtype=torch.float32, **new)
+    else:
+        dtype = torch.float32 if epilogue == "add_aux_f32" else torch.bfloat16
+        c = torch.empty((m, n), dtype=dtype, **new)
+    aux_out = None
+    if epilogue == "bias_gelu_grad":
+        aux_out = torch.empty((m, n), dtype=torch.float32, **new)
+    elif epilogue == "mul_aux":
+        aux_out = torch.empty((-(-m // GEMM_ROW_TILE), n), dtype=torch.float32, **new)
+    if epilogue in ("mul_aux", "add_aux_f32", "add_aux_bf16") and aux is None:
+        raise ValueError(f"gemm_core: {epilogue} needs aux")
+    lib = _build.load("fused_layer_bwd", _BWD_SIGNATURES)
+    p = _build.ptr
+    err = lib.fused_gemm(
+        GEMM_FORMS[form], GEMM_EPILOGUES[epilogue], p(a), p(w),
+        None if bias is None else p(bias), p(c), None if aux is None else p(aux),
+        None if aux_out is None else p(aux_out), m, n, k, splits, rows_per_split,
+        _build.stream_of(a),
+    )
+    _build.check(lib, err, "fused_gemm")
+    _build.count(gemm_core)
+    return c, aux_out
+
+
+gemm_core.launches = 0
+
+
+def wgrad_split_plan(rows: int, k1: int, n: int) -> tuple[int, int]:
+    """``(splits, rows_per_split)`` that K5 gives the weight gradient
+    ``A[rows, k1]^T B[rows, n]`` on the current CUDA device."""
+    lib = _build.load("fused_layer_bwd", _BWD_SIGNATURES)
+    splits, per = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(lib, lib.fused_gemm_wgrad_splits(rows, k1, n, ctypes.byref(splits),
+                                                  ctypes.byref(per)), "fused_gemm_wgrad_splits")
+    return splits.value, per.value

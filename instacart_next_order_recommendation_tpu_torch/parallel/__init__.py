@@ -7,6 +7,7 @@ from instacart_next_order_recommendation_tpu_torch.parallel.mesh import (
     MeshConfig,
     ProcessMesh,
     build_mesh,
+    host_rendezvous,
     init_distributed,
     pad_to_multiple,
 )
@@ -25,6 +26,7 @@ __all__ = [
     "ProcessMesh",
     "build_mesh",
     "gather_params",
+    "host_rendezvous",
     "init_distributed",
     "pad_to_multiple",
     "param_specs",

@@ -139,6 +139,27 @@ def init_distributed(device: str | torch.device = "cuda") -> None:
     )
 
 
+def host_rendezvous(
+    host: str = "127.0.0.1", port: int = 0
+) -> tuple[dist.TCPStore, dict[str, str]]:
+    """Host the rendezvous store of a group of processes this process
+    starts, as torchrun's agent does: a ``TCPStore`` bound to ``port`` (0:
+    one the OS picks) and held for as long as the store lives. Returns the store
+    (keep it until the workers exit) and what each worker's environment
+    adds (``MASTER_ADDR``, ``MASTER_PORT``, ``TORCHELASTIC_USE_AGENT_STORE``),
+    so that every rank's ``init_distributed`` joins it as a client.
+
+    A port found free and then released (bind to port 0, close, pass the
+    number on) stays free only until some other socket on the host takes
+    it: the seconds the workers take to import and reach their rendezvous
+    are enough for a busy host's connections to be given it, and then
+    rank 0 cannot host the store and the group never forms."""
+    store = dist.TCPStore(host, port, is_master=True, wait_for_workers=False)
+    env = {"MASTER_ADDR": host, "MASTER_PORT": str(store.port),
+           "TORCHELASTIC_USE_AGENT_STORE": "True"}
+    return store, env
+
+
 class ProcessMesh:
     """This process's place in a ``(dp, tp)`` mesh of training processes.
 

@@ -220,12 +220,16 @@ def _worker_argv(args) -> list[str]:
 
 def _run_group(args, n_processes: int, port: int) -> dict:
     """Spawn ``n_processes`` workers with torchrun's environment; return
-    process 0's result."""
+    process 0's result. This process hosts the group's rendezvous store on
+    ``port`` (0: one the OS picks) and holds it until the workers exit
+    (``parallel.host_rendezvous``)."""
+    from instacart_next_order_recommendation_tpu_torch.parallel import host_rendezvous
+
+    store, rendezvous = host_rendezvous(port=port)
     procs = []
     for rank in range(n_processes):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(n_processes), LOCAL_RANK=str(rank),
-                   LOCAL_WORLD_SIZE=str(n_processes))
+        env = dict(os.environ, **rendezvous, RANK=str(rank), WORLD_SIZE=str(n_processes),
+                   LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(n_processes))
         procs.append(
             subprocess.Popen(
                 [sys.executable, __file__, *_worker_argv(args)], env=env,
@@ -245,6 +249,7 @@ def _run_group(args, n_processes: int, port: int) -> dict:
         for p in procs:
             p.wait(timeout=30)
         raise
+    del store  # every worker has exited
     text = out.decode()
     bad = [p.returncode for p in procs if p.returncode != 0]
     for line in text.splitlines():
@@ -274,7 +279,11 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--users", type=int, default=200)
     parser.add_argument("--products", type=int, default=300)
     parser.add_argument("--workspace", type=Path, default=Path("torch_mh_workspace"))
-    parser.add_argument("--port", type=int, default=8476)
+    parser.add_argument(
+        "--port", type=int, default=8476,
+        help="port of the rendezvous store this launcher hosts (the baseline's is one above); "
+        "0: ports the OS picks",
+    )
     parser.add_argument("--timeout", type=int, default=1200)
     parser.add_argument(
         "--baseline", action="store_true",
@@ -301,7 +310,7 @@ def main(argv: list[str] | None = None) -> int:
     }}
     if args.baseline:
         print("=== baseline: 1 process ===", flush=True)
-        base = _run_group(args, 1, args.port + 1)
+        base = _run_group(args, 1, args.port + 1 if args.port else 0)
         summary["baseline"] = base
         print(json.dumps(base), flush=True)
 

@@ -1058,3 +1058,90 @@ def test_packed_topk_above_block_takes_the_exact_dense_route(dev):
     s_ref, i_ref = _f64_ranking(q, c, 300)
     assert np.array_equal(i.cpu().numpy(), i_ref)
     assert np.array_equal(s.double().cpu().numpy(), s_ref)
+
+
+# The GEMM core of K1 and K5 alone (fused_layer.gemm_core): the (M, N, K)
+# of the layer's products at a single query's QKV (64 rows), ragged M with
+# 3H = 960 at H = 320, K = 1472 (intermediate 1472), and the MiniLM
+# training batch's W1 and o-projection products. "atb" reads (M, N, K) as
+# the weight gradient X^T dY over M rows (ragged, as B*S is): X [M, K], dY
+# [M, N], out [K, N]; at (16384, 384, 384) K5's split plan leaves the last
+# split empty (30 splits of 576 rows).
+GEMM_SHAPES = [(64, 1152, 384), (1000, 960, 320), (777, 320, 1472), (16384, 1536, 384),
+               (16384, 384, 384)]
+# bf16 outputs: within one bf16 ulp of the largest magnitude (the core and
+# the f32 product sum in other orders, so a value near a rounding boundary
+# may round the other way); f32 outputs and sums: the summation order alone.
+GEMM_BF16_TOL = 2.0**-7
+GEMM_F32_TOL = 1e-4
+
+
+def _gemm_inputs(dev, form, epilogue, m, n, k, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    a_shape = (m, k)
+    w_shape = {"xw": (k, n), "xwt": (n, k), "atb": (m, n)}[form]
+    a = torch.randn(a_shape, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(w_shape, generator=g) / k**0.5).to(dev, torch.bfloat16)
+    kw = {}
+    if epilogue.startswith("bias"):
+        kw["bias"] = torch.randn(n, generator=g).to(dev, torch.bfloat16)
+    if epilogue in ("mul_aux", "add_aux_f32", "add_aux_bf16"):
+        kw["aux"] = torch.randn((m, n), generator=g).to(dev)
+    if form == "atb":
+        kw["splits"], kw["rows_per_split"] = fused_layer.wgrad_split_plan(m, k, n)
+    return a, w, kw
+
+
+def _rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,epilogue", fused_layer.GEMM_PAIRS)
+@pytest.mark.parametrize("m,n,k", GEMM_SHAPES)
+def test_gemm_core_matches_an_f32_product(dev, form, epilogue, m, n, k):
+    a, w, kw = _gemm_inputs(dev, form, epilogue, m, n, k)
+    before = fused_layer.gemm_core.launches
+    c, aux_out = fused_layer.gemm_core(form, epilogue, a, w, **kw)
+    c_ref, aux_ref = fused_layer.gemm_core_reference(form, epilogue, a, w, **kw)
+    torch.cuda.synchronize()
+    assert fused_layer.gemm_core.launches == before + 1
+    assert c.shape == c_ref.shape and c.dtype == c_ref.dtype
+    assert torch.isfinite(c.float()).all()
+    tol = GEMM_BF16_TOL if c.dtype == torch.bfloat16 else GEMM_F32_TOL
+    assert _rel(c, c_ref) <= tol, _rel(c, c_ref)
+    if aux_ref is not None:
+        assert aux_out.shape == aux_ref.shape
+        assert _rel(aux_out, aux_ref) <= GEMM_F32_TOL, _rel(aux_out, aux_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form,epilogue", fused_layer.GEMM_PAIRS)
+@pytest.mark.parametrize("m,n,k", [(1000, 960, 320), (16384, 1536, 384)])
+def test_gemm_core_is_bitwise_deterministic(dev, form, epilogue, m, n, k):
+    # Fixed tiles, splits and sum orders (the EPI_MUL_AUX column sums too):
+    # two launches on the same inputs give the same bits.
+    a, w, kw = _gemm_inputs(dev, form, epilogue, m, n, k, seed=3)
+    first = fused_layer.gemm_core(form, epilogue, a, w, **kw)
+    second = fused_layer.gemm_core(form, epilogue, a, w, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        if x is not None:
+            bits = torch.int16 if x.dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(x.view(bits), y.view(bits))
+
+
+@pytest.mark.cuda
+def test_gemm_core_refuses_what_it_does_not_take(dev):
+    a = torch.zeros((128, 64), dtype=torch.bfloat16, device=dev)
+    w = torch.zeros((64, 128), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="runs no"):
+        fused_layer.gemm_core("xw", "mul_aux", a, w)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fused_layer.gemm_core("xw", "bias", a.float(), w)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_layer.gemm_core("xw", "bias", a, w[:, :100].contiguous())
+    with pytest.raises(ValueError, match="splits"):
+        fused_layer.gemm_core("atb", "partial", a, w.T.contiguous())
+    with pytest.raises(ValueError, match="needs aux"):
+        fused_layer.gemm_core("xwt", "add_aux_bf16", a, w.T.contiguous())

@@ -12,23 +12,17 @@ from __future__ import annotations
 
 import json
 import os
-import socket
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
 
+from instacart_next_order_recommendation_tpu_torch.parallel import host_rendezvous
 from scripts.torch_launch_multihost import prepare_workspace
 
 REPO = Path(__file__).resolve().parents[1]
 LAUNCHER = REPO / "scripts" / "torch_launch_multihost.py"
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 @pytest.fixture(scope="module")
@@ -47,7 +41,7 @@ def launch(workspace: Path, *flags: str, timeout: int = 420) -> dict:
             "--epochs", "1",
             "--catalog", "2000",
             "--workspace", str(workspace),
-            "--port", str(free_port()),
+            "--port", "0",  # the launcher holds its rendezvous port from start to end
             "--timeout", str(timeout - 60),
             "--device", "cpu",
             *flags,
@@ -112,13 +106,16 @@ def test_two_process_resume_broadcast(workspace):
         (ws / name).symlink_to(workspace / name)
 
     def run_pair(epochs: int, resume: str) -> list[str]:
-        port = free_port()
+        # This process hosts the rendezvous on a port it holds until both
+        # ranks exit: a port found free and released may be given to another
+        # socket on a busy host before rank 0 binds it.
+        store, rendezvous = host_rendezvous()
         script = RESUME_WORKER.format(repo=str(REPO))
         procs = [
             subprocess.Popen(
                 [sys.executable, "-c", script, str(ws), str(epochs), resume],
-                env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
-                         RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK=str(rank)),
+                env=dict(os.environ, **rendezvous, RANK=str(rank), WORLD_SIZE="2",
+                         LOCAL_RANK=str(rank)),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for rank in (0, 1)
@@ -133,6 +130,7 @@ def test_two_process_resume_broadcast(workspace):
             for p in procs:
                 if p.poll() is None:
                     p.kill()
+            del store
         return outs
 
     def steps(out: str) -> int:

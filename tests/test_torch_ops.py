@@ -451,3 +451,32 @@ def test_ptxas_usage_reads_kernel_names_past_a_namespace_hash():
         "topk_slices_bf16_kernel<8,32>": (95, 8),
         "topk_merge_kernel<32>": (46, 0),
     }
+
+
+def test_ptxas_usage_reads_the_wgmma_gemm_core_names():
+    # The fused layer's GEMM core as ptxas reports it (a recorded `ptxas -v`
+    # of csrc/fused_layer_bwd.cu for sm_90a): gemm_wgmma_kernel<form,
+    # epilogue>, warp-specialised, in namespace fl, its tensor maps passed
+    # by value (CUtensorMap_st); and the same kernel inside nvcc's
+    # anonymous-namespace hash, whose digits are no length prefix.
+    from instacart_next_order_recommendation_tpu_torch.ops import _build
+
+    params = "Ev14CUtensorMap_stS1_PK13__nv_bfloat16PvPKfPfiiiii"
+    atb = f"_ZN2fl17gemm_wgmma_kernelILi2ELi6E{params}"
+    mul_aux = f"_ZN2fl17gemm_wgmma_kernelILi1ELi3E{params}"
+    tail = "17b1_fused_layer_bwd_cu_5e1a24f217gemm_wgmma_kernel"
+    ns = f"_GLOBAL__N__6a{len(tail)}17b1_fused_layer_bwd_cu_5e1a24f2"
+    hashed = f"_ZN{len(ns)}{ns}17gemm_wgmma_kernelILi0ELi2E{params}"
+    assert _build._kernel_key(atb) == "gemm_wgmma_kernel<2,6>"
+    log = "".join(
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {name}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers, 256 bytes cmem[0]\n"
+        for name, regs, spill in ((atb, 168, 0), (mul_aux, 168, 0), (hashed, 168, 16))
+    )
+    assert _build.ptxas_usage(log) == {
+        "gemm_wgmma_kernel<2,6>": (168, 0),
+        "gemm_wgmma_kernel<1,3>": (168, 0),
+        "gemm_wgmma_kernel<0,2>": (168, 16),
+    }
