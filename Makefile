@@ -32,3 +32,26 @@ native:
 clean:
 	rm -rf demo_workspace nb_workspace .pytest_cache
 	find . -name __pycache__ -type d -exec rm -rf {} +
+
+# The PyTorch/CUDA port (instacart_next_order_recommendation_tpu_torch/) on
+# an NVIDIA GPU: the same workflows as the targets above. Each runs on the
+# card (without one they exit non-zero; the scripts take --device cpu).
+.PHONY: bench-cuda flagship-cuda real-data-cuda real-data-check-cuda demo-cuda smoke-cuda
+
+bench-cuda:
+	python3 bench_cuda.py
+
+flagship-cuda:
+	python -m instacart_next_order_recommendation_tpu_torch.train --config configs/train_large_batch.yaml
+
+real-data-cuda:
+	python scripts/torch_real_data_run.py
+
+real-data-check-cuda:
+	python scripts/torch_real_data_run.py --check
+
+demo-cuda:
+	python scripts/torch_run_demo.py --workdir demo_workspace
+
+smoke-cuda:
+	python3 chip_smoke.py

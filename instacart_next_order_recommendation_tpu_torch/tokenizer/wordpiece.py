@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import threading
 import unicodedata
 from pathlib import Path
@@ -80,12 +81,25 @@ def _is_cjk(cp: int) -> bool:
     return any(lo <= cp <= hi for lo, hi in _CJK_RANGES)
 
 
+# ASCII text, where the steps below reduce to: drop the control characters
+# (every C0 code but tab, newline and carriage return, and DEL), then split
+# into runs of letters and digits and single punctuation characters. One
+# regex pass gives the same tokens as the character loop.
+_ASCII_CONTROLS = re.compile(r"[\x00-\x08\x0b\x0c\x0e-\x1f\x7f]")
+_ASCII_TOKENS = re.compile(r"[0-9A-Za-z]+|[!-/:-@\[-`{-~]")
+
+
 def basic_tokenize(text: str, lowercase: bool = True) -> list[str]:
     """BERT basic tokenization, matching HF's ``BasicTokenizer`` semantics:
     clean text (drop controls/U+0000/U+FFFD, canonicalize whitespace), space
     out CJK ideographs, NFC-normalize, whitespace-split, then per token
     lowercase + NFD accent-strip (when ``lowercase``) and punctuation-split.
+    ASCII text takes a regex pass with the same result (vocab training
+    tokenizes every corpus text here).
     """
+    if text.isascii():
+        text = _ASCII_CONTROLS.sub("", text)
+        return _ASCII_TOKENS.findall(text.lower() if lowercase else text)
     cleaned: list[str] = []
     for ch in text:
         cp = ord(ch)

@@ -1,10 +1,11 @@
 """Profile the port's serve hot path: where do the milliseconds go?
 
 The port's counterpart of ``scripts/profile_serve.py``. On the GPU (or the
-CPU with ``--device cpu``) it builds the serve benchmark's workload (a
-50,000-product catalog, a WordPiece vocab of 30,000 trained on it, MiniLM-L6
-at full width with random weights from a seeded generator, the catalog
-encoded by ``encode_resident`` into a ``ShardedCatalogIndex``, and a
+CPU with ``--device cpu``) it builds the serve benchmark's workload
+(``utils/bench_workload.py``, shared with ``bench_cuda.py``: a 50,000-product
+catalog, a WordPiece vocab of 30,000 trained on it, MiniLM-L6 at full width
+with random weights from a seeded generator, the catalog encoded by
+``encode_resident`` into a ``ShardedCatalogIndex``, and a
 ``FusedServePipeline`` over it) and reads:
 
   (a) the device's queries/s of the fused encode and top-k on ids already
@@ -13,8 +14,9 @@ encoded by ``encode_resident`` into a ``ShardedCatalogIndex``, and a
   (c) end-to-end queries/s (tokenize, encode, top-k, results to the host)
       by batch size and thread count.
 
-Each reading is a function that takes its sizes: ``main`` calls them at the
-JAX script's sizes. It prints the card's name and power limit first, a line
+Each reading is a function that takes its sizes: ``report`` calls them at
+the JAX script's sizes on a workload built by ``main`` (or by a caller that
+shares one). It prints the card's name and power limit first, a line
 for each reading, and one JSON line with them all last.
 
     python scripts/torch_profile_serve.py [--device cpu]
@@ -31,89 +33,27 @@ if _repo_root not in _sys.path:
     _sys.path.insert(0, _repo_root)
 
 import argparse
-import dataclasses
 import json
-import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from instacart_next_order_recommendation_tpu_torch.utils.bench_texts import (
-    CATALOG_SIZE,
-    TOP_K,
-    build_catalog_texts,
-    build_query_texts,
+from instacart_next_order_recommendation_tpu_torch.utils.bench_texts import TOP_K
+from instacart_next_order_recommendation_tpu_torch.utils.bench_workload import (
+    MAX_SEQ_LENGTH,
+    Workload,
+    build_workload,
+    card_line,
+    sync,
 )
 
-N_QUERIES = 8192
 TOKENIZE_QUERIES = 4096
-MAX_SEQ_LENGTH = 256
 DEVICE_BATCHES = (256, 512, 1024)
 DEVICE_SEQS = (64, 128)
 E2E_BATCHES = (256, 512)
 E2E_THREADS = (2, 4, 8)
-
-
-@dataclasses.dataclass
-class Workload:
-    tokenizer: object
-    fused: object
-    queries: list[str]
-    device: torch.device
-
-
-def card_line(device: torch.device) -> str:
-    """``nvidia-smi``'s name and power limit of the card, or the CPU's name."""
-    if device.type != "cuda":
-        return "device: cpu"
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
-
-
-def sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def build_workload(
-    n_products: int = CATALOG_SIZE,
-    n_queries: int = N_QUERIES,
-    vocab_size: int = 30_000,
-    device: str | torch.device | None = None,
-    preset=None,
-) -> Workload:
-    """The serve benchmark's catalog and queries, a tokenizer trained on the
-    catalog, MiniLM-L6 (or ``preset``) at the vocab's size, the catalog
-    encoded into a resident index and the fused pipeline over it."""
-    from instacart_next_order_recommendation_tpu_torch.device import resolve_device
-    from instacart_next_order_recommendation_tpu_torch.index import ShardedCatalogIndex
-    from instacart_next_order_recommendation_tpu_torch.models.encoder import (
-        MINILM_L6,
-        init_params,
-    )
-    from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
-    from instacart_next_order_recommendation_tpu_torch.serve.pipeline import FusedServePipeline
-    from instacart_next_order_recommendation_tpu_torch.tokenizer import WordPieceTokenizer
-
-    dev = resolve_device(device)
-    rng = np.random.default_rng(0)
-    catalog_texts = build_catalog_texts(n_products, rng)
-    query_texts = build_query_texts(n_queries, catalog_texts, rng)
-    tokenizer = WordPieceTokenizer.train(catalog_texts, vocab_size=vocab_size)
-    config = dataclasses.replace(preset or MINILM_L6, vocab_size=tokenizer.vocab_size)
-    params = init_params(config, torch.Generator().manual_seed(0))
-    encoder = TextEncoder(params, config, tokenizer, max_seq_length=MAX_SEQ_LENGTH, device=dev)
-    catalog_emb = encoder.encode_resident(catalog_texts, batch_size=1024)
-    index = ShardedCatalogIndex(catalog_emb, mesh=None, device=dev)
-    fused = FusedServePipeline(
-        encoder.params, config, index.catalog, n_products, pad_id=tokenizer.pad_id,
-        layers=encoder.layers, device=dev,
-    )
-    return Workload(tokenizer, fused, query_texts, dev)
 
 
 def token_lengths(w: Workload, n: int = 512) -> dict:
@@ -187,17 +127,9 @@ def e2e_qps(w: Workload, batches=E2E_BATCHES, threads=E2E_THREADS, k: int = TOP_
     return rows
 
 
-def main(argv: list[str] | None = None) -> int:
-    parser = argparse.ArgumentParser(description="Serve hot-path profile on the port")
-    parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
-    args = parser.parse_args(argv)
-
-    from instacart_next_order_recommendation_tpu_torch.device import resolve_device
-
-    dev = resolve_device(args.device)
-    card = card_line(dev)
-    print(card, flush=True)
-    w = build_workload(device=dev)
+def report(w: Workload, card: str) -> dict:
+    """Every reading at the JAX script's sizes, a line each, then one JSON
+    line with them all; returns that summary."""
     lens = token_lengths(w)
     print(f"query token lens: p50={lens['p50']:.0f} p90={lens['p90']:.0f} max={lens['max']}")
     tok, ids_all = tokenize_qps(w)
@@ -209,8 +141,23 @@ def main(argv: list[str] | None = None) -> int:
     e2e_rows = e2e_qps(w)
     for r in e2e_rows:
         print(f"e2e B={r['batch']} threads={r['threads']}: {r['qps']:.0f} q/s")
-    print(json.dumps({"metric": "serve_profile", "card": card, "token_lens": lens,
-                      "tokenize": tok, "device": dev_rows, "e2e": e2e_rows}), flush=True)
+    summary = {"metric": "serve_profile", "card": card, "token_lens": lens,
+               "tokenize": tok, "device": dev_rows, "e2e": e2e_rows}
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = argparse.ArgumentParser(description="Serve hot-path profile on the port")
+    parser.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = parser.parse_args(argv)
+
+    from instacart_next_order_recommendation_tpu_torch.device import resolve_device
+
+    dev = resolve_device(args.device)
+    card = card_line(dev)
+    print(card, flush=True)
+    report(build_workload(device=dev), card)
     return 0
 
 

@@ -210,9 +210,11 @@ def test_port_imports_no_jax(served, tmp_path):
             for name in ("run_demo", "feedback_analytics", "generate_sample_feedback",
                          "feedback_retrain", "compare_untrained_vs_trained", "reval_tower",
                          "real_data_run", "profile_serve", "bench_soak", "launch_multihost",
-                         "make_rehearsal_checkpoint", "rehearsal_real_shapes")
+                         "make_rehearsal_checkpoint", "rehearsal_real_shapes", "bench_mfu",
+                         "gen_lockfile")
         ]
         import __graft_entry_torch__ as graft
+        import bench_cuda
         from instacart_next_order_recommendation_tpu_torch.utils import bench_texts
         # The harness entry and the tools run on the card unless asked for
         # the CPU: here, with none, each raises before any work.
@@ -236,6 +238,9 @@ def test_port_imports_no_jax(served, tmp_path):
                 else:
                     raise AssertionError("ran without a card")
             assert not os.path.exists(no_card)
+            # The benchmark entries exit non-zero instead.
+            assert bench_cuda.main([]) != 0
+            assert sys.modules["scripts.torch_bench_mfu"].main(["--train"]) != 0
         assert graft.entry(device="cpu")[1][1].shape == (8, 128)
         assert len(bench_texts.build_catalog_texts(3, __import__("numpy").random.default_rng(0))) == 3
         # torchrun's environment, one rank: init_distributed has nothing to join.
@@ -251,7 +256,7 @@ def test_port_imports_no_jax(served, tmp_path):
                 __import__(f"instacart_next_order_recommendation_tpu_torch.{{cli}}.__main__")
             except SystemExit as exc:
                 assert exc.code == 0, exc.code
-        for module in workflows:  # the scripts' mains: help, exit 0
+        for module in workflows + [bench_cuda]:  # the scripts' mains: help, exit 0
             try:
                 module.main(["--help"])
             except SystemExit as exc:

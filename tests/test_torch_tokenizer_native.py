@@ -245,3 +245,26 @@ def test_counters_exact_under_threads(toks):
         sys.setswitchinterval(interval)
     assert not any(t.is_alive() for t in threads)
     assert ours.native_batches == before + 300
+
+
+@pytest.mark.parametrize("lowercase", [True, False])
+def test_basic_tokenize_ascii_pass_equals_the_jax_loop(lowercase):
+    """ASCII text takes a regex pass in the port's ``basic_tokenize``: the
+    same tokens as the JAX package's character loop over every ASCII code
+    (controls that join words, tab/newline/CR that split them, DEL, NUL,
+    each punctuation mark), and non-ASCII text still takes the loop."""
+    from instacart_next_order_recommendation_tpu.tokenizer.wordpiece import (
+        basic_tokenize as jax_basic_tokenize,
+    )
+    from instacart_next_order_recommendation_tpu_torch.tokenizer.wordpiece import (
+        basic_tokenize,
+    )
+
+    rng = random.Random(7)
+    alphabet = [chr(c) for c in range(128)] + list("aaaaeeeZz09 ,.-")
+    texts = ["".join(rng.choice(alphabet) for _ in range(rng.randrange(40)))
+             for _ in range(4000)]
+    texts += CORPUS + ["ab\x01cd\x0bef\x7fgh", "x\ty\nz\rw", "\x00", "", "Café naïve",
+                       "中文 text with spaces"]
+    for text in texts:
+        assert basic_tokenize(text, lowercase) == jax_basic_tokenize(text, lowercase), repr(text)
