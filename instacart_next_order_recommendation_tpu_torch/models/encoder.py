@@ -42,6 +42,7 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     supports,
 )
 from instacart_next_order_recommendation_tpu_torch.parallel.tp import tp_enter, tp_exit
+from instacart_next_order_recommendation_tpu_torch.utils.profiling import count, count_device, span
 
 Params = dict[str, Any]
 
@@ -276,7 +277,19 @@ def encode(
     sum, which would need the all-reduce inside the kernel (the JAX package
     takes its fused route only without a model axis too). Every rank of the
     group must draw the same dropout masks: seed their generators alike.
+
+    While spans record (``utils/profiling.py``) the forward is the span
+    ``tower.encode`` and counts ``tower.rows``, ``tower.slots`` (rows times
+    the padded width) and ``tower.tokens`` (the mask's sum, on the device).
     """
+    with span("tower.encode"):
+        count("tower.rows", input_ids.shape[0])
+        count("tower.slots", input_ids.numel())
+        count_device("tower.tokens", attention_mask)
+        return _forward(params, input_ids, attention_mask, config, layers, generator, model_group)
+
+
+def _forward(params, input_ids, attention_mask, config, layers, generator, model_group):
     x = embed(params, input_ids, config, generator)
     if layers is None:
         layers = prepare_layers(params, config)

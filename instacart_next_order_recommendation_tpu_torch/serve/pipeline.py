@@ -22,6 +22,7 @@ from instacart_next_order_recommendation_tpu_torch.models.text_encoder import (
     wire_dtype,
 )
 from instacart_next_order_recommendation_tpu_torch.ops import cosine_topk
+from instacart_next_order_recommendation_tpu_torch.utils.profiling import span
 
 
 class FusedServePipeline:
@@ -57,19 +58,24 @@ class FusedServePipeline:
 
         ``mask`` is accepted for symmetry with the tokenizer's output but
         never transferred: pad positions in ``ids`` determine it on device.
+        The upload is the span ``serve.upload``.
         """
-        ids_d = torch.from_numpy(np.ascontiguousarray(ids.astype(self.wire_dtype))).to(self.device)
+        with span("serve.upload"):
+            ids_d = torch.from_numpy(np.ascontiguousarray(ids.astype(self.wire_dtype)))
+            ids_d = ids_d.to(self.device)
         return self.run_device(ids_d, k)
 
     @torch.inference_mode()
     def run_device(self, ids_d: torch.Tensor, k: int):
-        """``topk_device`` on ids already on the device (``wire_dtype``)."""
-        k = min(k, self.n_valid)
-        emb = encode_from_ids(
-            self.params, ids_d, config=self.config, pad_id=self.pad_id, layers=self.layers
-        )
-        s, i = cosine_topk(emb, self.catalog, k, n_valid=self.n_valid, packed=self.packed)
-        return torch.cat([s.view(torch.int32), i], dim=1), k
+        """``topk_device`` on ids already on the device (``wire_dtype``): the
+        span ``serve.launch``."""
+        with span("serve.launch"):
+            k = min(k, self.n_valid)
+            emb = encode_from_ids(
+                self.params, ids_d, config=self.config, pad_id=self.pad_id, layers=self.layers
+            )
+            s, i = cosine_topk(emb, self.catalog, k, n_valid=self.n_valid, packed=self.packed)
+            return torch.cat([s.view(torch.int32), i], dim=1), k
 
     @staticmethod
     def unpack(packed: np.ndarray, k: int) -> tuple[np.ndarray, np.ndarray]:

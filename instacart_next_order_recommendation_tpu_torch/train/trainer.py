@@ -38,6 +38,7 @@ the model group, and a resume reads them on rank 0 and broadcasts them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -105,9 +106,11 @@ from instacart_next_order_recommendation_tpu_torch.utils.config import (
     resolve_project_path,
 )
 from instacart_next_order_recommendation_tpu_torch.utils.logging import setup_colored_logging
+from instacart_next_order_recommendation_tpu_torch.utils import profiling
 from instacart_next_order_recommendation_tpu_torch.utils.profiling import (
     ENV_PROFILE_DIR,
     device_profiler,
+    span,
 )
 from instacart_next_order_recommendation_tpu_torch.utils.resolve import resolve_processed_dir
 
@@ -119,6 +122,7 @@ BEST_METRIC = "ndcg_at_10"
 OPT_STATE_FILENAME = "opt_state.pt"  # the port's own; the JAX trainer writes opt_state.msgpack
 TRAIN_STATE_FILENAME = "train_state.json"
 ENV_LOOP_TIMING = "ITOR_LOOP_TIMING"
+LOOP_PHASES = ("train.assemble", "train.seeds", "train.step")
 
 
 class TrainConfig:
@@ -245,32 +249,38 @@ class TrainStep:
         self.micro = 0  # micro-batches into the current accumulation
 
     def __call__(self, batch: list[torch.Tensor], seed: int) -> torch.Tensor:
-        a_ids, a_mask, p_ids, p_mask = batch
-        self.generator.manual_seed(seed)
-        kw = dict(generator=self.generator, model_group=self.model_group)
-        qa = encode(self.params, a_ids, a_mask, self.tower_cfg, **kw)
-        qp = encode(self.params, p_ids, p_mask, self.tower_cfg, **kw)
-        loss = mnrl_loss(qa, qp, scale=self.loss_scale, group=self.data_group)
-        (loss / self.accum).backward()  # grads sum to the mean over the micro-batches
-        loss = loss.detach()
-        self.micro += 1
-        if self.data_group is not None:
-            # Gradients of split and replicated leaves alike: tp_enter has
-            # made the replicated ones whole on every model rank already.
-            box = [loss.reshape(1).clone()]
+        """The spans ``train.step``, and inside it ``train.forward``,
+        ``train.backward`` and (on an optimizer step) ``train.optimizer``."""
+        with span("train.step"):
+            a_ids, a_mask, p_ids, p_mask = batch
+            self.generator.manual_seed(seed)
+            kw = dict(generator=self.generator, model_group=self.model_group)
+            with span("train.forward"):
+                qa = encode(self.params, a_ids, a_mask, self.tower_cfg, **kw)
+                qp = encode(self.params, p_ids, p_mask, self.tower_cfg, **kw)
+                loss = mnrl_loss(qa, qp, scale=self.loss_scale, group=self.data_group)
+            with span("train.backward"):
+                (loss / self.accum).backward()  # grads sum to the mean over the micro-batches
+                loss = loss.detach()
+                self.micro += 1
+                if self.data_group is not None:
+                    # Gradients of split and replicated leaves alike: tp_enter has
+                    # made the replicated ones whole on every model rank already.
+                    box = [loss.reshape(1).clone()]
+                    if self.micro == self.accum:
+                        box = [t.grad for _, t in param_leaves(self.params)] + box
+                    average_over_data(box, self.data_group, self.dp)
+                    loss = box[-1][0]
             if self.micro == self.accum:
-                box = [t.grad for _, t in param_leaves(self.params)] + box
-            average_over_data(box, self.data_group, self.dp)
-            loss = box[-1][0]
-        if self.micro == self.accum:
-            lr = self.schedule(self.opt_steps)
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.opt_steps += 1
-            self.micro = 0
-        return loss
+                with span("train.optimizer"):
+                    lr = self.schedule(self.opt_steps)
+                    for group in self.optimizer.param_groups:
+                        group["lr"] = lr
+                    self.optimizer.step()
+                    self.optimizer.zero_grad(set_to_none=True)
+                    self.opt_steps += 1
+                    self.micro = 0
+            return loss
 
     def state(self) -> dict:
         """What a checkpoint keeps to resume the optimizer exactly."""
@@ -289,6 +299,27 @@ class TrainStep:
         self.opt_steps, self.micro = int(state["opt_steps"]), int(state["micro"])
         for (_, t), g in zip(param_leaves(self.params), state["acc_grads"]):
             t.grad = None if g is None else g.to(t.device)
+
+
+def loop_timing_line(recorded: list[profiling.Span], n: int, since_ns: int | None) -> int:
+    """Log ``ITOR_LOOP_TIMING``'s line, the JAX trainer's, from the spans
+    ``recorded`` of the last ``n`` dispatches: the mean host ms a dispatch
+    of ``train.assemble`` (assembly and transfers), ``train.seeds`` (the
+    dropout seeds, JAX's "fold_in"), ``train.step`` (the steps' submission)
+    and the wall time since ``since_ns`` (the last line's end; the first
+    line's first assembly otherwise). Returns the end of the last span."""
+    done = [s for s in recorded if s.name in LOOP_PHASES]
+    ms = {name: 0.0 for name in LOOP_PHASES}
+    for s in done:
+        ms[s.name] += 1e-6 * (s.end_ns - s.start_ns) / n
+    end_ns = max(s.end_ns for s in done)
+    if since_ns is None:
+        since_ns = min(s.start_ns for s in done)
+    logger.info(
+        "  loop timing/dispatch: assemble %.0f ms, fold_in %.0f ms, submit %.0f ms, wall %.0f ms",
+        *ms.values(), 1e-6 * (end_ns - since_ns) / n,
+    )
+    return end_ns
 
 
 def build_optimizer(params: Params, weight_decay: float) -> torch.optim.AdamW:
@@ -667,14 +698,14 @@ class TwoTowerTrainer:
 
         n_group = max(1, cfg.steps_per_dispatch)
         # ITOR_PROFILE_DIR: a torch.profiler trace of dispatches 1-5 of the
-        # first epoch, written into the directory. ITOR_LOOP_TIMING=1: every
-        # 25 dispatches, the mean host time per dispatch of each loop phase,
-        # in the JAX trainer's log line ("fold_in" is the dropout seed).
+        # first epoch, written into the directory. ITOR_LOOP_TIMING=1: each
+        # dispatch runs under profiling.recording(), and every 25 dispatches
+        # loop_timing_line reads the spans recorded since its last line.
         profile_dir = os.getenv(ENV_PROFILE_DIR)
         profiler = None
         loop_timing = os.getenv(ENV_LOOP_TIMING, "").strip() in ("1", "true")
-        lt_acc = [0.0, 0.0, 0.0, 0.0]
-        lt_n, lt_last = 0, 0.0
+        lt_spans: list[profiling.Span] = []
+        lt_n, lt_since = 0, None
 
         def stop_profiler() -> None:
             nonlocal profiler
@@ -701,33 +732,24 @@ class TwoTowerTrainer:
                         profiler.start()
                     elif step >= 6 and profiler is not None:
                         stop_profiler()
-                t_a = time.perf_counter() if loop_timing else 0.0
-                batches = [assemble(idx) for idx in group]
-                t_b = time.perf_counter() if loop_timing else 0.0
-                seeds = [
-                    dropout_seed(cfg.seed, epoch, len(losses) + i, pm.data_rank)
-                    for i in range(n_group)
-                ]
-                t_c = time.perf_counter() if loop_timing else 0.0
-                for batch, seed in zip(batches, seeds):
-                    loss = train_step(batch, seed)
-                    global_step += 1
-                    losses.append(loss)
+                with (profiling.recording() if loop_timing else contextlib.nullcontext()) as got:
+                    with span("train.assemble"):
+                        batches = [assemble(idx) for idx in group]
+                    with span("train.seeds"):
+                        seeds = [
+                            dropout_seed(cfg.seed, epoch, len(losses) + i, pm.data_rank)
+                            for i in range(n_group)
+                        ]
+                    for batch, seed in zip(batches, seeds):
+                        loss = train_step(batch, seed)
+                        global_step += 1
+                        losses.append(loss)
                 if loop_timing:
-                    t_d = time.perf_counter()
-                    lt_acc[0] += t_b - t_a  # assemble + transfers
-                    lt_acc[1] += t_c - t_b  # dropout seeds
-                    lt_acc[2] += t_d - t_c  # train step submission
-                    lt_acc[3] += t_d - lt_last if lt_last else 0.0
-                    lt_last = t_d
+                    lt_spans += got
                     lt_n += 1
                     if lt_n >= 25:
-                        logger.info(
-                            "  loop timing/dispatch: assemble %.0f ms, fold_in"
-                            " %.0f ms, submit %.0f ms, wall %.0f ms",
-                            *(1e3 * a / lt_n for a in lt_acc),
-                        )
-                        lt_acc, lt_n = [0.0, 0.0, 0.0, 0.0], 0
+                        lt_since = loop_timing_line(lt_spans, lt_n, lt_since)
+                        lt_spans, lt_n = [], 0
                 if step % max(1, cfg.logging_steps // n_group) == 0:
                     logger.info(
                         "  epoch %d step %d loss %.4f lr %.2e",

@@ -192,7 +192,7 @@ def test_port_imports_no_jax(served, tmp_path):
         )
         from instacart_next_order_recommendation_tpu_torch.models.hf_loader import load_hf_tower
         from instacart_next_order_recommendation_tpu_torch.utils.profiling import (
-            annotate, maybe_trace,
+            recording, span,
         )
         from instacart_next_order_recommendation_tpu_torch.parallel import (
             MeshConfig, ProcessMesh, build_mesh, init_distributed, shard_params,

@@ -1,8 +1,9 @@
 """The port's training leftovers on the CPU: ``ITOR_PROFILE_DIR`` (a
 ``torch.profiler`` trace of dispatches 1-5), ``ITOR_LOOP_TIMING`` (the JAX
-trainer's log line), ``utils/profiling.py``, a warm start from a Hugging
-Face directory through ``train()``, and a 5-step bf16 trajectory against
-the JAX package's encode, MNRL and optax AdamW."""
+trainer's log line, read from the recorder's spans), ``utils/profiling.py``'s
+recorder, a warm start from a Hugging Face directory through ``train()``,
+and a 5-step bf16 trajectory against the JAX package's encode, MNRL and
+optax AdamW."""
 
 import json
 import logging
@@ -125,15 +126,25 @@ def test_loop_timing_logs_the_jax_line(hf_dir, tmp_path, monkeypatch, caplog):
     assert not (tmp_path / "trace").exists()
 
 
-def test_maybe_trace_is_free_without_the_env_var_and_traces_with_it(tmp_path, monkeypatch):
-    monkeypatch.delenv("ITOR_PROFILE_DIR", raising=False)
-    with profiling.maybe_trace("off"):
+def test_maybe_trace_is_free_without_the_env_var_and_traces_with_it(tmp_path):
+    # The recorder that replaced maybe_trace/annotate: off, a span is one
+    # shared no-op and records nothing; under recording() it records into
+    # the block's own list; under the trainer's device_profiler
+    # (ITOR_PROFILE_DIR) it records into spans() and the trace shows it.
+    profiling.clear()
+    assert profiling.span("a") is profiling.span("b")
+    with profiling.span("off"):
         torch.ones(3).sum()
-    assert not any(tmp_path.iterdir())
-    monkeypatch.setenv("ITOR_PROFILE_DIR", str(tmp_path))
-    with profiling.maybe_trace("section"):
-        with profiling.annotate("my_span"):
+    assert profiling.spans() == []
+    with profiling.recording() as got:
+        with profiling.span("on"):
             torch.ones(3).sum()
+    assert [s.name for s in got] == ["on"] and profiling.spans() == []
+    with profiling.device_profiler(tmp_path / "section", cuda=False):
+        with profiling.span("my_span"):
+            torch.ones(3).sum()
+    assert [s.name for s in profiling.spans()] == ["my_span"]
+    profiling.clear()
     traces = list((tmp_path / "section").glob("*.pt.trace.json"))
     assert len(traces) == 1
     names = {e.get("name") for e in json.loads(traces[0].read_text())["traceEvents"]}
