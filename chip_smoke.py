@@ -170,12 +170,14 @@ Run from the repository root, with no arguments:
    mpnet-base``) for one epoch through the fused layer: 24 K1-train and 24
    K5 launches per step, 12 K1 per eval forward, no K6 or K7; the 3-step
    check with planted K5 faults; the same check at S=200, which the fused
-   kernels do not take, with planted K7 faults (24 K6 and 24 K7 launches a
+   kernels do not take, with planted K7 faults (each positive repeated to
+   fill S=200, so that both towers run there: 24 K6 and 24 K7 launches a
    step); B=256 steps with the remat that ``_resolve_remat`` chooses, with
    their peak device memory and launch counts, at S=256 (off: the fused
    backward keeps only the layer inputs) and at S=200 (on: the unfused
-   layers under ``torch.utils.checkpoint``, K6 run again in the backward);
-   and the profiler's breakdown of a B=64 step.
+   layers under ``torch.utils.checkpoint``, K6 run again in the backward;
+   the positives, cut to their own width, run K1-train and K5); and the
+   profiler's breakdown of a B=64 step.
 5b. Multi-GPU on the one card. The device mesh puts two data shards on
    cuda:0: ``ShardedCatalogIndex`` over phase 3's 50k catalog at B=256,
    k=16 (f32, bf16, packed, aisle-masked; two K3 or K4 launches a call)
@@ -4125,7 +4127,7 @@ class TrainPhase:
                     fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
                 ),
             },
-            fused_encoder_layer_backward, 12,
+            fused_encoder_layer_backward, 6,
         )
         flagship = self.flagship()
         breakdown = {b: self.step_breakdown(trainer.seq_len, b) for b in (64, 512)}
@@ -4186,8 +4188,15 @@ class TrainPhase:
         log(f"untrained {self.model_name}: NDCG@10 {ndcg:.4f} ({time.perf_counter() - t0:.1f}s)")
         return ndcg
 
-    def batches(self, tokenizer, seq: int, batch: int, n: int) -> list[list[torch.Tensor]]:
+    def batches(self, tokenizer, seq: int, batch: int, n: int,
+                long_positives: bool = False) -> list[list[torch.Tensor]]:
+        """``n`` batches padded to ``seq``. ``long_positives``: each positive's
+        text repeated past ``seq`` words, so that the positive tower, like
+        the anchors', runs at ``seq`` and is not cut narrower (the pairs
+        stay each anchor's own)."""
         anchors, positives = self.data[:2]
+        if long_positives:
+            positives = [" ".join([t] * (seq // max(1, len(t.split())) + 1)) for t in positives]
         out = []
         for k in range(n):
             idx = range(k * batch, (k + 1) * batch)
@@ -4258,7 +4267,22 @@ class TrainPhase:
         }
         return params, cfg, tok
 
-    def kernels_against_plain_steps(self, seq: int, faults: dict, counter, per_step: int) -> dict:
+    def towers_by_route(self, batches, cfg) -> dict:
+        """How many tower forwards of ``batches`` take each route: each side
+        of a step runs at its own width (``tower_widths``), fused where
+        ``supports`` takes that width, unfused otherwise."""
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import tower_widths
+        from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import supports
+
+        out = {"fused": 0, "unfused": 0}
+        for b in batches:
+            for width in tower_widths(b[1], b[3]):
+                fused = supports(cfg.hidden_size, cfg.num_heads, width, cfg.intermediate_size)
+                out["fused" if fused else "unfused"] += 1
+        return out
+
+    def kernels_against_plain_steps(self, seq: int, faults: dict, counter, per_tower: int,
+                                    route: str = "fused", long_positives: bool = False) -> dict:
         """3 AdamW steps at dropout 0 and a constant lr, from the same params
         on the same batches of length ``seq``: TrainStep through the kernels
         against TrainStep with every kernel replaced by its plain version.
@@ -4273,8 +4297,9 @@ class TrainPhase:
         depends on a gradient's scale, so the losses cannot see a scaled
         gradient; the gradients must. The limits must lie between the sound
         readings and the faults': every fault above the gradient limit, one
-        above the loss limit. ``counter`` must count ``per_step`` launches
-        of the backward kernel per step."""
+        above the loss limit. ``counter`` must count ``per_tower`` launches
+        of the backward kernel per tower forward on ``route`` (each side of
+        a step takes the route of its own width: ``towers_by_route``)."""
         from instacart_next_order_recommendation_tpu_torch import ops
         from instacart_next_order_recommendation_tpu_torch.train.trainer import (
             TrainStep,
@@ -4284,7 +4309,8 @@ class TrainPhase:
 
         cfg, tok = self.fresh_params()[1:]
         cfg = dataclasses.replace(cfg, hidden_dropout=0.0)
-        batches = self.batches(tok, seq, 64, 3)
+        batches = self.batches(tok, seq, 64, 3, long_positives)
+        towers = self.towers_by_route(batches, cfg)
 
         def run() -> tuple[list[float], dict]:
             """The three losses and the first step's gradients by leaf."""
@@ -4359,7 +4385,7 @@ class TrainPhase:
         self.smoke.check(
             sound["loss_rel"] <= STEP_LOSS_REL_TOL
             and sound["grad_rel"] <= STEP_GRAD_REL_TOL
-            and launched == 3 * per_step,
+            and launched == per_tower * towers[route],
             f"{self.model_name} 3 steps: kernels agree with plain",
         )
         self.smoke.check(
@@ -4369,7 +4395,7 @@ class TrainPhase:
         )
         return {
             "seq": seq, "plain_losses": plain_losses, "kernels": sound,
-            "planted_faults": fault_readings, "launches": counts,
+            "planted_faults": fault_readings, "launches": counts, "towers": towers,
         }
 
     def step_breakdown(self, seq: int, batch: int, n_steps: int = 5) -> dict:
@@ -4553,9 +4579,10 @@ class MpnetTrainPhase(TrainPhase):
                     fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
                 ),
             },
-            fused_encoder_layer_backward, 24,
+            fused_encoder_layer_backward, 12,
         )
-        # ---- K6 and K7 through TrainStep, at a length the fused kernels refuse
+        # ---- K6 and K7 through TrainStep, at a length the fused kernels refuse:
+        # positives repeated to fill it, so that both towers run there
         k7_check = self.kernels_against_plain_steps(
             ATTENTION_TRAIN_SEQ,
             {
@@ -4567,11 +4594,12 @@ class MpnetTrainPhase(TrainPhase):
                     attention, "multi_head_attention_backward", lambda dq, dk, dv: (-dq, dk, dv)
                 ),
             },
-            multi_head_attention_backward, 24,
+            multi_head_attention_backward, 12, route="unfused", long_positives=True,
         )
         launched = k7_check["launches"]
         smoke.check(
-            launched["multi_head_attention"] == 3 * 24
+            k7_check["towers"] == {"fused": 0, "unfused": 6}
+            and launched["multi_head_attention"] == 3 * 24
             and launched["fused_encoder_layer_train"] == launched["fused_encoder_layer_backward"] == 0,
             f"mpnet at S={ATTENTION_TRAIN_SEQ}: 24 K6 and 24 K7 launches per step, no K1 or K5",
         )
@@ -4631,7 +4659,9 @@ class MpnetTrainPhase(TrainPhase):
         tower and remat is off (K5 keeps only the layer inputs, where the
         unfused route without remat keeps every layer's activations); at a
         length they refuse it is on, and each unfused layer runs under
-        torch.utils.checkpoint, its K6 launched again in the backward."""
+        torch.utils.checkpoint, its K6 launched again in the backward. A side
+        whose rows are cut to a width the fused kernels take (the positives)
+        runs K1-train and K5 there."""
         from instacart_next_order_recommendation_tpu_torch.train import TwoTowerTrainer
         from instacart_next_order_recommendation_tpu_torch.train.trainer import (
             TrainStep,
@@ -4690,12 +4720,17 @@ class MpnetTrainPhase(TrainPhase):
             f"mpnet B={REMAT_BATCH} S={seq} steps (remat {chosen}) fit, losses finite",
         )
         n = n_steps + 1  # the warm-up step counts too
+        towers = self.towers_by_route(batches, cfg)
         expected = {name: 0 for name in out["launches"]}
         expected["masked_mean_pool_l2norm"] = 2 * n
-        if chosen:  # two towers of 12 unfused layers, each K6 run again in the backward
-            expected.update(multi_head_attention=48 * n, multi_head_attention_backward=24 * n)
-        else:
-            expected.update(fused_encoder_layer_train=24 * n, fused_encoder_layer_backward=24 * n)
+        # 12 layers a tower; under remat each unfused layer's K6 runs again
+        # in the backward.
+        expected.update(
+            multi_head_attention=(24 if chosen else 12) * towers["unfused"],
+            multi_head_attention_backward=12 * towers["unfused"],
+            fused_encoder_layer_train=12 * towers["fused"],
+            fused_encoder_layer_backward=12 * towers["fused"],
+        )
         self.smoke.check(
             out["launches"] == expected,
             f"mpnet B={REMAT_BATCH} S={seq} (remat {chosen}): launches over {n} steps {expected}",
@@ -4790,7 +4825,7 @@ class LongContextTrainPhase(TrainPhase):
             {"dx_negated": (
                 fused_layer, "fused_encoder_layer_backward", lambda dx, dw: (-dx, dw)
             )},
-            fused_encoder_layer_backward, 12,
+            fused_encoder_layer_backward, 6,
         )
         out["mpnet"] = self.mpnet_run()
         return out

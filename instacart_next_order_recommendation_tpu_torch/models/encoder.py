@@ -15,9 +15,11 @@ LayerNorm and GELU in f32), which takes any head_dim and sequence length.
 Without a dropout generator the forward runs inference; with one it
 trains: BERT hidden dropout on the f32 embeddings and inside every layer,
 with every mask drawn from that one generator in a fixed order (m1 then m2
-of each layer, the same draws on either route). The bf16 layer weights are
-made from the f32 parameters by differentiable casts, so gradients reach
-the parameters.
+of each layer, the same draws on either route). A training forward may run
+narrower than the width it is handed (``encode``'s ``width``, from
+``tower_widths``): every mask is still drawn at the handed shape, then cut.
+The bf16 layer weights are made from the f32 parameters by differentiable
+casts, so gradients reach the parameters.
 """
 
 from __future__ import annotations
@@ -170,9 +172,14 @@ def _layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: f
     return (x32 - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
-def _dropout(x: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def _dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator, handed: int
+) -> torch.Tensor:
+    """Dropout of x ``[B, S, H]``, its mask drawn at ``[B, handed, H]`` and
+    cut to x's S columns."""
     keep = 1.0 - rate
-    bits = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    b, s, h = x.shape
+    bits = torch.rand((b, handed, h), generator=generator, device=x.device)[:, :s] < keep
     return torch.where(bits, x / keep, 0.0).to(x.dtype)
 
 
@@ -181,11 +188,14 @@ def embed(
     input_ids: torch.Tensor,
     config: TowerConfig,
     generator: torch.Generator | None = None,
+    width: int | None = None,
 ) -> torch.Tensor:
     """Word + position + token-type embeddings, LayerNorm in f32, dropout in
     f32 when a generator is given, cast to the compute dtype: ``[B, S]`` ids
-    -> ``[B, S, hidden]``."""
-    s = input_ids.shape[1]
+    -> ``[B, S, hidden]``, or ``[B, width, hidden]`` of the first ``width``
+    columns alone, the dropout mask still drawn at ``[B, S, hidden]``."""
+    b, handed = input_ids.shape
+    s = handed if width is None else width
     if s > config.max_position:
         # Indexing past the position table must fail loudly, never clamp.
         raise ValueError(
@@ -196,13 +206,13 @@ def embed(
     # sums repeated ids in segments where advanced indexing's backward
     # serializes them (27 ms of a 125 ms batch-512 step on the H100).
     x = (
-        torch.nn.functional.embedding(input_ids.long(), emb["word"])
+        torch.nn.functional.embedding(input_ids[:, :s].long(), emb["word"])
         + emb["position"][:s][None, :, :]
         + emb["token_type"][0]
     )
     x = _layer_norm(x, emb["ln_scale"], emb["ln_bias"], config.layer_norm_eps)
     if generator is not None and config.hidden_dropout > 0.0:
-        x = _dropout(x, config.hidden_dropout, generator)
+        x = _dropout(x, config.hidden_dropout, generator, handed)
     return x.to(DTYPES[config.compute_dtype])
 
 
@@ -252,6 +262,21 @@ def _encoder_layer(
     return layer_norm(x + dropout(ffn, m2), layer["ln2_s"], layer["ln2_b"])
 
 
+def tower_widths(*masks: torch.Tensor) -> list[int]:
+    """The width each attention mask ``[B, S]`` needs: one past the last
+    column in which any of its rows holds a real token, rounded up to 16
+    (the fused kernels' ``S % 16`` rule) and never wider than S. Every
+    mask's in one device read."""
+    lasts = []
+    for mask in masks:
+        cols = torch.arange(1, mask.shape[1] + 1, device=mask.device)
+        lasts.append(((mask != 0).any(dim=0) * cols).amax())
+    return [
+        min(-(-max(last, 1) // 16) * 16, mask.shape[1])
+        for last, mask in zip(torch.stack(lasts).tolist(), masks)
+    ]
+
+
 def encode(
     params: Params,
     input_ids: torch.Tensor,
@@ -260,6 +285,7 @@ def encode(
     layers: list[dict] | None = None,
     generator: torch.Generator | None = None,
     model_group=None,
+    width: int | None = None,
 ) -> torch.Tensor:
     """Tower forward: token ids -> unit-norm sentence embedding ``[B, hidden]``.
 
@@ -271,6 +297,18 @@ def encode(
     checkpoints each unfused layer; its masks are drawn outside the
     checkpoint, so the recompute sees the same masks.
 
+    ``width`` runs the tower on the first ``width`` columns of the ids and
+    the mask alone; the caller vouches that no row holds a real token past
+    them (``tower_widths``). Nothing past a row's real tokens reaches its
+    embedding: attention and the pool mask those columns, the LayerNorms,
+    products and FFN act on each token alone, and a pad token's gradient is
+    zero. Every dropout mask is drawn at the handed ``[B, S, hidden]`` shape,
+    in the order above, and then cut to ``width`` columns, so each kept
+    value and the generator's state after the forward are the uncut
+    forward's. Route and form (``supports``, ``saves_residuals``) follow the
+    cut shape; every rank of a model group is handed the same batch, so it
+    cuts alike.
+
     ``model_group`` runs the layers on this rank's tensor-parallel shards
     (``params`` local, as ``parallel.shard_params`` cuts them) through the
     unfused layer: the fused kernel's LayerNorm follows the row-parallel
@@ -280,22 +318,43 @@ def encode(
 
     While spans record (``utils/profiling.py``) the forward is the span
     ``tower.encode`` and counts ``tower.rows``, ``tower.slots`` (rows times
-    the padded width) and ``tower.tokens`` (the mask's sum, on the device).
+    the handed width), ``tower.tokens`` (the mask's sum, on the device) and,
+    where ``width`` cuts, ``tower.cut_slots`` (rows times the columns cut).
     """
     with span("tower.encode"):
-        count("tower.rows", input_ids.shape[0])
+        rows, handed = input_ids.shape
+        count("tower.rows", rows)
         count("tower.slots", input_ids.numel())
         count_device("tower.tokens", attention_mask)
-        return _forward(params, input_ids, attention_mask, config, layers, generator, model_group)
+        if width is None or width >= handed:
+            width = handed
+        else:
+            count("tower.cut_slots", rows * (handed - width))
+        return _forward(
+            params, input_ids, attention_mask, config, layers, generator, model_group, width
+        )
 
 
-def _forward(params, input_ids, attention_mask, config, layers, generator, model_group):
-    x = embed(params, input_ids, config, generator)
+def _forward(params, input_ids, attention_mask, config, layers, generator, model_group, width):
+    b, handed = input_ids.shape
+    x = embed(params, input_ids, config, generator, width)
+    if width < handed:
+        attention_mask = attention_mask[:, :width].contiguous()
     if layers is None:
         layers = prepare_layers(params, config)
-    s = input_ids.shape[1]
+    drop = generator is not None and config.hidden_dropout > 0.0
+
+    def masks():
+        """m1 and m2 of the next layer, drawn at the handed shape, then cut."""
+        if not drop:
+            return None
+        return draw_dropout_masks(
+            (b, handed, x.shape[2]), config.hidden_dropout, generator, x.device, x.dtype,
+            width=width,
+        )
+
     if model_group is None and supports(
-        config.hidden_size, config.num_heads, s, config.intermediate_size
+        config.hidden_size, config.num_heads, width, config.intermediate_size
     ):
         kwargs = dict(
             num_heads=config.num_heads,
@@ -310,7 +369,7 @@ def _forward(params, input_ids, attention_mask, config, layers, generator, model
                     x,
                     attention_mask,
                     layer,
-                    generator=generator,
+                    masks=masks(),
                     dropout_rate=config.hidden_dropout,
                     **kwargs,
                 )
@@ -318,16 +377,12 @@ def _forward(params, input_ids, attention_mask, config, layers, generator, model
 
     remat = config.remat and torch.is_grad_enabled()
     for layer in layers:
-        masks = None
-        if generator is not None and config.hidden_dropout > 0.0:
-            masks = draw_dropout_masks(
-                x.shape, config.hidden_dropout, generator, x.device, x.dtype
-            )
+        m = masks()
         if remat:
             x = checkpoint(
-                _encoder_layer, x, layer, attention_mask, config, masks, model_group,
+                _encoder_layer, x, layer, attention_mask, config, m, model_group,
                 use_reentrant=False,
             )
         else:
-            x = _encoder_layer(x, layer, attention_mask, config, masks, model_group)
+            x = _encoder_layer(x, layer, attention_mask, config, m, model_group)
     return masked_mean_pool_l2norm(x, attention_mask)

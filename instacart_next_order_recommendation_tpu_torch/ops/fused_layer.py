@@ -523,12 +523,18 @@ def draw_dropout_masks(
     generator: torch.Generator,
     device: torch.device,
     dtype: torch.dtype,
+    width: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two ``{0, 1/keep}`` masks in ``dtype``, m1 then m2, from ``generator``."""
+    """Two ``{0, 1/keep}`` masks in ``dtype``, m1 then m2, from ``generator``.
+
+    Each is drawn at ``shape`` (``[B, S, H]``, the shape the step was
+    handed) and then cut to its first ``width`` columns before the compare
+    and cast: the kept values, and the generator's state after the draws,
+    are the uncut draw's whatever ``width`` is."""
     keep = 1.0 - float(dropout_rate)
     out = []
     for _ in range(2):
-        bits = torch.rand(shape, generator=generator, device=device) < keep
+        bits = torch.rand(shape, generator=generator, device=device)[:, :width] < keep
         out.append(torch.where(bits, 1.0 / keep, 0.0).to(dtype))
     return out[0], out[1]
 

@@ -79,6 +79,7 @@ from instacart_next_order_recommendation_tpu_torch.models.encoder import (
     TowerConfig,
     encode,
     init_params,
+    tower_widths,
 )
 from instacart_next_order_recommendation_tpu_torch.models.text_encoder import (
     TextEncoder,
@@ -227,7 +228,14 @@ class TrainStep:
     generator seeded per step, MNRL, backward; every
     ``accum``-th call also takes the AdamW step on the mean of the
     accumulated gradients, at the schedule's lr for the count of optimizer
-    steps taken so far."""
+    steps taken so far.
+
+    Each tower runs only as wide as its batch's longest real row, rounded
+    up to 16 (``encoder.tower_widths``: both widths in one device read,
+    before anything of the step launches), so short positives do not run at
+    the anchors' width. The dropout masks are drawn at the handed shape and
+    then cut (``encoder.encode``), so a step's masks and the generator's
+    state after it are those of the uncut step."""
 
     def __init__(
         self, params, tower_cfg, optimizer, schedule, *, loss_scale, accum, device, mesh=None
@@ -253,11 +261,14 @@ class TrainStep:
         ``train.backward`` and (on an optimizer step) ``train.optimizer``."""
         with span("train.step"):
             a_ids, a_mask, p_ids, p_mask = batch
+            # Waits for the batch's copies (and for whatever the stream holds
+            # before them), then launches the whole step without a read.
+            a_width, p_width = tower_widths(a_mask, p_mask)
             self.generator.manual_seed(seed)
             kw = dict(generator=self.generator, model_group=self.model_group)
             with span("train.forward"):
-                qa = encode(self.params, a_ids, a_mask, self.tower_cfg, **kw)
-                qp = encode(self.params, p_ids, p_mask, self.tower_cfg, **kw)
+                qa = encode(self.params, a_ids, a_mask, self.tower_cfg, width=a_width, **kw)
+                qp = encode(self.params, p_ids, p_mask, self.tower_cfg, width=p_width, **kw)
                 loss = mnrl_loss(qa, qp, scale=self.loss_scale, group=self.data_group)
             with span("train.backward"):
                 (loss / self.accum).backward()  # grads sum to the mean over the micro-batches

@@ -19,8 +19,9 @@ plain ints. Both count only while a profiler runs.
 
 Spans and counts in the port: ``serve.upload`` and ``serve.launch``
 (``FusedServePipeline``); ``tower.encode`` with ``tower.rows``,
-``tower.slots`` (rows x width) and ``tower.tokens`` (the mask's sum) for
-every tower forward; ``train.step`` and its ``train.forward``,
+``tower.slots`` (rows x handed width) and ``tower.tokens`` (the mask's sum)
+for every tower forward, and ``tower.cut_slots`` (rows x the columns cut)
+for one that runs narrower than it was handed; ``train.step`` and its ``train.forward``,
 ``train.backward`` and ``train.optimizer``; ``train.assemble`` and
 ``train.seeds`` in the trainer's loop, whose ``ITOR_LOOP_TIMING`` line is
 read from them through ``recording()``.
