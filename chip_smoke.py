@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-Run from the repository root, with no arguments:
+Run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only modernbert]
 
 1. Device and build: prints the card (``nvidia-smi`` name and power limit)
    and builds the port's CUDA kernels from ``ops/csrc`` in this checkout;
@@ -54,6 +54,23 @@ Run from the repository root, with no arguments:
    256}, k in {10, 16, 100}, with and without a candidate mask, and timed
    in turns beside the f32 K3 on the same rows and torch.topk(torch.mm(q,
    C.T), k) on the bf16 operands.
+2b. ModernBERT's wrappers (``ops/modernbert.py``) at the serve cell's
+   longest and shortest batch (16 x 8,192 and 128 x 1,024 tokens), every
+   row after the first padded: ``modernbert_attention`` global (theta
+   160,000) and banded (|i - j| <= 64, theta 10,000), ``modernbert_layer``
+   in both forms and ``modernbert_final_norm``, each against its plain
+   version within ``MB_REL_TOL`` of the largest magnitude (the layer's own
+   change, the residual taken off), the attention also against the plain
+   version with the other band and with the other theta, which must lie
+   past it; each timed with CUDA events beside its plain version, its bound
+   and, for the attention, ``scaled_dot_product_attention`` with the same
+   mask. Then a 22-layer ModernBERT-base serve path (random weights, a
+   WordPiece vocab): ``TextEncoder.encode_resident`` over 512 products and
+   one ``FusedServePipeline.topk_device`` call at each shape, launch counts
+   zeroed before each, and the profiler's launches of that call: 8 global
+   and 14 banded attention kernels, the products on the GEMM core only (no
+   cuBLAS, SDPA or flash kernel). ``python3 chip_smoke.py --only
+   modernbert`` runs phase 1 and this phase alone.
 3. The serve path at the full width of MiniLM-L6 (random weights from a
    seeded generator): a WordPiece vocab trained on a 50,000-product catalog,
    ``Recommender`` encoding the catalog through the kernels, a few
@@ -383,6 +400,23 @@ FUSED_LAYER_GEMMS = {
 # What ptxas says where it drops setmaxnreg or makes the wgmma of a kernel
 # wait for each other: the core must show neither.
 PTXAS_CORE_WARNINGS = ("setmaxnreg ignored", "wgmma.mma_async instructions are serialized")
+# The ModernBERT layer's kernels (csrc/modernbert.cu): its passes, its two
+# attention forms and the GEMM core at (FORM_XW, EPI_BIAS) and (FORM_XW,
+# EPI_ADD_AUX_F32).
+MODERNBERT_KERNELS = (
+    "mb_rope_kernel", "mb_attn_global_kernel", "mb_attn_band_kernel", "mb_rownorm_kernel",
+    "mb_geglu_kernel", "gemm_wgmma_kernel<0,0>", "gemm_wgmma_kernel<0,4>",
+)
+# ModernBERT's serve cell's longest and shortest batch (rows, tokens), and
+# its wrappers against their plain versions (phase 2b): bf16 outputs, P
+# rounded tile by tile against a running maximum, within this share of the
+# largest magnitude; a band or theta not the layer's moves the attention
+# past it.
+MODERNBERT_SHAPES = ((16, 8192), (128, 1024))
+MB_REL_TOL = 2e-2
+# Kernel names of a library the port must not run (cuBLAS, SDPA, flash).
+LIBRARY_KERNEL_WORDS = ("cublas", "cutlass", "xmma", "nvjet", "sm90_", "flash", "fmha",
+                        "efficient_attention")
 # The GEMM core alone (phase 2, ``fused_layer.gemm_core``) against the f32
 # products of the same bf16 operands on the card: bf16 outputs within one
 # bf16 ulp of the largest magnitude (another summation order may round a
@@ -1655,6 +1689,210 @@ class Smoke:
             self.check(attention_rows_ok(fwd, bwd), f"K6/K7 {name}")
             del q, k, v, do
             torch.cuda.empty_cache()
+
+    def compare_modernbert(self, dev) -> None:
+        """Phase 2b (see the module's docstring): ModernBERT's wrappers
+        against their plain versions at the serve cell's shapes, timed, and
+        the launches of its serve path, for the kernels line."""
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import (
+            MODERNBERT_BASE,
+            init_params,
+            prepare_layers,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops import modernbert as mb
+
+        h, heads, inter = MODERNBERT_BASE.hidden_size, MODERNBERT_BASE.num_heads, 1152
+        thetas = {-1: MODERNBERT_BASE.global_rope_theta, 64: MODERNBERT_BASE.local_rope_theta}
+        cfg = dataclasses.replace(MODERNBERT_BASE, num_layers=2)
+        g_cpu = torch.Generator().manual_seed(23)
+        params = init_params(cfg, g_cpu)
+        # Unit-gain projections, so that attention and GeGLU each move the
+        # layer's output as much as the other (at the published 0.02 the
+        # attention's share is small); norm scales away from one.
+        for name, fan in (("qkv_w", h), ("o_w", h), ("wi", h), ("wo_mlp", inter)):
+            params["layers"][name].normal_(0.0, fan ** -0.5, generator=g_cpu)
+        for name in ("attn_ln_scale", "mlp_ln_scale"):
+            params["layers"][name].uniform_(0.5, 1.5, generator=g_cpu)
+        params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+        layers = prepare_layers(params, cfg)
+        g = torch.Generator(device=dev).manual_seed(23)
+
+        def rel(got, want, mask):
+            real = mask.bool()
+            w = want[real].float()
+            return float((got[real].float() - w).abs().max()) / float(w.abs().max())
+
+        for b, s in MODERNBERT_SHAPES:
+            # Row 0 whole; the others from 7/8 of S down to half of it; the
+            # last only 40 tokens, inside one band.
+            lengths = [s] + [s - (r * s) // (2 * b) - s // 8 for r in range(1, b - 1)] + [40]
+            mask = torch.zeros(b, s, dtype=torch.int32, device=dev)
+            for r, n in enumerate(lengths):
+                mask[r, :n] = 1
+            qkv = torch.randn(b, s, 3 * h, generator=g, device=dev).to(torch.bfloat16)
+            x = torch.randn(b, s, h, generator=g, device=dev)
+            for half in (-1, 64):
+                form = "global" if half < 0 else "band"
+                theta, other_theta = thetas[half], thetas[-1 if half >= 0 else 64]
+                cos, sin = mb.rope_tables(s, theta, dev)
+                kw = dict(num_heads=heads, theta=theta, half=half)
+                got = mb.modernbert_attention(qkv, mask, **kw)
+                want = mb.attention_reference(qkv, mask, cos, sin, num_heads=heads, half=half)
+                err = rel(got, want, mask)
+                wrong_band = rel(got, mb.attention_reference(
+                    qkv, mask, cos, sin, num_heads=heads, half=64 if half < 0 else -1), mask)
+                wrong_theta = rel(got, mb.attention_reference(
+                    qkv, mask, *mb.rope_tables(s, other_theta, dev), num_heads=heads,
+                    half=half), mask)
+                del want
+                self.check(err <= MB_REL_TOL < min(wrong_band, wrong_theta),
+                           f"modernbert_attention {form} B={b} S={s}: {err:.3g} of the largest "
+                           f"magnitude from its plain version (tol {MB_REL_TOL}), "
+                           f"{wrong_band:.3g} from the other band's, {wrong_theta:.3g} from the "
+                           f"other theta's")
+                q = mb.rope_reference(qkv[..., :h].reshape(b, s, heads, 64).transpose(1, 2),
+                                      cos, sin)
+                k = mb.rope_reference(
+                    qkv[..., h : 2 * h].reshape(b, s, heads, 64).transpose(1, 2), cos, sin)
+                v = qkv[..., 2 * h :].reshape(b, s, heads, 64).transpose(1, 2)
+                pos = torch.arange(s, device=dev)
+                allowed = mask.bool()[:, None, None, :]
+                if half >= 0:
+                    allowed = allowed & ((pos[:, None] - pos[None, :]).abs() <= half)
+                ms = ms_in_turns({
+                    "kernel": lambda: mb.modernbert_attention(qkv, mask, **kw),
+                    "sdpa": lambda: torch.nn.functional.scaled_dot_product_attention(
+                        q, k, v, attn_mask=allowed),
+                }, iters=3)
+                plain_ms = cuda_ms(lambda: mb.attention_reference(
+                    qkv, mask, cos, sin, num_heads=heads, half=half), 1, warmup=0)
+                pairs = s * s if half < 0 else (2 * half + 1) * s - half * (half + 1)
+                bound, by = bound_ms(b * s * (8 * h + 4), 4.0 * b * pairs * h, PEAK_BF16)
+                self.kernel_rows[f"modernbert_attention_{form}_s{s}"] = {
+                    "shape": [b, s, h], "ms": ms["kernel"], "plain_ms": plain_ms,
+                    "library_ms": ms["sdpa"], "max_abs_err": err, "bound_ms": bound,
+                    "bound_by": by, "err_other_band": wrong_band, "err_other_theta": wrong_theta,
+                }
+                del q, k, v, allowed
+                layer = layers[0 if half < 0 else 1]
+                lkw = dict(num_heads=heads, eps=MODERNBERT_BASE.layer_norm_eps, theta=theta,
+                           half=half)
+                y = mb.modernbert_layer(x, mask, layer, **lkw)
+                y_plain = mb.layer_reference(x, mask, layer, **lkw)
+                err = rel(y - x, y_plain - x, mask)
+                del y, y_plain
+                self.check(err <= MB_REL_TOL,
+                           f"modernbert_layer {form} B={b} S={s}: its change {err:.3g} of the "
+                           f"largest from the plain layer's (tol {MB_REL_TOL})")
+                ms = cuda_ms_median(lambda: mb.modernbert_layer(x, mask, layer, **lkw), 3)
+                plain_ms = cuda_ms(lambda: mb.layer_reference(x, mask, layer, **lkw), 1,
+                                   warmup=0)
+                weights = (4 * h * h + 3 * h * inter) * 2 + 2 * h * 4
+                ops = 2.0 * b * s * (4 * h * h + 3 * h * inter) + 4.0 * b * pairs * h
+                bound, by = bound_ms(b * s * h * 8 + weights, ops, PEAK_BF16)
+                self.kernel_rows[f"modernbert_layer_{form}_s{s}"] = {
+                    "shape": [b, s, h], "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                    "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                }
+                log(f"ModernBERT {form} B={b} S={s} ({self.smi}): attention "
+                    f"{json.dumps(self.kernel_rows[f'modernbert_attention_{form}_s{s}'])}; "
+                    f"layer {json.dumps(self.kernel_rows[f'modernbert_layer_{form}_s{s}'])}")
+            scale = params["final"]["ln_scale"]
+            y = mb.modernbert_final_norm(x, scale, eps=1e-5, dtype=torch.bfloat16)
+            err = rel(y, mb._norm(x, scale, 1e-5), mask)
+            self.check(err <= 2.0**-7, f"modernbert_final_norm B={b} S={s}: {err:.3g} of the "
+                                       "largest from its plain version (tol 2^-7)")
+            bound, by = bound_ms(b * s * h * 6 + h * 4, 0.0, PEAK_BF16)
+            self.kernel_rows[f"modernbert_final_norm_s{s}"] = {
+                "shape": [b, s, h],
+                "ms": cuda_ms_median(lambda: mb.modernbert_final_norm(
+                    x, scale, eps=1e-5, dtype=torch.bfloat16), 5),
+                "plain_ms": cuda_ms_median(lambda: mb._norm(x, scale, 1e-5).to(torch.bfloat16), 5),
+                "library_ms": None, "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+            }
+            del qkv, x, y, mask
+            torch.cuda.empty_cache()
+        self.modernbert_serve_launches(dev)
+
+    def modernbert_serve_launches(self, dev) -> None:
+        """The launches of ModernBERT-base's serve path (phase 2b): the
+        wrappers' counts over one ``encode_resident`` of 512 products and
+        one ``topk_device`` call at each shape, zeroed before each; the
+        profiler's launches of the ``topk_device`` call."""
+        from instacart_next_order_recommendation_tpu_torch.index import ShardedCatalogIndex
+        from instacart_next_order_recommendation_tpu_torch.models.encoder import (
+            MODERNBERT_BASE,
+            init_params,
+        )
+        from instacart_next_order_recommendation_tpu_torch.models.text_encoder import TextEncoder
+        from instacart_next_order_recommendation_tpu_torch.ops import (
+            cosine_topk,
+            masked_mean_pool_l2norm,
+        )
+        from instacart_next_order_recommendation_tpu_torch.ops import modernbert as mb
+        from instacart_next_order_recommendation_tpu_torch.serve.pipeline import (
+            FusedServePipeline,
+        )
+        from instacart_next_order_recommendation_tpu_torch.tokenizer import WordPieceTokenizer
+        from instacart_next_order_recommendation_tpu_torch.utils.bench_texts import (
+            build_catalog_texts,
+        )
+
+        wrappers = (mb.modernbert_layer, mb.modernbert_attention, mb.modernbert_final_norm,
+                    masked_mean_pool_l2norm, cosine_topk)
+
+        def counted(fn) -> dict[str, int]:
+            for w in wrappers:
+                w.launches = 0
+            fn()
+            torch.cuda.synchronize()
+            return {w.__name__: w.launches for w in wrappers}
+
+        cfg = MODERNBERT_BASE
+        catalog = build_catalog_texts(512, np.random.default_rng(23))
+        tok = WordPieceTokenizer.train(catalog, vocab_size=30_000)
+        params = init_params(cfg, torch.Generator().manual_seed(23))
+        params = {k: {n: t.to(dev) for n, t in v.items()} for k, v in params.items()}
+        encoder = TextEncoder(params, cfg, tok, max_seq_length=cfg.max_seq_length, device=dev)
+        emb = []
+        encode = counted(lambda: emb.append(encoder.encode_resident(catalog, batch_size=256)))
+        index = ShardedCatalogIndex(emb[0], mesh=None, device=dev)
+        fused = FusedServePipeline(encoder.params, cfg, index.catalog, len(catalog),
+                                   pad_id=tok.pad_id, layers=encoder.layers, device=dev)
+        self.check(encode["modernbert_layer"] == 2 * cfg.num_layers
+                   and encode["modernbert_final_norm"] == 2
+                   and encode["masked_mean_pool_l2norm"] == 2,
+                   f"encode_resident of 512 products in batches of 256: {encode}")
+        rng = np.random.default_rng(24)
+        n_global = sum(1 for i in range(cfg.num_layers) if i % cfg.global_attn_every_n_layers == 0)
+        for b, s in MODERNBERT_SHAPES:
+            ids = rng.integers(5, tok.vocab_size, size=(b, s)).astype(np.int32)
+            ids[1:, s - s // 4 :] = tok.pad_id  # every row after the first padded
+            call = counted(lambda: fused.topk_device(ids, None, 10))
+            launches = launch_breakdown(lambda: fused.topk_device(ids, None, 10), calls=1)
+            names = collections.Counter(x["name"] for x in launches)
+            by_form = {form: sum(n for name, n in names.items() if f"mb_attn_{form}_kernel" in name)
+                       for form in ("global", "band")}
+            library = sorted(name for name in names if any(
+                w in name.lower() for w in LIBRARY_KERNEL_WORDS + ("gemm", "attention"))
+                and not name.startswith(("fl::", "mb::")))
+            gemm = sum(n for name, n in names.items() if name.startswith("fl::gemm_wgmma_kernel"))
+            self.check(call["modernbert_layer"] == cfg.num_layers
+                       and call["modernbert_final_norm"] == 1 and call["cosine_topk"] == 1
+                       and by_form == {"global": n_global, "band": cfg.num_layers - n_global}
+                       and gemm == 4 * cfg.num_layers and not library,
+                       f"ModernBERT topk_device B={b} S={s}: wrappers {call}, attention "
+                       f"kernels {by_form}, GEMM core {gemm}, library kernels {library}")
+            log(f"ModernBERT serve path B={b} S={s} ({self.smi}): encode_resident {encode}; "
+                f"topk_device {call}; {len(launches)} launches, "
+                f"{sum(x['us'] for x in launches) / 1e3:.3f} ms: {dict(names)}")
+            for form in ("global", "band"):
+                self.kernel_rows[f"modernbert_attention_{form}_s{s}"]["launches"] = by_form[form]
+                self.kernel_rows[f"modernbert_layer_{form}_s{s}"]["launches"] = by_form[form]
+            self.kernel_rows[f"modernbert_final_norm_s{s}"]["launches"] = call[
+                "modernbert_final_norm"]
+        del fused, index, encoder, params, emb
+        torch.cuda.empty_cache()
 
     def time_topk(self, dev) -> None:
         """K3 at B in {1, 256} over a 50k-row catalog of unit rows at D=384
@@ -6738,7 +6976,20 @@ class BenchPhase(ToolsPhase):
         return pins
 
 
-def main() -> int:
+def modernbert_rows(smoke) -> list[dict]:
+    """Phase 2b's rows of the kernels line (no JAX counterpart)."""
+    return [{"name": name, "route": "cuda", "source": f"{PKG}/ops/csrc/modernbert.cu",
+             "replaces": None, **row}
+            for name, row in smoke.kernel_rows.items() if name.startswith("modernbert_")]
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", choices=("modernbert",), default=None,
+                        help="run the build's checks and this phase alone")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA GPU", file=sys.stderr)
         return 1
@@ -6799,6 +7050,28 @@ def main() -> int:
         )
         smoke.check(not any(w in logs[name] for w in PTXAS_CORE_WARNINGS),
                     f"ptxas kept setmaxnreg and left the wgmma of {name} unserialized")
+    usage = _build.ptxas_usage(logs["modernbert"])
+    log(f"ptxas (registers, spill stores) of the modernbert kernels: {json.dumps(usage)}")
+    smoke.check(
+        set(MODERNBERT_KERNELS) <= set(usage) and not any(spill for _, spill in usage.values())
+        and not any(w in logs["modernbert"] for w in PTXAS_CORE_WARNINGS),
+        "every modernbert kernel (RoPE, both attention forms, the row norm, GeGLU, its two GEMM "
+        "core instances) in ptxas's report, none spilling, setmaxnreg kept",
+    )
+    if args.only == "modernbert":
+        try:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                smoke.compare_modernbert(dev)
+            log(f"phase 2b (ModernBERT) {time.perf_counter() - t0:.1f}s ({smi})")
+        except Exception:  # noqa: BLE001 - report the failure and exit non-zero
+            traceback.print_exc()
+            smoke.failures.append("exception")
+        print(json.dumps({"kernels": modernbert_rows(smoke)}), flush=True)
+        if smoke.failures:
+            log(f"FAILED: {smoke.failures}")
+            return 1
+        return 0
 
     try:
         t0 = time.perf_counter()
@@ -6822,6 +7095,8 @@ def main() -> int:
         )
         smoke.compare_contract_shapes(dev)
         smoke.compare_attention_kernels(dev)
+        with torch.inference_mode():
+            smoke.compare_modernbert(dev)
         smoke.time_topk(dev)
         smoke.compare_packed_topk(dev)
         smoke.compare_bf16_topk(dev)
@@ -6951,6 +7226,7 @@ def main() -> int:
                for phase, counts in (("5b", smoke.launches_5b), ("6", smoke.launches_6),
                                      ("6b", smoke.launches_6b), ("6c", smoke.launches_6c))},
         })
+    rows += modernbert_rows(smoke)
     log(smi)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({

@@ -1,5 +1,9 @@
 """MiniLM-class transformer tower: BERT encoder + mean-pool + L2-norm.
 
+(A ``TowerConfig`` whose ``architecture`` is ``"modernbert"`` takes
+``models/modernbert.py`` instead, through the same ``init_params``,
+``prepare_layers`` and ``encode``; everything below describes BERT.)
+
 Counterpart of the JAX package's ``models/encoder.py``. Parameters are a
 plain dict of tensors with the same names and the same stacked-layer layout
 (every ``layers`` entry has a leading ``num_layers`` axis), so weights carry
@@ -31,6 +35,7 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from instacart_next_order_recommendation_tpu_torch.models import modernbert
 from instacart_next_order_recommendation_tpu_torch.ops import (
     fused_encoder_layer,
     fused_encoder_layer_train,
@@ -49,6 +54,11 @@ from instacart_next_order_recommendation_tpu_torch.utils.profiling import count,
 Params = dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+ARCHITECTURES = ("bert", "modernbert")
+MODERNBERT_FIELDS = (
+    "architecture", "local_attention", "global_attn_every_n_layers", "global_rope_theta",
+    "local_rope_theta",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,13 +81,35 @@ class TowerConfig:
     # activation memory O(layers) instead of O(layers x layer). No effect on
     # the fused route, whose backward already keeps only the layer inputs.
     remat: bool = False
+    # "bert", or "modernbert" (models/modernbert.py): pre-norm layers without
+    # biases, RoPE in place of the position table, GeGLU, and every
+    # global_attn_every_n_layers-th layer global (RoPE theta
+    # global_rope_theta) while the others attend within local_attention // 2
+    # positions (local_rope_theta). BERT leaves these fields at their
+    # defaults, and ``to_dict`` leaves them out, so a BERT tower's
+    # model_config.json is the JAX package's.
+    architecture: str = "bert"
+    local_attention: int = 0
+    global_attn_every_n_layers: int = 1
+    global_rope_theta: float = 0.0
+    local_rope_theta: float = 0.0
+
+    def __post_init__(self):
+        if self.architecture not in ARCHITECTURES:
+            raise ValueError(
+                f"architecture must be one of {ARCHITECTURES}, not {self.architecture!r}"
+            )
 
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        if self.architecture == "bert":
+            for name in MODERNBERT_FIELDS:
+                d.pop(name)
+        return d
 
     @classmethod
     def from_dict(cls, d: dict) -> "TowerConfig":
@@ -99,6 +131,36 @@ MPNET_BASE_CLASS = TowerConfig(
     intermediate_size=3072,
 )
 
+# ModernBERT-base as published (answerdotai/ModernBERT-base, the config of
+# nomic-ai/modernbert-embed-base): 768 wide, 22 layers of 12 heads of 64, a
+# GeGLU of 1,152, a 128-token window (|i - j| <= 64) with RoPE theta 10,000
+# and every third layer global with theta 160,000, 8,192 positions. Served
+# only on the card (no backward kernel); dropout 0 as published.
+MODERNBERT_BASE = TowerConfig(
+    vocab_size=50368,
+    hidden_size=768,
+    num_layers=22,
+    num_heads=12,
+    intermediate_size=1152,
+    max_position=8192,
+    type_vocab_size=0,
+    layer_norm_eps=1e-5,
+    hidden_dropout=0.0,
+    max_seq_length=8192,
+    architecture="modernbert",
+    local_attention=128,
+    global_attn_every_n_layers=3,
+    global_rope_theta=160000.0,
+    local_rope_theta=10000.0,
+)
+
+
+def is_modernbert(config) -> bool:
+    """Whether ``config`` is a ModernBERT tower's. A config without the field
+    (the JAX package's ``TowerConfig``, which callers may hand the port) is
+    BERT's."""
+    return getattr(config, "architecture", "bert") == "modernbert"
+
 
 def _trunc_normal(generator: torch.Generator, shape, stddev: float = 0.02) -> torch.Tensor:
     """Normal truncated to [-2, 2] standard deviations, then scaled: the
@@ -111,7 +173,10 @@ def _trunc_normal(generator: torch.Generator, shape, stddev: float = 0.02) -> to
 
 
 def init_params(config: TowerConfig, generator: torch.Generator) -> Params:
-    """BERT-style truncated-normal(0.02) init on the CPU, from ``generator``."""
+    """BERT-style truncated-normal(0.02) init on the CPU, from ``generator``
+    (ModernBERT's own init for a ModernBERT config)."""
+    if is_modernbert(config):
+        return modernbert.init_params(config, generator)
     h, inter, n = config.hidden_size, config.intermediate_size, config.num_layers
 
     def tn(*shape):
@@ -158,6 +223,8 @@ def prepare_layers(params: Params, config: TowerConfig) -> list[dict]:
     per tower for serving (``TextEncoder`` keeps them), once per forward when
     training."""
     dtype = DTYPES[config.compute_dtype]
+    if is_modernbert(config):
+        return modernbert.prepare_layers(params, config, dtype)
     stacked = params["layers"]
     return [
         prepare_layer({name: t[i] for name, t in stacked.items()}, dtype)
@@ -336,6 +403,11 @@ def encode(
 
 
 def _forward(params, input_ids, attention_mask, config, layers, generator, model_group, width):
+    if is_modernbert(config):
+        if model_group is not None:
+            raise ValueError("ModernBERT towers take no tensor-parallel model group")
+        return modernbert.forward(params, input_ids, attention_mask, config, layers, generator,
+                                  width, DTYPES[config.compute_dtype])
     b, handed = input_ids.shape
     x = embed(params, input_ids, config, generator, width)
     if width < handed:

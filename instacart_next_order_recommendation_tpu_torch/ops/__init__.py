@@ -22,6 +22,11 @@ from instacart_next_order_recommendation_tpu_torch.ops.fused_layer import (
     fused_encoder_layer_train,
 )
 from instacart_next_order_recommendation_tpu_torch.ops.mnrl import mnrl_loss
+from instacart_next_order_recommendation_tpu_torch.ops.modernbert import (
+    modernbert_attention,
+    modernbert_final_norm,
+    modernbert_layer,
+)
 from instacart_next_order_recommendation_tpu_torch.ops.pool_norm import (
     masked_mean_pool_l2norm,
 )
@@ -36,6 +41,9 @@ KERNEL_WRAPPERS = (
     cosine_topk,
     multi_head_attention,
     multi_head_attention_backward,
+    modernbert_layer,
+    modernbert_attention,
+    modernbert_final_norm,
 )
 
 
@@ -75,6 +83,9 @@ __all__ = [
     "launch_counts",
     "masked_mean_pool_l2norm",
     "mnrl_loss",
+    "modernbert_attention",
+    "modernbert_final_norm",
+    "modernbert_layer",
     "multi_head_attention",
     "multi_head_attention_backward",
     "multi_head_attention_backward_reference",

@@ -27,7 +27,7 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("attention", "fused_layer", "fused_layer_bwd", "pool_norm", "topk")
+SOURCES = ("attention", "fused_layer", "fused_layer_bwd", "modernbert", "pool_norm", "topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

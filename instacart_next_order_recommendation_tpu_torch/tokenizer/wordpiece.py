@@ -30,11 +30,13 @@ SEP_TOKEN = "[SEP]"
 MASK_TOKEN = "[MASK]"
 SPECIAL_TOKENS = [PAD_TOKEN, UNK_TOKEN, CLS_TOKEN, SEP_TOKEN, MASK_TOKEN]
 
-# Static sequence-length buckets up to BERT's positional limit. Finer than
-# powers of two in the 64-256 range: the fused encoder layer accepts any
-# multiple of 16, and tower FLOPs scale with the padded length, so a
-# 150-token query pays 160 instead of 256.
-LENGTH_BUCKETS = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 512)
+# Static sequence-length buckets. Finer than powers of two in the 64-256
+# range: the fused encoder layer accepts any multiple of 16, and tower FLOPs
+# scale with the padded length, so a 150-token query pays 160 instead of
+# 256. Up to 512 (BERT's positional limit) they are the JAX package's; past
+# it, every 256 tokens up to 8,192 (ModernBERT's context), where the JAX
+# package's stop: a 1,100-token batch pads to 1,280, not to max_seq_length.
+LENGTH_BUCKETS = (16, 32, 48, 64, 96, 128, 160, 192, 224, 256, 512) + tuple(range(768, 8193, 256))
 
 
 def bucket_length(max_token_len: int, max_seq_length: int = 256) -> int:
