@@ -31,13 +31,26 @@
 //   one K1 and K5 run: wgmma fed by TMA), FORM_XW. The two residual adds are
 //   its EPI_ADD_AUX_F32 epilogue: the f32 residual is loaded by TMA beside
 //   the tile's products and the f32 sum stored, so the stream never rounds.
-// - Attention, one block per (64-query tile, head, batch row), online
-//   softmax over 64-key tiles that stream through a two-stage cp.async ring
-//   (mma.sync products of mma_common.cuh); the banded form schedules only
-//   the key tiles that meet the band (three of them at half 64), so its
-//   work grows as S, not S^2. The global and banded forms are two kernels,
-//   mb_attn_global_kernel and mb_attn_band_kernel, so a trace tells them
-//   apart.
+// - Global attention, mb_attn_global_kernel, is warp-specialised on wgmma
+//   fed by TMA: one block per (192-query tile, head, batch row), a producer
+//   warpgroup whose one thread loads Q once and streams 128-key tiles of K,
+//   V and the key bias through a four-stage mbarrier ring (its registers
+//   given to the consumers by setmaxnreg), and three consumer warpgroups of
+//   64 query rows, each holding its Q in shared memory for every product:
+//   S = Q K^T as wgmma with both operands in shared memory, O += P V with P
+//   in registers. Kept overlap: a warpgroup's softmax of tile n runs under
+//   its own P V of tile n - 1, and the warpgroups issue their products in
+//   turns, so one's softmax runs under the others' products (details at the
+//   kernel).
+// - Banded attention, mb_attn_band_kernel, keeps the bring-up body
+//   (attn_body, mma.sync products of mma_common.cuh): one block per
+//   (64-query tile, head, batch row), online softmax over 64-key tiles that
+//   stream through a two-stage cp.async ring, scheduling only the key tiles
+//   that meet the band (three of them at half 64), so its work grows as S,
+//   not S^2. It is bound by bytes over three key tiles a query tile, where
+//   the global form is bound by its long K, V streams at the tensor cores'
+//   rate; the two share no code, so neither carries a mode switch in its
+//   inner loop, and a trace tells them apart by name.
 // - RoPE in place on q and k of the packed projection (one pass), GeGLU as
 //   one pass over [a | g], and the norms as one row pass each, f32 in and
 //   bf16 out. Fusing them into the products' epilogues is later work.
@@ -92,7 +105,7 @@ mb_rope_kernel(bf16* __restrict__ qkv, const float* __restrict__ cos_t,
   *reinterpret_cast<uint4*>(base + j0 + ROT) = hi;
 }
 
-// ------------------------------------------------------------- attention
+// --------------------------------------------------- banded attention
 // Online softmax (the running row max m and sum l, the output rescaled by
 // exp(m_old - m_new) as each key tile lands); P = exp(x - m) rounded to bf16
 // for the P V product, l summed in f32, the output divided by l at the end.
@@ -220,28 +233,468 @@ __device__ __forceinline__ void attn_body(const bf16* __restrict__ qkv,
 }
 
 __global__ void __launch_bounds__(THREADS)
-mb_attn_global_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
-                      bf16* __restrict__ out, int S, int H, float scale) {
-  attn_body<false>(qkv, key_bias, out, S, H, 0, scale);
-}
-
-__global__ void __launch_bounds__(THREADS)
 mb_attn_band_kernel(const bf16* __restrict__ qkv, const float* __restrict__ key_bias,
                     bf16* __restrict__ out, int S, int H, int half, float scale) {
   attn_body<true>(qkv, key_bias, out, S, H, half, scale);
 }
 
+// ------------------------------------------------------ global attention
+// The global form on Hopper's asynchronous path: one block per (192-query
+// tile, head, batch row) and four warpgroups. The producer's one thread
+// loads the block's Q once by TMA, then streams 128-key tiles of K and V and
+// their 128 f32 key biases by TMA into a ring of GSTAGES stages, each handed
+// over on its full mbarrier (expected bytes) and taken back on its empty one
+// (one arrival a consumer warp); setmaxnreg gives its registers to the
+// consumers. Three consumer warpgroups own 64 query rows each: S = Q K^T is
+// wgmma m64n128k16 with both operands in shared memory; O += P V is wgmma
+// m64n64k16 with P, rounded to bf16, as the register A operand and V an
+// MN-major operand in shared memory. Overlap: within a warpgroup the softmax
+// of tile n runs under the P V of tile n - 1, and O's rescale under the
+// Q K^T of tile n; across warpgroups the products are issued in turns (named
+// barriers 4 + wg, round robin), so that one warpgroup's softmax runs under
+// the others' products. Three warpgroups and not two: at head_dim 64 the
+// softmax (an exponential a score) costs as much issue as the products, and
+// two left the card idle between them (an H100 at B=16 S=8192: 9.0 ms against
+// 7.3 for three).
+//
+// The arithmetic is attn_body's with log2 e folded into the exponent: the
+// logit z = scale qk + bias in f32 (INIT_MAX at keys past S), P = 2^(z log2 e
+// - m log2 e) for the running maximum m, rounded to bf16 for P V while l
+// sums it in f32, the rescale 2^((m_old - m_new) log2 e) (skipped where it is
+// 1 for every row of a warp), the output divided by l.
+//
+// Tensor maps: q, k and v through one 3-D map of the packed projection
+// [B, S, 3H] (boxes of 64 x 64 x 1), so that rows past S read as zeros and
+// never the next batch row's; the key bias through a 1-D map of [B * S]
+// (any S; what lands past a row's S is masked); the output through a 3-D
+// map [B, S, H], one box of 64 rows a consumer, which drops rows past S.
+constexpr int GC = 3;                    // consumer warpgroups, 64 query rows each
+constexpr int GQ = 64 * GC, GK = 128;    // query rows a block, keys a tile
+constexpr int GSTAGES = 4;
+constexpr int G_THREADS = 128 * (1 + GC);
+constexpr int G_BOX = 64 * HD * 2;       // 64 rows of q, k, v or o: 8192 bytes
+constexpr int G_KV_BYTES = GK * HD * 2;  // a K or V tile
+constexpr int G_BIAS = GK * 4;
+constexpr int G_STAGE_TX = 2 * G_KV_BYTES + G_BIAS;
+constexpr size_t G_SMEM = 1024 + GC * G_BOX + (size_t)GSTAGES * (2 * G_KV_BYTES + G_BIAS) +
+                          (1 + 2 * GSTAGES) * sizeof(uint64_t);
+constexpr int G_PRODUCER_REGS = 24, G_CONSUMER_REGS = 160;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(wgc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(wgc::smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(wgc::smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(wgc::smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float2 lds2(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(addr));
+  return v;
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory;
+// `accumulate` 0 overwrites d. d's layout: wgc::wgmma_m64n128k16's.
+__device__ __forceinline__ void wgmma_qk(float (&d)[64], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, "
+      "%64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A bf16 from registers (the
+// mma.sync m16n8k16 A fragment, warp w taking rows 16 w to 16 w + 15), B
+// MN-major in shared memory. d[4 j + 2 h + e] at row 16 w + g + 8 h, column
+// 8 j + 2 (lane % 4) + e.
+__device__ __forceinline__ void wgmma_pv(float (&d)[32], const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) wgc::fence_operand(r[i]);
+}
+
+__device__ __forceinline__ void fence_all(uint32_t (&r)[GK / 4]) {
+#pragma unroll
+  for (int i = 0; i < GK / 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// S = Q K^T of one key tile: four 16-deep steps over head_dim 64.
+__device__ __forceinline__ void issue_qk(float (&s)[GK / 2], uint32_t q_rows, uint32_t k_tile) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wgmma_qk(s, wgc::sw128_desc(q_rows + kk * 32, 16, 1024),
+             wgc::sw128_desc(k_tile + kk * 32, 16, 1024), kk);
+}
+
+// O += P V of one key tile: eight 16-key steps, 2048 bytes of V apart.
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&p)[GK / 4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kc = 0; kc < GK / 16; ++kc)
+    wgmma_pv(o, p + 4 * kc, wgc::sw128_desc(v_tile + kc * 2048, 8192, 1024));
+}
+
+// The online softmax of one key tile on its scores s, in place (s becomes P
+// in f32); bias is the tile's key biases in shared memory. Lane (g, t) holds
+// rows g and g + 8 of its warp's 16, columns 8 j + 2 t + e in s[4 j + 2 h +
+// e]. Sets each row's rescale factor a.
+template <bool MASK>
+__device__ __forceinline__ void softmax_tile(float (&s)[GK / 2], uint32_t bias, int c0, int S,
+                                             int tq, float scale, float& m0, float& m1,
+                                             float& l0, float& l1, float& a0, float& a1) {
+  // Each row's maximum and sum in two chains (even and odd j), for the
+  // scheduler's sake; the maximum is exact whatever the order.
+  float t0[2] = {INIT_MAX, INIT_MAX}, t1[2] = {INIT_MAX, INIT_MAX};
+#pragma unroll
+  for (int j = 0; j < GK / 8; ++j) {
+    const float2 b = lds2(bias + 4 * (8 * j + 2 * tq));
+    s[4 * j] = fmaf(s[4 * j], scale, b.x);
+    s[4 * j + 1] = fmaf(s[4 * j + 1], scale, b.y);
+    s[4 * j + 2] = fmaf(s[4 * j + 2], scale, b.x);
+    s[4 * j + 3] = fmaf(s[4 * j + 3], scale, b.y);
+    if (MASK) {
+      const int c = c0 + 8 * j + 2 * tq;
+      if (c >= S) s[4 * j] = s[4 * j + 2] = INIT_MAX;
+      if (c + 1 >= S) s[4 * j + 1] = s[4 * j + 3] = INIT_MAX;
+    }
+    t0[j & 1] = fmaxf(t0[j & 1], fmaxf(s[4 * j], s[4 * j + 1]));
+    t1[j & 1] = fmaxf(t1[j & 1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  const float n0 = fmaxf(m0, quad_max(fmaxf(t0[0], t0[1])));
+  const float n1 = fmaxf(m1, quad_max(fmaxf(t1[0], t1[1])));
+  a0 = ex2((m0 - n0) * LOG2E);
+  a1 = ex2((m1 - n1) * LOG2E);
+  m0 = n0;
+  m1 = n1;
+  const float k0 = -n0 * LOG2E, k1 = -n1 * LOG2E;
+  float r0[2] = {0.0f, 0.0f}, r1[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < GK / 8; ++j) {
+    s[4 * j] = ex2(fmaf(s[4 * j], LOG2E, k0));
+    s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], LOG2E, k0));
+    s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], LOG2E, k1));
+    s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], LOG2E, k1));
+    r0[j & 1] += s[4 * j] + s[4 * j + 1];
+    r1[j & 1] += s[4 * j + 2] + s[4 * j + 3];
+  }
+  l0 = l0 * a0 + (r0[0] + r0[1]);
+  l1 = l1 * a1 + (r1[0] + r1[1]);
+}
+
+__device__ __forceinline__ void softmax_any(bool masked, float (&s)[GK / 2], uint32_t bias,
+                                            int c0, int S, int tq, float scale, float& m0,
+                                            float& m1, float& l0, float& l1, float& a0,
+                                            float& a1) {
+  if (masked)
+    softmax_tile<true>(s, bias, c0, S, tq, scale, m0, m1, l0, l1, a0, a1);
+  else
+    softmax_tile<false>(s, bias, c0, S, tq, scale, m0, m1, l0, l1, a0, a1);
+}
+
+// P in bf16 as the A operand of the 16-key step kc: p[4 kc + i] holds
+// s[8 kc + 2 i] and s[8 kc + 2 i + 1] (the accumulator's layout is the A
+// fragment's, two column groups a step).
+__device__ __forceinline__ void to_operand(const float (&s)[GK / 2], uint32_t (&p)[GK / 4]) {
+#pragma unroll
+  for (int i = 0; i < GK / 4; ++i) p[i] = bits(__floats2bfloat162_rn(s[2 * i], s[2 * i + 1]));
+}
+
+__device__ __forceinline__ void rescale(float (&o)[32], float a0, float a1) {
+  if (__all_sync(FULL, a0 == 1.0f && a1 == 1.0f)) return;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    o[4 * j] *= a0;
+    o[4 * j + 1] *= a0;
+    o[4 * j + 2] *= a1;
+    o[4 * j + 3] *= a1;
+  }
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1)
+mb_attn_global_kernel(const __grid_constant__ CUtensorMap map_qkv,
+                      const __grid_constant__ CUtensorMap map_bias,
+                      const __grid_constant__ CUtensorMap map_out, int S, int H, float scale) {
+  extern __shared__ unsigned char g_smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(g_smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* qs = smem;             // consumer w's 64 rows of Q (then of O) at w G_BOX
+  unsigned char* kv = qs + GC * G_BOX;  // stage s: K at kv + 2 s G_KV_BYTES, V after it
+  float* bias_s = reinterpret_cast<float*>(kv + GSTAGES * 2 * G_KV_BYTES);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(bias_s + GSTAGES * GK);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + GSTAGES;
+  const int q0 = blockIdx.x * GQ, hi = blockIdx.y, bi = blockIdx.z;
+  const int nt = (S + GK - 1) / GK;
+  const bool ragged = S % GK != 0;  // the last key tile reaches past S
+
+  if (threadIdx.x == 0) {
+    wgc::mbar_init(q_full, 1);
+    for (int s = 0; s < GSTAGES; ++s) {
+      wgc::mbar_init(&full[s], 1);
+      wgc::mbar_init(&empty[s], 4 * GC);  // every consumer warp
+    }
+    wgc::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer warpgroup: one thread issues every load
+    wgc::setmaxnreg_dec<G_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      wgc::tma_prefetch(&map_qkv);
+      wgc::tma_prefetch(&map_bias);
+      wgc::mbar_arrive_expect_tx(q_full, GC * G_BOX);
+      for (int w = 0; w < GC; ++w)
+        tma_load_3d(qs + w * G_BOX, &map_qkv, q_full, hi * HD, q0 + 64 * w, bi);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int n = 0; n < nt; ++n) {
+        wgc::mbar_wait(&empty[stage], phase ^ 1);
+        wgc::mbar_arrive_expect_tx(&full[stage], G_STAGE_TX);
+        unsigned char* k_tile = kv + stage * 2 * G_KV_BYTES;
+        for (int r = 0; r < GK; r += 64) {
+          tma_load_3d(k_tile + r * 128, &map_qkv, &full[stage], H + hi * HD, n * GK + r, bi);
+          tma_load_3d(k_tile + G_KV_BYTES + r * 128, &map_qkv, &full[stage], 2 * H + hi * HD,
+                      n * GK + r, bi);
+        }
+        tma_load_1d(bias_s + stage * GK, &map_bias, &full[stage], bi * S + n * GK);
+        if (++stage == GSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups
+    wgc::setmaxnreg_inc<G_CONSUMER_REGS>();
+    const int ct = threadIdx.x - 128;
+    const int wg = ct >> 7;
+    const int warp4 = (ct >> 5) & 3;
+    const int lane = ct & 31;
+    const int g = lane >> 2;
+    const int tq = lane & 3;
+    const uint32_t q_rows = wgc::smem_u32(qs) + wg * G_BOX;
+    const uint32_t ring = wgc::smem_u32(kv);
+    const uint32_t bias_ring = wgc::smem_u32(bias_s);
+    float s[GK / 2], o[32];
+    uint32_t p[GK / 4];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.0f;
+    float m0 = INIT_MAX, m1 = INIT_MAX, l0 = 0.0f, l1 = 0.0f, a0, a1;
+    int stage = 0;
+    uint32_t phase = 0;
+
+    // Turns: a warpgroup issues a round's products once the one before it
+    // has issued its own of that round (warpgroup 0: the last one, of the
+    // round before).
+    auto my_turn = [&]() { wgc::named_sync(4 + wg, 256); };
+    auto your_turn = [&](bool last) {
+      if (!(last && wg == GC - 1)) named_arrive(4 + (wg + 1) % GC, 256);
+    };
+    if (wg == GC - 1) named_arrive(4, 256);  // warpgroup 0 goes first
+
+    wgc::mbar_wait(q_full, 0);
+    wgc::mbar_wait(&full[0], 0);
+    fence_all(s);
+    my_turn();
+    wgc::wgmma_fence();
+    issue_qk(s, q_rows, ring);
+    wgc::wgmma_commit();
+    your_turn(false);
+    wgc::wgmma_wait<0>();
+    fence_all(s);
+    softmax_any(ragged && nt == 1, s, bias_ring, 0, S, tq, scale, m0, m1, l0, l1, a0, a1);
+    to_operand(s, p);
+    for (int n = 1; n < nt; ++n) {
+      const int prev = stage;
+      if (++stage == GSTAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      wgc::mbar_wait(&full[stage], phase);
+      fence_all(s);
+      fence_all(o);
+      fence_all(p);
+      my_turn();
+      wgc::wgmma_fence();
+      issue_qk(s, q_rows, ring + stage * 2 * G_KV_BYTES);
+      wgc::wgmma_commit();
+      rescale(o, a0, a1);  // by tile n - 1's factors, while Q K^T runs
+      fence_all(o);
+      wgc::wgmma_fence();
+      issue_pv(o, p, ring + prev * 2 * G_KV_BYTES + G_KV_BYTES);
+      wgc::wgmma_commit();
+      your_turn(false);
+      wgc::wgmma_wait<1>();  // S of tile n; P V of tile n - 1 still runs
+      fence_all(s);
+      softmax_any(ragged && n == nt - 1, s, bias_ring + stage * G_BIAS, n * GK, S, tq, scale,
+                  m0, m1, l0, l1, a0, a1);
+      wgc::wgmma_wait<0>();
+      fence_all(o);
+      fence_all(p);
+      if (lane == 0) wgc::mbar_arrive(&empty[prev]);
+      to_operand(s, p);
+    }
+    rescale(o, a0, a1);
+    fence_all(o);
+    fence_all(p);
+    my_turn();
+    wgc::wgmma_fence();
+    issue_pv(o, p, ring + stage * 2 * G_KV_BYTES + G_KV_BYTES);
+    wgc::wgmma_commit();
+    your_turn(true);
+    wgc::wgmma_wait<0>();
+    fence_all(o);
+
+    // ---- epilogue: O / l, staged in this warpgroup's own 64 rows of Q (its
+    // last product has read them) in TMA's swizzled layout, stored by TMA.
+    l0 = quad_sum(l0);
+    l1 = quad_sum(l1);
+    unsigned char* ob = qs + wg * G_BOX;
+    const int r = warp4 * 16 + g;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(ob + wgc::sw128_offset<2>(r, 8 * j + 2 * tq)) =
+          __floats2bfloat162_rn(o[4 * j] / l0, o[4 * j + 1] / l0);
+      *reinterpret_cast<__nv_bfloat162*>(ob + wgc::sw128_offset<2>(r + 8, 8 * j + 2 * tq)) =
+          __floats2bfloat162_rn(o[4 * j + 2] / l1, o[4 * j + 3] / l1);
+    }
+    wgc::fence_proxy_async();
+    wgc::named_sync(1 + wg, 128);
+    if ((ct & 127) == 0) {
+      wgc::tma_store_3d(&map_out, ob, hi * HD, q0 + wg * 64, bi);
+      wgc::bulk_commit();
+      wgc::bulk_wait<0>();
+    }
+  }
+}
+
+// f32 [n] in boxes of GK, no swizzle (encode_map's 128-byte swizzle takes
+// rows of at most 128 bytes).
+static cudaError_t encode_bias_map(CUtensorMap* map, const float* bias, long long n) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = wgc::tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {(cuuint64_t)n};
+  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // unread at rank 1
+  const cuuint32_t box[1] = {GK}, elem_strides[1] = {1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(bias),
+                            dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+static cudaError_t launch_attention_global(const bf16* qkv, const float* key_bias, bf16* out,
+                                           int batch, int seq, int H, int heads, float scale,
+                                           cudaStream_t stream) {
+  static std::atomic<unsigned long long> done{0};
+  cudaError_t e = allow_smem_once(mb_attn_global_kernel, G_SMEM, done);
+  if (e != cudaSuccess) return e;
+  CUtensorMap map_qkv, map_bias, map_out;
+  const cuuint32_t box[3] = {HD, 64, 1};
+  const cuuint64_t qkv_dims[3] = {(cuuint64_t)3 * H, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t qkv_strides[2] = {(cuuint64_t)3 * H * 2, (cuuint64_t)seq * 3 * H * 2};
+  e = wgc::encode_map(&map_qkv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, qkv, qkv_dims, qkv_strides,
+                      box);
+  if (e != cudaSuccess) return e;
+  const cuuint64_t out_dims[3] = {(cuuint64_t)H, (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t out_strides[2] = {(cuuint64_t)H * 2, (cuuint64_t)seq * H * 2};
+  e = wgc::encode_map(&map_out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, out, out_dims, out_strides,
+                      box);
+  if (e != cudaSuccess) return e;
+  e = encode_bias_map(&map_bias, key_bias, (long long)batch * seq);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((seq + GQ - 1) / GQ, heads, batch);
+  mb_attn_global_kernel<<<grid, G_THREADS, G_SMEM, stream>>>(map_qkv, map_bias, map_out, seq, H,
+                                                            scale);
+  return cudaGetLastError();
+}
+
 static cudaError_t launch_attention_mb(const bf16* qkv, const float* key_bias, bf16* out,
                                        int batch, int seq, int H, int heads, int half,
                                        float scale, cudaStream_t stream) {
+  if (half < 0)
+    return launch_attention_global(qkv, key_bias, out, batch, seq, H, heads, scale, stream);
   const size_t smem = (size_t)5 * tile_elems<HD>() * 2;  // Q and two stages of (K, V)
   const dim3 grid((seq + TQ - 1) / TQ, heads, batch);
-  if (half < 0) {
-    mb_attn_global_kernel<<<grid, THREADS, smem, stream>>>(qkv, key_bias, out, seq, H, scale);
-  } else {
-    mb_attn_band_kernel<<<grid, THREADS, smem, stream>>>(qkv, key_bias, out, seq, H, half,
-                                                         scale);
-  }
+  mb_attn_band_kernel<<<grid, THREADS, smem, stream>>>(qkv, key_bias, out, seq, H, half, scale);
   return cudaGetLastError();
 }
 

@@ -50,8 +50,12 @@ def _close(got, want, mask, tol):
     return err
 
 
+# The global form's tile edges: S not a multiple of its 128-query and
+# 128-key tiles (80, 1040), B=1, and at (1040, 8) rows whose real lengths
+# differ by a whole padded key tile (1040 down to 776: keys 896-1023 are
+# padding in rows 4-7).
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,b", [(64, 3), (1024, 2), (8192, 1)])
+@pytest.mark.parametrize("s,b", [(64, 3), (1024, 2), (8192, 1), (80, 1), (80, 3), (1040, 8)])
 @pytest.mark.parametrize("half", [-1, 64])
 @pytest.mark.parametrize("theta", THETAS)
 def test_attention_against_plain(dev, s, b, half, theta):
@@ -66,6 +70,28 @@ def test_attention_against_plain(dev, s, b, half, theta):
     # in the kernel, against the final maximum in the plain version.
     _close(got, want, mask, 2e-2)
     assert mb_ops.modernbert_attention.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [80, 1040])
+def test_global_call_is_one_launch(dev, s):
+    """A global-form call is one launch of ``mb_attn_global_kernel`` (the
+    benchmark times the form by that kernel's name), and the wrapper counts
+    it once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    qkv = torch.randn(2, s, 3 * H, device=dev).to(torch.bfloat16)
+    mask = _mask(2, s, dev)
+    kw = dict(num_heads=HEADS, theta=THETAS[0], half=-1)
+    mb_ops.modernbert_attention(qkv, mask, **kw)  # built and warm
+    torch.cuda.synchronize()
+    before = mb_ops.modernbert_attention.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mb_ops.modernbert_attention(qkv, mask, **kw)
+        torch.cuda.synchronize()
+    assert mb_ops.modernbert_attention.launches == before + 1
+    kernels = {e.key: e.count for e in prof.key_averages() if "mb_" in e.key}
+    assert sum(n for k, n in kernels.items() if "mb_attn_global_kernel" in k) == 1, kernels
 
 
 @pytest.mark.cuda
