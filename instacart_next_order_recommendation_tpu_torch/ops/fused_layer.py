@@ -452,7 +452,7 @@ def saves_residuals(batch: int, seq: int, hidden: int, inter: int) -> bool:
     backward (K1's save_resid, K5's resid form) at this shape, or keeps only
     its inputs and recomputes them. A rule of shape alone, so that the CPU
     and the card take the same form. From H100 readings
-    (``scripts/torch_fused_resid_rule.py``, PERF.md):
+    (PERF.md section 6, the residual-saving pair):
 
     - speed: one layer's step (K1-train + K5) was 4-11% faster in the resid
       form at MiniLM's and mpnet's widths from B=64 to 512 and S=64 to 512;

@@ -56,7 +56,7 @@ def pool_plan(b: int, s: int, sm_count: int = 132) -> PoolPlan:
     per SM, 12 warps with 2 rows where there are up to two, else 8 with 2.
     Set from cold timings of every form on an H100 at B in {1, ..., 1024},
     S in {32, 96, 192, 256}, H in {384, 768}
-    (``scripts/torch_pool_profile.py --sweep``)."""
+    (PERF.md section 6, K2's redesign)."""
     cluster = 1
     while cluster < MAX_CLUSTER and 4 * b * cluster <= sm_count and s // (2 * cluster) >= 24:
         cluster *= 2

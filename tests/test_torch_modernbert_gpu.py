@@ -16,12 +16,19 @@ from instacart_next_order_recommendation_tpu_torch.models.encoder import (
     MODERNBERT_BASE,
     encode,
     init_params,
-    prepare_layers,
 )
 from instacart_next_order_recommendation_tpu_torch.ops import modernbert as mb_ops
-
-H, HEADS, INTER = 768, 12, 1152  # ModernBERT-base's widths
-THETAS = (160000.0, 10000.0)
+from gpu_cases import (
+    MB_H as H,
+    MB_HEADS as HEADS,
+    MB_SERVE_SHAPES as SERVE_SHAPES,
+    MB_THETAS as THETAS,
+    attention_errors,
+    masked_rel,
+    modernbert_layers,
+    modernbert_serve_mask,
+    serve_path_launches,
+)
 
 
 @pytest.fixture
@@ -42,12 +49,8 @@ def _mask(b, s, dev):
 
 
 def _close(got, want, mask, tol):
-    """Real query rows only; the gap relative to the largest magnitude."""
-    real = mask.bool()
-    g, w = got[real].float(), want[real].float()
-    err = float((g - w).abs().max())
-    assert err <= tol * float(w.abs().max()), (err, float(w.abs().max()))
-    return err
+    err = masked_rel(got, want, mask)
+    assert err <= tol, err
 
 
 # The global form's tile edges: S not a multiple of its 128-query and
@@ -70,6 +73,19 @@ def test_attention_against_plain(dev, s, b, half, theta):
     # in the kernel, against the final maximum in the plain version.
     _close(got, want, mask, 2e-2)
     assert mb_ops.modernbert_attention.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", SERVE_SHAPES)
+@pytest.mark.parametrize("half", [-1, 64])
+def test_attention_at_the_serve_shapes_against_plain(dev, b, s, half):
+    """Within 2e-2 of the largest magnitude from the plain version with the
+    layer's band and theta, and past it from the plain version with the
+    other band and with the other theta."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    qkv = torch.randn(b, s, 3 * H, generator=g, device=dev).to(torch.bfloat16)
+    errs = attention_errors(qkv, modernbert_serve_mask(b, s, dev), half)
+    assert errs["max_rel_err"] <= 2e-2 < min(errs["err_other_band"], errs["err_other_theta"]), errs
 
 
 @pytest.mark.cuda
@@ -106,23 +122,22 @@ def test_band_is_not_global(dev):
     assert float((a.float() - c.float()).abs().max()) > 0.1
 
 
-def _layer(dev, first):
-    cfg = dataclasses.replace(MODERNBERT_BASE, num_layers=2)
-    p = init_params(cfg, torch.Generator().manual_seed(4))
-    p["layers"]["attn_ln_scale"].uniform_(0.5, 1.5)
-    p["layers"]["mlp_ln_scale"].uniform_(0.5, 1.5)
-    p = {g: {n: t.to(dev) for n, t in leaves.items()} for g, leaves in p.items()}
-    return prepare_layers(p, cfg)[0 if first else 1]
+def _layer(dev, first, unit_gain=False):
+    """Layer 0 (global) or 1 (banded) of ``modernbert_layers``."""
+    return modernbert_layers(dev, 4, unit_gain)[1][0 if first else 1]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("first", [True, False])
 @pytest.mark.parametrize("half", [-1, 64])
-def test_layer_entry_against_plain(dev, first, half):
-    b, s = 2, 1024
-    layer = _layer(dev, first)
+# (2, 1024) at the published init; the serve cell's shapes at unit gain,
+# with its padding.
+@pytest.mark.parametrize("b,s", [(2, 1024), *SERVE_SHAPES])
+def test_layer_entry_against_plain(dev, first, half, b, s):
+    serve = (b, s) in SERVE_SHAPES
+    layer = _layer(dev, first, unit_gain=serve)
     x = torch.randn(b, s, H, device=dev)
-    mask = _mask(b, s, dev)
+    mask = (modernbert_serve_mask if serve else _mask)(b, s, dev)
     kw = dict(num_heads=HEADS, eps=1e-5, theta=THETAS[half >= 0], half=half)
     got = mb_ops.modernbert_layer(x, mask, layer, **kw)
     want = mb_ops.layer_reference(x, mask, layer, **kw)
@@ -134,8 +149,9 @@ def test_layer_entry_against_plain(dev, first, half):
 
 
 @pytest.mark.cuda
-def test_final_norm_against_plain(dev):
-    x = torch.randn(3, 200, H, device=dev) * 3 + 1
+@pytest.mark.parametrize("b,s", [(3, 200), *SERVE_SHAPES])
+def test_final_norm_against_plain(dev, b, s):
+    x = torch.randn(b, s, H, device=dev) * 3 + 1
     scale = torch.rand(H, device=dev) + 0.5
     got = mb_ops.modernbert_final_norm(x, scale, eps=1e-5, dtype=torch.bfloat16)
     want = mb_ops._norm(x, scale, 1e-5).to(torch.bfloat16)
@@ -177,3 +193,23 @@ def test_training_on_the_card_raises(dev):
     with torch.no_grad():
         assert encode(p, ids, mask, cfg).shape == (2, H)
     assert modernbert.is_global(cfg, 0)
+
+
+@pytest.mark.cuda
+def test_serve_path_launches(dev):
+    """ModernBERT-base's serve path, all 22 layers (``serve_path_launches``):
+    ``encode_resident`` over 512 products in batches of 256 runs 44 layer, 2
+    final-norm and 2 pool launches; one ``topk_device`` call at each of the
+    serve cell's shapes runs 22 layer, 1 final-norm and 1 top-k launches,
+    and the profiler sees 8 global and 14 banded attention kernels, the
+    products on the GEMM core only (88 launches) and no library kernel."""
+    got = serve_path_launches(dev)
+    n, n_global, encode = got["layers"], got["global"], got["encode"]
+    assert (encode["modernbert_layer"], encode["modernbert_final_norm"],
+            encode["masked_mean_pool_l2norm"]) == (2 * n, 2, 2), encode
+    for b, s in SERVE_SHAPES:
+        call = got[b, s]
+        w = call["wrappers"]
+        assert (w["modernbert_layer"], w["modernbert_final_norm"], w["cosine_topk"]) == (n, 1, 1), w
+        assert call["attention"] == {"global": n_global, "band": n - n_global}, (b, s, call)
+        assert call["gemm"] == 4 * n and not call["library"], (b, s, call)
